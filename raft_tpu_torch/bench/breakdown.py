@@ -1,0 +1,87 @@
+"""Where a warm search's time goes on the card, by kernel.
+
+    python3 -m raft_tpu_torch.bench.breakdown [--seed N]
+
+Builds chip_smoke.py's configuration (SIFT-1M's shape from the seed:
+1,000,000 × 128 rows, 10,000 queries, k=10; IVF-Flat with 1024 lists and
+32 probes), runs each search once to warm up, then once under
+``torch.profiler``, and prints one JSON line per search: host wall time,
+the device time summed over kernels, their share of the wall time, and the
+kernels that take the most device time. Needs a CUDA card.
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import sys
+import time
+
+import numpy as np
+import torch
+from torch.profiler import ProfilerActivity, profile
+
+from raft_tpu_torch.bench.datagen import low_rank_clusters
+from raft_tpu_torch.neighbors import brute_force, ivf_flat
+
+N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
+N_LISTS, N_PROBES = 1024, 32
+
+
+def _device_us(event) -> float:
+    for name in ("self_device_time_total", "self_cuda_time_total"):
+        if hasattr(event, name):
+            return float(getattr(event, name))
+    return 0.0
+
+
+def profile_call(name: str, fn, top: int = 8) -> dict:
+    fn()  # warm
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CPU,
+                             ProfilerActivity.CUDA]) as prof:
+        t0 = time.perf_counter()
+        fn()
+        torch.cuda.synchronize()
+        wall_s = time.perf_counter() - t0
+    # device-side events only (kernels, copies): the CPU ops that launched
+    # them, and the trace ranges around them, report the same time again
+    kernels = [(e.key, _device_us(e), e.count) for e in prof.key_averages()
+               if str(getattr(e, "device_type", "")).endswith("CUDA")
+               and not getattr(e, "is_user_annotation", False)
+               and e.key not in (f"{name}.search", f"{name}.build")
+               and _device_us(e) > 0]
+    kernels.sort(key=lambda t: -t[1])
+    device_ms = sum(us for _, us, _ in kernels) / 1e3
+    return {"search": name, "wall_ms": wall_s * 1e3, "device_ms": device_ms,
+            "device_busy_share": device_ms / (wall_s * 1e3),
+            "top_kernels": [{"name": n[:80], "ms": us / 1e3, "calls": c}
+                            for n, us, c in kernels[:top]]}
+
+
+def main() -> int:
+    parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
+    parser.add_argument("--seed", type=int, default=0)
+    args = parser.parse_args()
+    if not torch.cuda.is_available():
+        print("breakdown: no CUDA device", file=sys.stderr)
+        return 2
+    torch.backends.cuda.matmul.allow_tf32 = False
+    dev = torch.device("cuda", 0)
+    rows = low_rank_clusters(np.random.default_rng(args.seed),
+                             N_ROWS + N_QUERIES, DIM)
+    dataset = torch.from_numpy(rows[:N_ROWS]).to(dev)
+    queries = torch.from_numpy(rows[N_ROWS:]).to(dev)
+    bf = brute_force.build(dataset, metric="sqeuclidean")
+    index = ivf_flat.build(dataset, ivf_flat.IndexParams(n_lists=N_LISTS))
+    params = ivf_flat.SearchParams(n_probes=N_PROBES)
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    print(json.dumps(profile_call(
+        "brute_force", lambda: brute_force.search(bf, queries, K))))
+    print(json.dumps(profile_call(
+        "ivf_flat", lambda: ivf_flat.search(index, queries, K, params))))
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1,0 +1,49 @@
+"""Carry the JAX package's index contents over to the port.
+
+The two functions take what a raft_tpu index holds, as numpy arrays, and
+return the port's index on ``device``, so that one build can be searched by
+both packages on identical state."""
+
+from __future__ import annotations
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core.resources import resolve_device
+from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.ops.distance import resolve_metric
+
+
+def _t(a, device) -> torch.Tensor:
+    """A device tensor from a host array (copied, so read-only views are
+    fine); bfloat16 arrays travel as their int16 bits."""
+    a = np.array(a)
+    if a.dtype.name == "bfloat16":
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16).to(device)
+    return torch.from_numpy(a).to(device)
+
+
+def brute_force_index_from_numpy(dataset, metric, norms=None,
+                                 metric_arg: float = 2.0,
+                                 device=None) -> brute_force.Index:
+    """A brute-force index over ``dataset`` [n, dim] with the given cached
+    squared norms [n] (None for inner product)."""
+    dev = resolve_device(device)
+    return brute_force.Index(_t(dataset, dev), resolve_metric(metric),
+                             float(metric_arg),
+                             None if norms is None else _t(norms, dev))
+
+
+def ivf_flat_index_from_numpy(params: ivf_flat.IndexParams, centers,
+                              list_data, list_indices, list_sizes,
+                              n_rows: int, overflow_data, overflow_indices,
+                              device=None) -> ivf_flat.Index:
+    """An IVF-Flat index from centers [L, dim], list_data [L, pad, dim],
+    list_indices [L, pad] (-1 padded), list_sizes [L] and the overflow block
+    ([O, dim], [O])."""
+    dev = resolve_device(device)
+    return ivf_flat.Index(
+        params, _t(np.asarray(centers, np.float32), dev), _t(list_data, dev),
+        _t(np.asarray(list_indices, np.int32), dev),
+        _t(np.asarray(list_sizes, np.int32), dev), int(n_rows),
+        _t(overflow_data, dev), _t(np.asarray(overflow_indices, np.int32), dev))

@@ -1,0 +1,402 @@
+"""The port's hand-written CUDA kernels: build, wrappers, plain versions.
+
+Counterpart of ``raft_tpu.ops.pallas_kernels`` for the kernels of this
+slice. Each kernel has
+
+- a source in ``raft_tpu_torch/csrc/`` with a plain C interface, compiled by
+  ``nvcc`` for ``sm_90a`` into its own shared library at first use (into
+  ``build/raft_tpu_torch/`` at the repo root, keyed by a hash of the sources
+  and flags) and loaded with ``ctypes``;
+- a wrapper that checks device, dtype, shape and contiguity, allocates the
+  outputs, launches on PyTorch's current stream, raises if the launch
+  failed, and adds one to its count in ``LAUNCHES``;
+- a plain PyTorch version of the same function, which the wrapper runs for
+  tensors on the CPU and which the CPU tests and ``chip_smoke.py`` hold the
+  kernel against.
+
+A CUDA tensor always launches the kernel or raises; nothing falls back to
+the plain version on the card. Launches go to the tensors' device, on
+PyTorch's current stream there.
+
+Selection order everywhere: ascending value; ties by candidate order (row
+id for brute force, (probe, slot) for IVF, column for select_k); +inf yields
+id -1; NaN is never selected.
+"""
+
+from __future__ import annotations
+
+import ctypes
+import hashlib
+import os
+import shutil
+import subprocess
+import threading
+from pathlib import Path
+from typing import Dict, Iterable, Optional, Tuple
+
+import torch
+
+from raft_tpu_torch.ops.distance import dot_fp32, row_norms_sq
+
+CSRC = Path(__file__).resolve().parents[1] / "csrc"
+BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch"
+NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
+              "-shared", "-Xcompiler", "-fPIC")
+
+#: kernel name → source file
+SOURCES = {
+    "fused_l2_topk": "fused_l2_topk.cu",
+    "fused_ivf_topk": "fused_ivf_topk.cu",
+    "select_k": "select_k.cu",
+}
+
+#: launches of each kernel since the last ``reset_launch_counts()``
+LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+
+#: largest dynamic shared memory a block may ask for on Hopper (227 KB)
+SMEM_LIMIT = 232448
+MAX_K = 1024
+
+_libs: Dict[str, ctypes.CDLL] = {}
+_lib_lock = threading.Lock()
+_VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
+_ARGTYPES = {
+    "fused_l2_topk": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I,
+                      _VP, _VP, _VP, _VP, _VP],
+    "fused_ivf_topk": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
+                       _I, _I, _VP, _VP, _VP],
+    "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
+}
+
+
+def reset_launch_counts() -> None:
+    for name in LAUNCHES:
+        LAUNCHES[name] = 0
+
+
+# ------------------------------------------------------------------- build
+
+
+def _nvcc() -> str:
+    found = shutil.which("nvcc")
+    if found:
+        return found
+    cuda_home = os.environ.get("CUDA_HOME") or os.environ.get("CUDA_PATH") \
+        or "/usr/local/cuda"
+    return os.path.join(cuda_home, "bin", "nvcc")
+
+
+def library_path(name: str) -> Path:
+    """Where the library of kernel ``name`` is built: the name plus a hash
+    of every source and header it could include and of the flags."""
+    h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
+    for src in sorted(CSRC.glob("*.cu*")):
+        h.update(src.name.encode())
+        h.update(src.read_bytes())
+    return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
+
+
+def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
+    """Build the kernels' libraries that are not built yet, one ``nvcc`` per
+    source, all started together. Returns name → library path; raises with
+    the compiler's output if a build fails."""
+    names = list(SOURCES if names is None else names)
+    BUILD_DIR.mkdir(parents=True, exist_ok=True)
+    paths = {name: library_path(name) for name in names}
+    procs = {}
+    for name, path in paths.items():
+        if path.exists():
+            continue
+        tmp = path.with_suffix(f".{os.getpid()}.tmp")
+        cmd = [_nvcc(), *NVCC_FLAGS, "-o", str(tmp), str(CSRC / SOURCES[name])]
+        procs[name] = (subprocess.Popen(cmd, stdout=subprocess.PIPE,
+                                        stderr=subprocess.STDOUT, text=True),
+                       tmp)
+    failures = []
+    for name, (proc, tmp) in procs.items():
+        out, _ = proc.communicate()
+        if proc.returncode != 0:
+            failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
+            continue
+        os.replace(tmp, paths[name])
+    if failures:
+        raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
+    return paths
+
+
+def _lib(name: str) -> ctypes.CDLL:
+    with _lib_lock:
+        if name not in _libs:
+            lib = ctypes.CDLL(str(build_all([name])[name]))
+            fn_names = ["select_k_rows"] if name == "select_k" else [name]
+            for fn_name in fn_names:
+                fn = getattr(lib, fn_name)
+                fn.argtypes = _ARGTYPES[fn_name]
+                fn.restype = ctypes.c_int
+            lib.rtt_error_string.argtypes = [ctypes.c_int]
+            lib.rtt_error_string.restype = ctypes.c_char_p
+            _libs[name] = lib
+        return _libs[name]
+
+
+def _check_rc(name: str, rc: int) -> None:
+    if rc != 0:
+        msg = _lib(name).rtt_error_string(rc).decode()
+        raise RuntimeError(f"{name} launch failed: CUDA error {rc} ({msg})")
+
+
+def _stream(device: torch.device) -> int:
+    return torch.cuda.current_stream(device).cuda_stream
+
+
+def _check(name: str, t: torch.Tensor, dtype, ndim: int, device) -> None:
+    if t.device != device:
+        raise ValueError(f"{name} is on {t.device}, expected {device}")
+    if t.dtype not in (dtype if isinstance(dtype, tuple) else (dtype,)):
+        raise TypeError(f"{name} has dtype {t.dtype}, expected {dtype}")
+    if t.dim() != ndim:
+        raise ValueError(f"{name} must be {ndim}-D, got {tuple(t.shape)}")
+    if not t.is_contiguous():
+        raise ValueError(f"{name} must be contiguous")
+
+
+def _check_k(name: str, k: int) -> None:
+    if not 1 <= k <= MAX_K:
+        raise ValueError(f"{name} is a small-k kernel: need 1 <= k <= "
+                         f"{MAX_K}, got k={k}")
+
+
+def _on_cpu(*tensors) -> bool:
+    return all(t.device.type == "cpu" for t in tensors)
+
+
+# ------------------------------------------------------ plain selection
+
+
+def _stable_topk(values: torch.Tensor, k: int,
+                 ids: Optional[torch.Tensor] = None
+                 ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The kernels' selection rule in plain PyTorch: the first k of a stable
+    ascending sort, +inf → id -1 (padded when k exceeds the row), NaN never
+    selected, -0.0 equal to +0.0. ``ids`` [b, n] relabels the positions."""
+    b, n = values.shape
+    v = values.to(torch.float32)
+    v = torch.where(torch.isnan(v), torch.inf, v) + 0.0
+    kk = min(k, n)
+    sv, si = torch.sort(v, dim=1, stable=True)
+    sv, si = sv[:, :kk], si[:, :kk]
+    out_i = si.to(torch.int32) if ids is None else torch.gather(ids, 1, si)
+    out_i = torch.where(sv == torch.inf, -1, out_i.to(torch.int32))
+    if kk < k:
+        sv = torch.cat([sv, sv.new_full((b, k - kk), torch.inf)], dim=1)
+        out_i = torch.cat([out_i, out_i.new_full((b, k - kk), -1)], dim=1)
+    return sv, out_i
+
+
+def _row_chunk(n_cols: int, bytes_per_col: int = 4,
+               budget: int = 1 << 29) -> int:
+    return max(1, budget // max(n_cols * bytes_per_col, 1))
+
+
+# ------------------------------------------------------ fused_l2_topk
+
+
+def l2_topk_smem_bytes(tm: int, k: int) -> int:
+    """Dynamic shared memory of one fused_l2_topk block (the formula of
+    ``l2_smem_bytes`` in fused_l2_topk.cu)."""
+    return 32 * (tm + 1) * 4 + 32 * 129 * 4 + 8 + tm * 128 * 8 + tm * k * 8 \
+        + tm * 4
+
+
+def plan_fused_topk(m: int, n: int, k: int, n_sm: int) -> Tuple[int, int]:
+    """(query rows per block, database splits) for ``fused_l2_topk``.
+
+    64 query rows per block where the per-row carry leaves room in shared
+    memory (k <= 256), else 16. When the query tiles alone give fewer than
+    four blocks per SM, the database is cut into ranges scanned by separate
+    blocks (at least 8 tiles of 128 rows each) and merged by one more
+    pass."""
+    tm = 64 if l2_topk_smem_bytes(64, k) <= SMEM_LIMIT else 16
+    q_blocks = -(-max(m, 1) // tm)
+    want = -(-4 * n_sm // q_blocks)
+    splits = max(1, min(want, n // (8 * 128)))
+    return tm, splits
+
+
+def fused_l2_topk_plain(x, y, k: int, x_norms=None, y_norms=None):
+    """Plain version of ``fused_l2_topk``: the [m, n] distances in fp32
+    matrix products, chunked over query rows, then the stable selection."""
+    xn = row_norms_sq(x) if x_norms is None else x_norms
+    yn = row_norms_sq(y) if y_norms is None else y_norms
+    out_v, out_i = [], []
+    step = _row_chunk(y.shape[0], 16)
+    for s in range(0, x.shape[0], step):
+        d = (xn[s:s + step, None] + yn[None, :]) - 2.0 * dot_fp32(
+            x[s:s + step], y)
+        v, i = _stable_topk(torch.clamp_min(d, 0.0), k)
+        out_v.append(v)
+        out_i.append(i)
+    if not out_v:
+        return (x.new_empty((0, k), dtype=torch.float32),
+                x.new_empty((0, k), dtype=torch.int32))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def fused_l2_topk(x, y, k: int, x_norms=None, y_norms=None):
+    """Squared-L2 scan fused with top-k: ``(distances [m, k] f32, ids [m, k]
+    i32)`` ascending, distances clamped at 0, ids -1 where fewer than k rows
+    exist. x [m, d] and y [n, d] float32; norms [m], [n] (computed when not
+    given)."""
+    _check_k("fused_l2_topk", k)
+    xn = row_norms_sq(x) if x_norms is None else x_norms
+    yn = row_norms_sq(y) if y_norms is None else y_norms
+    if _on_cpu(x, y, xn, yn):
+        return fused_l2_topk_plain(x, y, k, xn, yn)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_l2_topk: unsupported device {dev}")
+    m, d = x.shape
+    n = y.shape[0]
+    _check("x", x, torch.float32, 2, dev)
+    _check("y", y, torch.float32, 2, dev)
+    _check("x_norms", xn, torch.float32, 1, dev)
+    _check("y_norms", yn, torch.float32, 1, dev)
+    if y.shape[1] != d or xn.shape[0] != m or yn.shape[0] != n:
+        raise ValueError("fused_l2_topk: shapes disagree")
+    out_v = torch.empty((m, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m, k), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out_v, out_i
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
+    tm, splits = plan_fused_topk(m, n, k, n_sm)
+    part_v = part_i = out_v
+    if splits > 1:
+        part_v = torch.empty((m, splits, k), dtype=torch.float32, device=dev)
+        part_i = torch.empty((m, splits, k), dtype=torch.int32, device=dev)
+    lib = _lib("fused_l2_topk")
+    with torch.cuda.device(dev):
+        rc = lib.fused_l2_topk(
+            x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, d,
+            k, tm, splits, part_v.data_ptr(), part_i.data_ptr(),
+            out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
+    _check_rc("fused_l2_topk", rc)
+    LAUNCHES["fused_l2_topk"] += 1
+    return out_v, out_i
+
+
+# ------------------------------------------------------ fused_ivf_topk
+
+
+def fused_ivf_topk_plain(probes, qres, qres_norms, list_data, row_norms,
+                         list_indices, k: int, clamp: bool = True):
+    """Plain version of ``fused_ivf_topk``: gather the probed slabs, fp32
+    products, mask ids < 0 (and probes outside [0, n_lists)) to +inf, and
+    select over the candidates in (probe, slot) order."""
+    nq, n_probes = probes.shape
+    n_lists, pad, rot = list_data.shape
+    out_v, out_i = [], []
+    step = _row_chunk(n_probes * pad * rot, 8)
+    for s in range(0, nq, step):
+        pr = probes[s:s + step].to(torch.int64)
+        valid = (pr >= 0) & (pr < n_lists)
+        pr = pr.clamp(0, n_lists - 1)
+        data = list_data[pr].to(torch.float32)  # [t, P, pad, rot]
+        dots = torch.einsum("tpr,tplr->tpl",
+                            qres[s:s + step].to(torch.float32), data)
+        d = (qres_norms[s:s + step, :, None] + row_norms[pr]) - 2.0 * dots
+        if clamp:
+            d = torch.clamp_min(d, 0.0)
+        ids = list_indices[pr]
+        d = torch.where((ids < 0) | ~valid[:, :, None], torch.inf, d)
+        t = pr.shape[0]
+        v, i = _stable_topk(d.reshape(t, n_probes * pad), k,
+                            ids.reshape(t, n_probes * pad))
+        out_v.append(v)
+        out_i.append(i)
+    if not out_v:
+        return (qres.new_empty((0, k), dtype=torch.float32),
+                qres.new_empty((0, k), dtype=torch.int32))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
+                   list_indices, k: int, clamp: bool = True):
+    """Fused probe gather + scan + top-k for the IVF families.
+
+    probes [nq, P] int32; qres [nq, P, rot] f32 (the query, or its residual
+    per probe); qres_norms [nq, P] f32; list_data [L, pad, rot] f32 or bf16
+    (fp32 accumulation); row_norms [L, pad] f32; list_indices [L, pad] int32
+    with -1 at unfilled slots. Returns ``(distances [nq, k], ids [nq, k])``
+    ascending; ``clamp`` applies max(d, 0)."""
+    _check_k("fused_ivf_topk", k)
+    tensors = (probes, qres, qres_norms, list_data, row_norms, list_indices)
+    if _on_cpu(*tensors):
+        return fused_ivf_topk_plain(*tensors, k, clamp)
+    dev = probes.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_ivf_topk: unsupported device {dev}")
+    nq, n_probes = probes.shape
+    n_lists, pad, rot = list_data.shape
+    _check("probes", probes, torch.int32, 2, dev)
+    _check("qres", qres, torch.float32, 3, dev)
+    _check("qres_norms", qres_norms, torch.float32, 2, dev)
+    _check("list_data", list_data, (torch.float32, torch.bfloat16), 3, dev)
+    _check("row_norms", row_norms, torch.float32, 2, dev)
+    _check("list_indices", list_indices, torch.int32, 2, dev)
+    if (tuple(qres.shape) != (nq, n_probes, rot)
+            or tuple(qres_norms.shape) != (nq, n_probes)
+            or tuple(row_norms.shape) != (n_lists, pad)
+            or tuple(list_indices.shape) != (n_lists, pad)):
+        raise ValueError("fused_ivf_topk: shapes disagree")
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out_v, out_i
+    lib = _lib("fused_ivf_topk")
+    with torch.cuda.device(dev):
+        rc = lib.fused_ivf_topk(
+            probes.data_ptr(), qres.data_ptr(), qres_norms.data_ptr(),
+            list_data.data_ptr(), int(list_data.dtype == torch.bfloat16),
+            row_norms.data_ptr(), list_indices.data_ptr(), nq, n_probes,
+            n_lists, pad, rot, k, int(bool(clamp)), out_v.data_ptr(),
+            out_i.data_ptr(), _stream(dev))
+    _check_rc("fused_ivf_topk", rc)
+    LAUNCHES["fused_ivf_topk"] += 1
+    return out_v, out_i
+
+
+# ----------------------------------------------------------- select_k
+
+
+def streaming_select_k_plain(values, k: int, select_min: bool = True):
+    """Plain version of ``streaming_select_k``."""
+    v = values.to(torch.float32)
+    sv, si = _stable_topk(v if select_min else -v, k)
+    return (sv if select_min else -sv).to(values.dtype), si
+
+
+def streaming_select_k(values, k: int, select_min: bool = True):
+    """Streaming top-k of the rows of values [b, n] (the counterpart of
+    ``pallas_select_k``): ``(values [b, k], ids [b, k] int32)``, ascending
+    (descending for ``select_min=False``), ids -1 past the row's finite
+    entries. Values come back in the input dtype; the kernel reads float32."""
+    _check_k("select_k", k)
+    if _on_cpu(values):
+        return streaming_select_k_plain(values, k, select_min)
+    dev = values.device
+    if dev.type != "cuda":
+        raise ValueError(f"select_k: unsupported device {dev}")
+    _check("values", values, torch.float32, 2, dev)
+    b, n = values.shape
+    out_v = torch.empty((b, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
+    if b == 0:
+        return out_v, out_i
+    lib = _lib("select_k")
+    with torch.cuda.device(dev):
+        rc = lib.select_k_rows(
+            values.data_ptr(), None, b, n, k, int(not select_min),
+            out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
+    _check_rc("select_k", rc)
+    LAUNCHES["select_k"] += 1
+    return out_v, out_i

@@ -1,0 +1,72 @@
+"""raft_tpu_torch stands alone: it never imports jax or raft_tpu (nor does
+chip_smoke.py), and without a CUDA device its entry points raise unless the
+caller asks for the CPU, instead of carrying on quietly on the CPU."""
+
+import os
+import subprocess
+import sys
+from pathlib import Path
+
+import numpy as np
+import pytest
+import torch
+
+from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.neighbors import brute_force, ivf_flat
+
+REPO = Path(__file__).resolve().parents[1]
+
+_PROBE = """
+import sys
+import chip_smoke
+import raft_tpu_torch
+from raft_tpu_torch import interop, testing
+from raft_tpu_torch.bench import datagen
+from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, list_packing
+from raft_tpu_torch.ops import gpu_kernels, rng, select_k
+bad = sorted(m for m in sys.modules
+             if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
+print("BAD", bad)
+sys.exit(1 if bad else 0)
+"""
+
+
+def test_port_imports_neither_jax_nor_raft_tpu():
+    env = {k: v for k, v in os.environ.items() if k != "PYTHONPATH"}
+    out = subprocess.run([sys.executable, "-c", _PROBE], cwd=REPO, env=env,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stdout + out.stderr
+
+
+def _no_cuda():
+    if torch.cuda.is_available():
+        pytest.skip("a CUDA device is present: the default device is valid")
+
+
+@pytest.mark.parametrize("entry", ["brute_force.build", "brute_force.knn",
+                                   "ivf_flat.build", "Resources"])
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
+    _no_cuda()
+    db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    calls = {
+        "brute_force.build": lambda: brute_force.build(db),
+        "brute_force.knn": lambda: brute_force.knn(db[:4], db, 3),
+        "ivf_flat.build": lambda: ivf_flat.build(
+            db, ivf_flat.IndexParams(n_lists=4)),
+        "Resources": lambda: Resources(),
+    }
+    with pytest.raises(RuntimeError, match="device='cpu'"):
+        calls[entry]()
+
+
+def test_chip_smoke_refuses_to_run_without_cuda(tmp_path):
+    _no_cuda()
+    for cwd, script in ((REPO, REPO / "chip_smoke.py"),
+                        (tmp_path, tmp_path / "chip_smoke.py")):
+        if cwd == tmp_path:  # alone, without the package beside it
+            script.write_text((REPO / "chip_smoke.py").read_text())
+        out = subprocess.run([sys.executable, str(script)], cwd=cwd,
+                             capture_output=True, text=True, timeout=120)
+        assert out.returncode != 0
+        assert '"ok"' not in out.stdout
