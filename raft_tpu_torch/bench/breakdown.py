@@ -4,10 +4,13 @@
 
 Builds chip_smoke.py's configuration (SIFT-1M's shape from the seed:
 1,000,000 × 128 rows, 10,000 queries, k=10; IVF-Flat with 1024 lists and
-32 probes), runs each search once to warm up, then once under
-``torch.profiler``, and prints one JSON line per search: host wall time,
-the device time summed over kernels, their share of the wall time, and the
-kernels that take the most device time. Needs a CUDA card.
+32 probes; IVF-PQ at ``raft_ivf_pq.d64b8n1024`` with 32 probes, in the
+decoded-cache regime the card's memory picks and in the LUT regime of a
+stated device memory that holds the packed codes but not the cache), runs
+each search once to warm up, then once under ``torch.profiler``, and prints
+one JSON line per search: host wall time, the device time summed over
+kernels, their share of the wall time, and the kernels that take the most
+device time. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -16,16 +19,19 @@ import argparse
 import json
 import sys
 import time
+from typing import Optional
 
 import numpy as np
 import torch
 from torch.profiler import ProfilerActivity, profile
 
 from raft_tpu_torch.bench.datagen import low_rank_clusters
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES = 1024, 32
+PQ_DIM, PQ_BITS = 64, 8
 
 
 def _device_us(event) -> float:
@@ -35,7 +41,8 @@ def _device_us(event) -> float:
     return 0.0
 
 
-def profile_call(name: str, fn, top: int = 8) -> dict:
+def profile_call(name: str, fn, top: int = 8,
+                 label: Optional[str] = None) -> dict:
     fn()  # warm
     torch.cuda.synchronize()
     with profile(activities=[ProfilerActivity.CPU,
@@ -53,7 +60,8 @@ def profile_call(name: str, fn, top: int = 8) -> dict:
                and _device_us(e) > 0]
     kernels.sort(key=lambda t: -t[1])
     device_ms = sum(us for _, us, _ in kernels) / 1e3
-    return {"search": name, "wall_ms": wall_s * 1e3, "device_ms": device_ms,
+    return {"search": label or name, "wall_ms": wall_s * 1e3,
+            "device_ms": device_ms,
             "device_busy_share": device_ms / (wall_s * 1e3),
             "top_kernels": [{"name": n[:80], "ms": us / 1e3, "calls": c}
                             for n, us, c in kernels[:top]]}
@@ -80,6 +88,23 @@ def main() -> int:
         "brute_force", lambda: brute_force.search(bf, queries, K))))
     print(json.dumps(profile_call(
         "ivf_flat", lambda: ivf_flat.search(index, queries, K, params))))
+    del index
+    pq_index = ivf_pq.build(dataset, ivf_pq.IndexParams(
+        n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS))
+    pq_params = ivf_pq.SearchParams(n_probes=N_PROBES)
+    print(json.dumps(profile_call(
+        "ivf_pq", lambda: ivf_pq.search(pq_index, queries, K, pq_params),
+        label="ivf_pq_cache")))
+    ivf_pq.drop_scan_cache(pq_index)
+    lut_res = Resources(device_memory_bytes=sum(
+        ivf_pq.scan_memory_bytes(pq_index)))
+    if ivf_pq.plan_search(pq_index, K, pq_params,
+                          res=lut_res).engine != "pallas_lut":
+        raise AssertionError("the stated device memory did not pick the "
+                             "fused LUT engine")
+    print(json.dumps(profile_call(
+        "ivf_pq", lambda: ivf_pq.search(pq_index, queries, K, pq_params,
+                                        res=lut_res), label="ivf_pq_lut")))
     return 0
 
 

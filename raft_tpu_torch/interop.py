@@ -1,6 +1,6 @@
 """Carry the JAX package's index contents over to the port.
 
-The two functions take what a raft_tpu index holds, as numpy arrays, and
+The functions take what a raft_tpu index holds, as numpy arrays, and
 return the port's index on ``device``, so that one build can be searched by
 both packages on identical state."""
 
@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import resolve_device
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.ops.distance import resolve_metric
 
 
@@ -47,3 +47,30 @@ def ivf_flat_index_from_numpy(params: ivf_flat.IndexParams, centers,
         _t(np.asarray(list_indices, np.int32), dev),
         _t(np.asarray(list_sizes, np.int32), dev), int(n_rows),
         _t(overflow_data, dev), _t(np.asarray(overflow_indices, np.int32), dev))
+
+
+def ivf_pq_index_from_numpy(params: ivf_pq.IndexParams, pq_dim: int, centers,
+                            rotation, codebooks, list_codes, list_indices,
+                            list_sizes, n_rows: int, overflow_codes,
+                            overflow_labels, overflow_indices,
+                            device=None) -> ivf_pq.Index:
+    """An IVF-PQ index from centers [L, dim], rotation [rot_dim, dim],
+    codebooks ([pq_dim, book, pq_len] or [L, book, pq_len]), packed
+    list_codes [L, pad, n_code_bytes] uint8, list_indices [L, pad] (-1
+    padded), list_sizes [L] and the overflow block (codes [O, n_code_bytes],
+    coarse labels [O], ids [O])."""
+    dev = resolve_device(device)
+
+    def f32(a):
+        return _t(np.asarray(a, np.float32), dev)
+
+    def i32(a):
+        return _t(np.asarray(a, np.int32), dev)
+
+    def u8(a):
+        return _t(np.asarray(a, np.uint8), dev)
+
+    return ivf_pq.Index(
+        params, int(pq_dim), f32(centers), f32(rotation), f32(codebooks),
+        u8(list_codes), i32(list_indices), i32(list_sizes), int(n_rows),
+        u8(overflow_codes), i32(overflow_labels), i32(overflow_indices))

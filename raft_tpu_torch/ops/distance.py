@@ -99,15 +99,27 @@ def is_min_close(metric) -> bool:
     return resolve_metric(metric) != DistanceType.InnerProduct
 
 
+def _check_fp32_products(t: torch.Tensor) -> None:
+    if t.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
+        raise RuntimeError(
+            "torch.backends.cuda.matmul.allow_tf32 is True: exact search "
+            "needs fp32 products; set it to False")
+
+
 def dot_fp32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x @ yᵀ in full fp32, the counterpart of ``Precision.HIGHEST``. On the
     card this refuses to run while TF32 is allowed for matmuls, which would
     keep only about three decimal digits and reorder exact neighbours."""
-    if x.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
-        raise RuntimeError(
-            "torch.backends.cuda.matmul.allow_tf32 is True: exact search "
-            "needs fp32 products; set it to False")
+    _check_fp32_products(x)
     return torch.matmul(x.to(torch.float32), y.to(torch.float32).T)
+
+
+def einsum_fp32(equation: str, *operands: torch.Tensor) -> torch.Tensor:
+    """``torch.einsum`` over fp32 copies of the operands, refusing TF32 on
+    the card as ``dot_fp32`` does (the counterpart of an einsum with
+    ``preferred_element_type=float32``)."""
+    _check_fp32_products(operands[0])
+    return torch.einsum(equation, *(o.to(torch.float32) for o in operands))
 
 
 def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
@@ -144,7 +156,7 @@ def gathered_distances(queries, vecs, metric: DistanceType) -> torch.Tensor:
     root for L2SqrtExpanded)."""
     qf = queries.to(torch.float32)
     vf = vecs.to(torch.float32)
-    dots = torch.einsum("td,tcd->tc", qf, vf)
+    dots = einsum_fp32("td,tcd->tc", qf, vf)
     if metric == DistanceType.InnerProduct:
         return dots
     if metric == DistanceType.CosineExpanded:

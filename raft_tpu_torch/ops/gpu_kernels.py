@@ -19,8 +19,8 @@ the plain version on the card. Launches go to the tensors' device, on
 PyTorch's current stream there.
 
 Selection order everywhere: ascending value; ties by candidate order (row
-id for brute force, (probe, slot) for IVF, column for select_k); +inf yields
-id -1; NaN is never selected.
+id for brute force, (probe, slot) for IVF and IVF-PQ, column for select_k);
++inf yields id -1; NaN is never selected.
 """
 
 from __future__ import annotations
@@ -36,7 +36,7 @@ from typing import Dict, Iterable, Optional, Tuple
 
 import torch
 
-from raft_tpu_torch.ops.distance import dot_fp32, row_norms_sq
+from raft_tpu_torch.ops.distance import dot_fp32, einsum_fp32, row_norms_sq
 
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch"
@@ -48,6 +48,7 @@ SOURCES = {
     "fused_l2_topk": "fused_l2_topk.cu",
     "fused_ivf_topk": "fused_ivf_topk.cu",
     "select_k": "select_k.cu",
+    "fused_pq_topk": "fused_pq_topk.cu",
 }
 
 #: launches of each kernel since the last ``reset_launch_counts()``
@@ -66,6 +67,8 @@ _ARGTYPES = {
     "fused_ivf_topk": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
                        _I, _I, _VP, _VP, _VP],
     "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
+    "fused_pq_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
+                      _I, _I, _I, _VP, _VP, _VP],
 }
 
 
@@ -399,4 +402,128 @@ def streaming_select_k(values, k: int, select_min: bool = True):
             out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
     _check_rc("select_k", rc)
     LAUNCHES["select_k"] += 1
+    return out_v, out_i
+
+
+# ------------------------------------------------------ fused_pq_topk
+
+PQ_BOOK = 256  # codebook entries per subspace at pq_bits 8
+
+
+def pq_topk_smem_bytes(pq_dim: int, pq_len: int, k: int) -> int:
+    """Dynamic shared memory of one fused_pq_topk block (the formula of
+    ``pq_smem_bytes`` in fused_pq_topk.cu): survivors, the probe's LUT, the
+    carry, the residual and the partial sums of its norm."""
+    return (256 * 8 + pq_dim * PQ_BOOK * 4 + k * 8 + 16 + pq_dim * pq_len * 4
+            + (256 // 32 + 1) * 4)
+
+
+def fused_pq_fits(pq_dim: int, pq_len: int, k: int) -> bool:
+    """True when one probe's LUT, with the carry, fits a block's shared
+    memory on Hopper (pq_dim up to about 200 at k=1024)."""
+    return pq_topk_smem_bytes(pq_dim, pq_len, k) <= SMEM_LIMIT
+
+
+def fused_pq_topk_plain(probes, q_rot, centers_rot, codebooks, cb_norms,
+                        list_codes, list_indices, k: int):
+    """Plain version of ``fused_pq_topk``: per query chunk the probes'
+    residuals, their LUTs by one fp32 product, the per-subspace entries
+    gathered and summed in subspace order, ‖res‖² added, ids < 0 (and probes
+    outside [0, n_lists)) +inf, and the selection over the candidates in
+    (probe, slot) order."""
+    nq, n_probes = probes.shape
+    n_lists, pad, pq_dim = list_codes.shape
+    book, pq_len = codebooks.shape[1], codebooks.shape[2]
+    # per query: the LUTs and their product, then acc, ids, gathered codes
+    per_q = n_probes * (pq_dim * book * 8 + pad * 24)
+    step = _row_chunk(1, per_q)
+    out_v, out_i = [], []
+    for s0 in range(0, nq, step):
+        pr = probes[s0:s0 + step].to(torch.int64)
+        valid = (pr >= 0) & (pr < n_lists)
+        pr = pr.clamp(0, n_lists - 1)
+        t = pr.shape[0]
+        res = q_rot[s0:s0 + step, None, :].to(torch.float32) - centers_rot[pr]
+        base = (res * res).sum(-1)  # [t, P]
+        dots = einsum_fp32("tpsl,scl->tpsc",
+                           res.reshape(t, n_probes, pq_dim, pq_len), codebooks)
+        lut = cb_norms[None, None] - 2.0 * dots  # [t, P, s, book]
+        acc = torch.zeros((t, n_probes, pad), dtype=torch.float32,
+                          device=q_rot.device)
+        for s in range(pq_dim):
+            code_s = list_codes[:, :, s][pr].to(torch.int64)  # [t, P, pad]
+            acc = acc + torch.gather(lut[:, :, s, :], 2, code_s)
+        d = acc + base[:, :, None]
+        ids = list_indices[pr]
+        d = torch.where((ids < 0) | ~valid[:, :, None], torch.inf, d)
+        v, i = _stable_topk(d.reshape(t, n_probes * pad), k,
+                            ids.reshape(t, n_probes * pad))
+        out_v.append(v)
+        out_i.append(i)
+    if not out_v:
+        return (q_rot.new_empty((0, k), dtype=torch.float32),
+                q_rot.new_empty((0, k), dtype=torch.int32))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def fused_pq_topk(probes, q_rot, centers_rot, codebooks, cb_norms,
+                  list_codes, list_indices, k: int):
+    """Fused PQ LUT build + code scan + top-k (ivf_pq's LUT engine).
+
+    pq_bits 8 and PER_SUBSPACE codebooks only: probes [nq, P] int32; q_rot
+    [nq, rot] f32 (the rotated queries); centers_rot [L, rot] f32; codebooks
+    [pq_dim, 256, pq_len] f32 with rot = pq_dim·pq_len; cb_norms [pq_dim,
+    256] f32 (the codebook rows' squared norms); list_codes [L, pad, pq_dim]
+    uint8, one byte per code; list_indices [L, pad] int32, -1 at unfilled
+    slots. Returns the ascending ADC squared distances ``(distances [nq, k],
+    ids [nq, k])``, unclamped."""
+    _check_k("fused_pq_topk", k)
+    tensors = (probes, q_rot, centers_rot, codebooks, cb_norms, list_codes,
+               list_indices)
+    n_lists, pad, n_code_bytes = list_codes.shape
+    pq_dim, book, pq_len = codebooks.shape
+    if n_code_bytes != pq_dim or book != PQ_BOOK:
+        raise ValueError(
+            f"fused_pq_topk requires pq_bits=8 (one byte per code, 256 "
+            f"entries per codebook); got {n_code_bytes} code bytes for "
+            f"pq_dim={pq_dim} and {book} entries")
+    if _on_cpu(*tensors):
+        return fused_pq_topk_plain(*tensors, k)
+    dev = probes.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_pq_topk: unsupported device {dev}")
+    nq, n_probes = probes.shape
+    rot = pq_dim * pq_len
+    _check("probes", probes, torch.int32, 2, dev)
+    _check("q_rot", q_rot, torch.float32, 2, dev)
+    _check("centers_rot", centers_rot, torch.float32, 2, dev)
+    _check("codebooks", codebooks, torch.float32, 3, dev)
+    _check("cb_norms", cb_norms, torch.float32, 2, dev)
+    _check("list_codes", list_codes, torch.uint8, 3, dev)
+    _check("list_indices", list_indices, torch.int32, 2, dev)
+    if (tuple(q_rot.shape) != (nq, rot)
+            or tuple(centers_rot.shape) != (n_lists, rot)
+            or tuple(cb_norms.shape) != (pq_dim, book)
+            or tuple(list_indices.shape) != (n_lists, pad)):
+        raise ValueError("fused_pq_topk: shapes disagree")
+    if not fused_pq_fits(pq_dim, pq_len, k):
+        raise ValueError(
+            f"fused_pq_topk: the LUT of pq_dim={pq_dim} with k={k} needs "
+            f"{pq_topk_smem_bytes(pq_dim, pq_len, k)} bytes of shared memory, "
+            f"more than a block's {SMEM_LIMIT}")
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq == 0:
+        return out_v, out_i
+    vec16 = int(pq_dim % 16 == 0 and list_codes.data_ptr() % 16 == 0)
+    lib = _lib("fused_pq_topk")
+    with torch.cuda.device(dev):
+        rc = lib.fused_pq_topk(
+            probes.data_ptr(), q_rot.data_ptr(), centers_rot.data_ptr(),
+            codebooks.data_ptr(), cb_norms.data_ptr(), list_codes.data_ptr(),
+            list_indices.data_ptr(), nq, n_probes, n_lists, pad, pq_dim,
+            pq_len, k, vec16, out_v.data_ptr(), out_i.data_ptr(),
+            _stream(dev))
+    _check_rc("fused_pq_topk", rc)
+    LAUNCHES["fused_pq_topk"] += 1
     return out_v, out_i

@@ -6,13 +6,19 @@ machine with PyTorch alone:
     python -m pytest --noconftest -p no:cacheprovider tests/test_torch_cuda.py
 
 Tolerances: distances rtol 1e-5 and atol 1e-4·max‖x‖² (fp32 sums taken in
-another order); ids equal away from near-ties, near-ties as sets; select_k
-does no arithmetic and is held to equality.
+another order; for fused_pq_topk and the IVF-PQ engines the largest ADC
+distance stands for max‖x‖²; an fp8 LUT adds two e4m3 steps of the
+largest LUT entry, as an entry may round the other way on the card); ids
+equal away from near-ties, near-ties as sets, and for the IVF-PQ engines at
+least 90% equal; select_k does no arithmetic and is held to equality.
 """
 
 import pytest
 import torch
 
+from raft_tpu_torch import interop
+from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.neighbors import ivf_pq
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.testing import assert_topk_close
 
@@ -91,6 +97,51 @@ def test_streaming_select_k_kernel_matches_plain(dev, b, n, k, select_min):
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
 
 
+def _pq_inputs(dev, L, pad, pq_dim, pq_len, nq, P, seed=8):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rot = pq_dim * pq_len
+    centers = _randn(dev, L, rot, seed=seed + 1)
+    q_rot = _randn(dev, nq, rot, seed=seed + 2)
+    cb = _randn(dev, pq_dim, 256, pq_len, seed=seed + 3)
+    codes = torch.randint(0, 256, (L, pad, pq_dim), generator=g, device=dev,
+                          dtype=torch.uint8)
+    ids = torch.arange(L * pad, device=dev, dtype=torch.int32).reshape(L, pad)
+    ids[:, -7:] = -1  # unfilled slots
+    probes = torch.randint(0, L, (nq, P), generator=g, device=dev,
+                           dtype=torch.int32)
+    return probes, q_rot, centers, cb, (cb * cb).sum(-1), codes, ids
+
+
+@pytest.mark.parametrize("k", [1, 10, 256, 1024])
+@pytest.mark.parametrize("pq_dim,pq_len", [(8, 4), (64, 2), (128, 1)])
+def test_fused_pq_topk_kernel_matches_plain(dev, k, pq_dim, pq_len):
+    args = _pq_inputs(dev, 40, 700, pq_dim, pq_len, 33, 6)
+    before = gk.LAUNCHES["fused_pq_topk"]
+    got = gk.fused_pq_topk(*args, k)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_pq_topk"] == before + 1
+    want = gk.fused_pq_topk_plain(*args, k)
+    scale = float(want[0][torch.isfinite(want[0])].abs().max())
+    assert_topk_close(got, want, 1e-4 * scale, 1e-5)
+
+
+def test_fused_pq_topk_kernel_pads_and_resolves_ties(dev):
+    # fewer valid slots than k (the tail is -1), and two lists holding the
+    # same codes: equal distances resolve in (probe, slot) order
+    probes, q_rot, centers, cb, cbn, codes, ids = _pq_inputs(
+        dev, 4, 24, 16, 2, 5, 3, seed=9)
+    codes[1] = codes[0]
+    centers[1] = centers[0]
+    probes[:, :2] = torch.tensor([1, 0], device=dev, dtype=torch.int32)
+    args = (probes, q_rot, centers, cb, cbn, codes, ids)
+    got = gk.fused_pq_topk(*args, 80)
+    torch.cuda.synchronize()
+    want = gk.fused_pq_topk_plain(*args, 80)
+    assert torch.equal(got[1], want[1])
+    assert bool((got[1][:, -10:] == -1).all())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
+
+
 def test_wrappers_check_their_inputs(dev):
     x = _randn(dev, 8, 16)
     with pytest.raises(TypeError, match="dtype"):
@@ -99,3 +150,60 @@ def test_wrappers_check_their_inputs(dev):
         gk.streaming_select_k(x.T, 3)
     with pytest.raises(ValueError, match="is on"):
         gk.fused_l2_topk(x, x.cpu(), 3)
+    args = _pq_inputs(dev, 4, 16, 232, 1, 2, 2)
+    with pytest.raises(ValueError, match="shared memory"):
+        gk.fused_pq_topk(*args, 1024)
+
+
+@pytest.mark.parametrize("engine,lut_dtype", [
+    ("pallas_cache", "float32"), ("pallas_lut", "float32"),
+    ("cache", "float32"), ("lut", "float32"), ("lut", "float8_e4m3fn")])
+def test_ivf_pq_engines_on_the_card_match_the_cpu(dev, engine, lut_dtype):
+    # one CPU build, carried to the card; every engine against its run on
+    # the CPU (the kernels' plain versions there)
+    g = torch.Generator().manual_seed(11)
+    db = torch.randn(4000, 32, generator=g)
+    q = torch.randn(50, 32, generator=g)
+    cpu = ivf_pq.build(db, ivf_pq.IndexParams(n_lists=16, pq_dim=16),
+                       device="cpu")
+    card = interop.ivf_pq_index_from_numpy(
+        cpu.params, cpu.pq_dim, *(t.numpy() for t in (
+            cpu.centers, cpu.rotation, cpu.codebooks, cpu.list_codes,
+            cpu.list_indices, cpu.list_sizes)), cpu.n_rows,
+        *(t.numpy() for t in (cpu.overflow_codes, cpu.overflow_labels,
+                              cpu.overflow_indices)), device=dev)
+    mode = {"pallas_cache": "auto", "pallas_lut": "auto"}.get(engine, engine)
+    sp = ivf_pq.SearchParams(n_probes=6, scan_mode=mode, lut_dtype=lut_dtype)
+    memory = (sum(ivf_pq.scan_memory_bytes(cpu)) if engine == "pallas_lut"
+              else None)
+    res = Resources(device=dev, device_memory_bytes=memory)
+    assert ivf_pq.plan_search(card, 10, sp, res=res).engine == engine
+    gk.reset_launch_counts()
+    got = ivf_pq.search(card, q, 10, sp, res=res)
+    torch.cuda.synchronize()
+    kernel = {"pallas_cache": "fused_ivf_topk",
+              "pallas_lut": "fused_pq_topk"}.get(engine)
+    if kernel is not None:
+        assert gk.LAUNCHES[kernel] == 1
+    want = ivf_pq.search(cpu, q, 10, sp, res=Resources(
+        device="cpu", device_memory_bytes=memory))
+    atol = 1e-4 * float(want[0].abs().max())
+    if lut_dtype == "float8_e4m3fn":
+        # the card's float32 LUT differs from the CPU's in the last bits, so
+        # an fp8 entry may round the other way: one e4m3 step, at most 1/16
+        # of its subspace's max-abs, allowed for two entries of a candidate
+        atol += 2 * _lut_abs_max(cpu, q) / 16
+    agree = assert_topk_close(got, want, atol, 1e-5)
+    assert agree["id_agreement"] >= 0.9, agree
+
+
+def _lut_abs_max(index, queries) -> float:
+    """The largest |entry| of the float32 L2 LUTs (‖cb‖² − 2⟨res, cb⟩ per
+    subspace) that ``queries`` build against any list of a PER_SUBSPACE
+    ``index``: the largest scale of an fp8 LUT."""
+    q_rot = queries @ index.rotation.T
+    res = q_rot[:, None, :] - index.centers_rot[None]
+    sub = res.reshape(*res.shape[:2], index.pq_dim, index.pq_len)
+    cb = index.codebooks
+    lut = (cb * cb).sum(-1) - 2 * torch.einsum("qlsj,scj->qlsc", sub, cb)
+    return float(lut.abs().max())

@@ -12,7 +12,8 @@ import pytest
 import torch
 
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.neighbors import brute_force, ivf_flat
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors.refine import refine
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -23,7 +24,9 @@ import raft_tpu_torch
 from raft_tpu_torch import interop, testing
 from raft_tpu_torch.bench import datagen
 from raft_tpu_torch.cluster import kmeans_balanced
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, list_packing
+from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, list_packing
+from raft_tpu_torch.neighbors import refine
+from raft_tpu_torch.bench import breakdown
 from raft_tpu_torch.ops import gpu_kernels, rng, select_k
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
@@ -45,7 +48,8 @@ def _no_cuda():
 
 
 @pytest.mark.parametrize("entry", ["brute_force.build", "brute_force.knn",
-                                   "ivf_flat.build", "Resources"])
+                                   "ivf_flat.build", "ivf_pq.build", "refine",
+                                   "Resources"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
     _no_cuda()
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
@@ -54,6 +58,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
         "brute_force.knn": lambda: brute_force.knn(db[:4], db, 3),
         "ivf_flat.build": lambda: ivf_flat.build(
             db, ivf_flat.IndexParams(n_lists=4)),
+        "ivf_pq.build": lambda: ivf_pq.build(
+            db, ivf_pq.IndexParams(n_lists=4, pq_dim=4)),
+        "refine": lambda: refine(db, db[:4], np.zeros((4, 5), np.int32), 3),
         "Resources": lambda: Resources(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
