@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 seed, 10,000 queries, k=10, L2) it
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the four CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
+2. builds the five CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
@@ -22,6 +22,13 @@ seed, 10,000 queries, k=10, L2) it
    the cache (``fused_pq_topk``); and 64 probes with k·2 candidates refined
    exactly. Recall@10 >= 0.80 in both regimes and >= 0.95 after refine (the
    probes double until a floor is met; no floor is lowered);
+5b. runs CAGRA at the repository's ``raft_cagra.d32`` configuration
+   (graph_degree 32, intermediate_graph_degree 64, NN-descent with 20
+   iterations, then ``optimize``): the build, split into NN-descent and
+   optimize; search with itopk 64, width 1 and the auto plan through
+   ``fused_cagra_topk`` (recall@10 >= 0.90, itopk doubling up to 512 until
+   met); and the glue engine (``scan_mode="xla"``) on the first 1,000
+   queries, held against the kernel path's result;
 6. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, and times kernel, plain version and, where
    one PyTorch call computes the same function, that call;
@@ -50,6 +57,9 @@ N_LISTS, N_PROBES, RECALL_FLOOR = 1024, 32, 0.90
 # raft_tpu/bench/conf/sift-128-euclidean.json, raft_ivf_pq.d64b8n1024
 PQ_DIM, PQ_BITS, PQ_RECALL_FLOOR, REFINE_PROBES, REFINE_RECALL_FLOOR = (
     64, 8, 0.80, 64, 0.95)
+# raft_tpu/bench/conf/sift-128-euclidean.json:118-143, raft_cagra.d32
+CAGRA_DEGREE, CAGRA_INTER, CAGRA_ITOPK, CAGRA_MAX_ITOPK = 32, 64, 64, 512
+CAGRA_RECALL_FLOOR, CAGRA_GLUE_QUERIES = 0.90, 1000
 
 
 def emit(obj) -> None:
@@ -98,7 +108,7 @@ def main() -> int:
     try:
         from raft_tpu_torch.bench.datagen import low_rank_clusters
         from raft_tpu_torch.core.resources import Resources
-        from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+        from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
         from raft_tpu_torch.neighbors.refine import refine
         from raft_tpu_torch.ops import gpu_kernels as gk
         from raft_tpu_torch.ops.distance import row_norms_sq
@@ -269,8 +279,82 @@ def main() -> int:
                              f"{REFINE_RECALL_FLOOR}")
     if not bool(torch.isfinite(rv).all()):
         raise AssertionError("refined distances are not finite")
+
+    # ---- 5b. CAGRA: build (NN-descent + optimize), the kernel engine, the
+    # glue engine on a slice of the queries
+    gk.reset_launch_counts()
+    cg_params = cagra.IndexParams(graph_degree=CAGRA_DEGREE,
+                                  intermediate_graph_degree=CAGRA_INTER,
+                                  nn_descent_niter=20)
+    cg_index, cg_build_s = timed(lambda: cagra.build(dataset, cg_params))
+    cg_build_launches = dict(gk.LAUNCHES)
+    g = cg_index.graph
+    if g.shape != (N_ROWS, CAGRA_DEGREE) or bool((g < 0).any()) \
+            or bool((g >= N_ROWS).any()):
+        raise AssertionError("the CAGRA graph is not complete and in range")
+    emit({"phase": "cagra_build", "graph_degree": CAGRA_DEGREE,
+          "intermediate_graph_degree": CAGRA_INTER, "nn_descent_niter": 20,
+          "build_seconds": cg_build_s,
+          "nn_descent_seconds": cg_index.build_seconds["knn_graph"],
+          "optimize_seconds": cg_index.build_seconds["optimize"],
+          "launches": cg_build_launches})
+    itopk = CAGRA_ITOPK
+    gk.reset_launch_counts()
+    while True:
+        cg_sp = cagra.SearchParams(itopk_size=itopk, search_width=1)
+        cg_plan = cagra.plan_search(cg_index, K, cg_sp)
+        if cg_plan.engine != "pallas":
+            raise AssertionError(f"cagra: engine {cg_plan.engine} "
+                                 f"({cg_plan.reason}), expected pallas")
+        _, cg_first_s = timed(lambda: cagra.search(cg_index, queries, K,
+                                                   cg_sp))
+        (cv, ci), cg_s = timed(lambda: cagra.search(cg_index, queries, K,
+                                                    cg_sp))
+        cg_recall = float(neighborhood_recall(ci, gt_i))
+        if cg_recall >= CAGRA_RECALL_FLOOR or itopk >= CAGRA_MAX_ITOPK:
+            break
+        itopk *= 2
+    cagra_launches = dict(gk.LAUNCHES)
+    if cagra_launches["fused_cagra_topk"] < 1:
+        raise AssertionError("cagra.search did not launch fused_cagra_topk")
+    if cv.shape != (N_QUERIES, K) or not bool(torch.isfinite(cv).all()):
+        raise AssertionError("cagra: distances not finite and complete")
+    # the walk's counts, from the plain version on the same inputs (its
+    # result equals the kernel's bitwise, checked in phase 6)
+    cg_args = (queries, dataset, cg_index.graph,
+               cagra.seed_table(cg_sp, N_QUERIES, N_ROWS,
+                                cg_plan.plan["n_seeds"], dev),
+               gk.beam_norms(queries))
+    cg_max_iter = cg_plan.plan["max_iter"]
+    *_, cg_stats = gk.fused_cagra_topk_plain(*cg_args, K, itopk, 1,
+                                             cg_max_iter, return_stats=True)
+    cg_hops, cg_rows = (int(cg_stats["hops"].sum()),
+                        int(cg_stats["rows_scored"].sum()))
+    cg_touched, cg_expanded = (cg_stats["rows_touched"],
+                               cg_stats["nodes_expanded"])
+    nq_glue = CAGRA_GLUE_QUERIES
+    glue_sp = cagra.SearchParams(itopk_size=itopk, search_width=1,
+                                 scan_mode="xla")
+    glue, glue_s = timed(lambda: cagra.search(cg_index, queries[:nq_glue], K,
+                                              glue_sp))
+    glue_agree = assert_topk_close(
+        glue, (cv[:nq_glue], ci[:nq_glue]),
+        1e-4 * float(torch.maximum(row_norms_sq(queries).max(),
+                                   bf.norms.max())), 1e-5, "cagra glue")
+    emit({"phase": "cagra", "itopk": itopk, "search_width": 1,
+          "max_iter": cg_max_iter, "n_seeds": cg_plan.plan["n_seeds"],
+          "first_call_seconds": cg_first_s, "search_seconds": cg_s,
+          "qps": N_QUERIES / cg_s, "recall_at_10": cg_recall,
+          "mean_hops": cg_hops / N_QUERIES, "rows_scored": cg_rows,
+          "rows_touched": cg_touched, "nodes_expanded": cg_expanded,
+          "glue_queries": nq_glue, "glue_seconds": glue_s,
+          "glue_vs_kernel": glue_agree, "launches": cagra_launches})
+    if cg_recall < CAGRA_RECALL_FLOOR:
+        raise AssertionError(f"cagra recall {cg_recall} < "
+                             f"{CAGRA_RECALL_FLOOR}")
     main_phases = (bf_launches, ivf_launches, pq_build_launches,
-                   pq_cache_launches, pq_lut_launches, refine_launches)
+                   pq_cache_launches, pq_lut_launches, refine_launches,
+                   cg_build_launches, cagra_launches)
     main_launches = {name: sum(ph[name] for ph in main_phases)
                      for name in gk.LAUNCHES}
 
@@ -408,10 +492,31 @@ def main() -> int:
                            20)))
     emit({"phase": "kernel_check", **kernels[-1]})
 
+    # the beam walk: each row it touches read once, each node's graph row
+    # once; a dot product per (query, row) scored and one norm per row
+    n_seeds = cg_plan.plan["n_seeds"]
+    check(dict(name="fused_cagra_topk", route="cuda",
+               source="raft_tpu_torch/csrc/fused_cagra_topk.cu",
+               replaces="raft_tpu/ops/pallas_kernels.py:1368",
+               shape=f"cagra: {N_QUERIES} queries, itopk {itopk}, width 1, "
+                     f"degree {CAGRA_DEGREE}, dim {DIM}, {n_seeds} seeds, "
+                     f"max_iter {cg_max_iter}",
+               launches=cagra_launches["fused_cagra_topk"], library_ms=None,
+               hops=cg_hops, rows_scored=cg_rows, rows_touched=cg_touched,
+               nodes_expanded=cg_expanded,
+               **bound(cg_touched * DIM * 4 + cg_expanded * CAGRA_DEGREE * 4
+                       + 4 * N_QUERIES * (DIM + 1 + n_seeds)
+                       + 8 * N_QUERIES * K,
+                       2 * DIM * (cg_rows + cg_touched))),
+          lambda *a: gk.fused_cagra_topk(*a, K, itopk, 1, cg_max_iter),
+          lambda *a: gk.fused_cagra_topk_plain(*a, K, itopk, 1, cg_max_iter),
+          cg_args, 0.0, 0.0, 5)
+
     # a model, not a measurement: the bytes the one-block-per-query designs
     # would read if nothing were reused between blocks (every probed row
     # once per query; the LUT kernel's codebooks and their norms once per
-    # (query, probe)); nothing in the run measures it
+    # (query, probe); the beam walk's rows once per visit and its graph rows
+    # once per hop); nothing in the run measures it
     rows = [k["rows_scanned"] for k in kernels[1:4]]
     emit({"phase": "read_model", "measured": False,
           "fused_ivf_topk_ivf_flat_bytes": rows[0] * DIM * 4,
@@ -419,7 +524,9 @@ def main() -> int:
           "fused_pq_topk_code_and_id_bytes": rows[2] * PQ_DIM
           + n_luts * pq_pad * 4,
           "fused_pq_topk_codebook_bytes": n_luts * PQ_DIM * 256
-          * (pq_len + 1) * 4})
+          * (pq_len + 1) * 4,
+          "fused_cagra_topk_visit_bytes": cg_rows * DIM * 4
+          + cg_hops * CAGRA_DEGREE * 4})
 
     for kern in kernels:
         if kern["launches"] < 1:

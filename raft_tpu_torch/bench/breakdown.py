@@ -6,7 +6,9 @@ Builds chip_smoke.py's configuration (SIFT-1M's shape from the seed:
 1,000,000 × 128 rows, 10,000 queries, k=10; IVF-Flat with 1024 lists and
 32 probes; IVF-PQ at ``raft_ivf_pq.d64b8n1024`` with 32 probes, in the
 decoded-cache regime the card's memory picks and in the LUT regime of a
-stated device memory that holds the packed codes but not the cache), runs
+stated device memory that holds the packed codes but not the cache; CAGRA
+at ``raft_cagra.d32`` with itopk 64, through the kernel engine on every
+query and the glue engine on the first 1,000), runs
 each search once to warm up, then once under ``torch.profiler``, and prints
 one JSON line per search: host wall time, the device time summed over
 kernels, their share of the wall time, and the kernels that take the most
@@ -27,11 +29,12 @@ from torch.profiler import ProfilerActivity, profile
 
 from raft_tpu_torch.bench.datagen import low_rank_clusters
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
 
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES = 1024, 32
 PQ_DIM, PQ_BITS = 64, 8
+CAGRA_DEGREE, CAGRA_INTER, CAGRA_ITOPK, CAGRA_GLUE_QUERIES = 32, 64, 64, 1000
 
 
 def _device_us(event) -> float:
@@ -105,6 +108,16 @@ def main() -> int:
     print(json.dumps(profile_call(
         "ivf_pq", lambda: ivf_pq.search(pq_index, queries, K, pq_params,
                                         res=lut_res), label="ivf_pq_lut")))
+    del pq_index
+    cg_index = cagra.build(dataset, cagra.IndexParams(
+        graph_degree=CAGRA_DEGREE, intermediate_graph_degree=CAGRA_INTER,
+        nn_descent_niter=20))
+    for mode, nq in (("auto", N_QUERIES), ("xla", CAGRA_GLUE_QUERIES)):
+        sp = cagra.SearchParams(itopk_size=CAGRA_ITOPK, scan_mode=mode)
+        print(json.dumps(profile_call(
+            "cagra", lambda: cagra.search(cg_index, queries[:nq], K, sp),
+            label=f"cagra_{cagra.plan_search(cg_index, K, sp).engine}"
+                  f"_{nq}_queries")))
     return 0
 
 

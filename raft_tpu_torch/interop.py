@@ -10,7 +10,7 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import resolve_device
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
 from raft_tpu_torch.ops.distance import resolve_metric
 
 
@@ -74,3 +74,12 @@ def ivf_pq_index_from_numpy(params: ivf_pq.IndexParams, pq_dim: int, centers,
         params, int(pq_dim), f32(centers), f32(rotation), f32(codebooks),
         u8(list_codes), i32(list_indices), i32(list_sizes), int(n_rows),
         u8(overflow_codes), i32(overflow_labels), i32(overflow_indices))
+
+
+def cagra_index_from_numpy(params: cagra.IndexParams, dataset, graph,
+                           device=None) -> cagra.Index:
+    """A CAGRA index from dataset [n, dim] and graph [n, graph_degree]
+    (int32, -1 for an invalid edge)."""
+    dev = resolve_device(device)
+    return cagra.Index(params, _t(dataset, dev),
+                       _t(np.asarray(graph, np.int32), dev))

@@ -1,0 +1,512 @@
+"""CAGRA — graph-based ANN index: build, optimize, greedy beam search.
+
+Counterpart of ``raft_tpu.neighbors.cagra``.
+
+- **Build**: an all-neighbours kNN graph at ``intermediate_graph_degree``,
+  by NN-descent (default) or by IVF-PQ search + exact refine, then
+  ``optimize``.
+- **optimize**: per node, each edge's 2-hop detour count (how many
+  better-ranked neighbours also reach the edge's target), the
+  ``graph_degree`` edges of smallest (count, rank), then reverse edges
+  into the tail slots (at most half the degree). Bitwise equal to the JAX
+  package on the same kNN graph.
+- **Search**: a beam of ``itopk`` (distance, id, expanded) entries per
+  query, seeded from a stratified lattice rotated per query by the JAX
+  package's own draw (``ops.rng.cagra_seed_offsets``). Two engines:
+  ``fused_cagra_topk`` (the whole walk in one CUDA kernel, one block per
+  query; its plain version on the CPU) for L2 metrics, unfiltered,
+  itopk <= 1024; and ``search_core``, the glue engine in PyTorch, for
+  every request (inner product, filters). ``scan_mode``: ``"auto"`` and
+  ``"pallas"`` take the kernel wherever it is eligible, ``"xla"`` forces
+  the glue engine.
+
+Not ported yet: ``serialize``/``deserialize``, the bf16 fast scan
+(``scan_dtype``) and ``explain=True`` raise ``NotImplementedError``; the
+serving batch bucket is not needed (a query's seeds depend only on its
+row).
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import enum
+import time
+from typing import Optional
+
+import numpy as np
+import torch
+
+from raft_tpu_torch.core import tracing
+from raft_tpu_torch.core.bitset import filter_mask
+from raft_tpu_torch.core.resources import Resources, ensure_resources
+from raft_tpu_torch.neighbors.brute_force import fused_ineligible_reason
+from raft_tpu_torch.neighbors.nn_descent import scatter_last_wins
+from raft_tpu_torch.ops import gpu_kernels as gk
+from raft_tpu_torch.ops.distance import DistanceType, resolve_metric
+from raft_tpu_torch.ops.rng import cagra_seed_offsets
+from raft_tpu_torch.ops.select_k import (merge_topk_dedup_flagged,
+                                         topk_lowest_first)
+from raft_tpu_torch.utils.shape import as_query_array
+
+
+class BuildAlgo(enum.IntEnum):
+    IVF_PQ = 0
+    NN_DESCENT = 1
+
+
+@dataclasses.dataclass
+class IndexParams:
+    intermediate_graph_degree: int = 128
+    graph_degree: int = 64
+    build_algo: BuildAlgo = BuildAlgo.NN_DESCENT
+    nn_descent_niter: int = 20
+    metric: DistanceType = DistanceType.L2Expanded
+
+    def __post_init__(self):
+        self.metric = resolve_metric(self.metric)
+        self.build_algo = BuildAlgo(self.build_algo)
+        if self.metric not in (DistanceType.L2Expanded,
+                               DistanceType.L2SqrtExpanded,
+                               DistanceType.InnerProduct):
+            raise ValueError(
+                f"cagra supports L2Expanded/L2SqrtExpanded/InnerProduct, got "
+                f"{self.metric.name}")
+
+
+@dataclasses.dataclass
+class SearchParams:
+    """``max_iterations`` 0 applies the auto heuristic. ``scan_dtype`` (the
+    bf16 fast scan) is not ported yet and must stay None."""
+
+    itopk_size: int = 64
+    search_width: int = 1
+    max_iterations: int = 0
+    num_random_samplings: int = 1
+    rand_xor_mask: int = 0x128394
+    scan_dtype: Optional[object] = None
+    scan_mode: str = "auto"
+
+
+class Index:
+    """Dataset [n, dim] and fixed-degree graph [n, graph_degree] int32 on
+    one device. ``build_seconds`` holds the build's stages (``knn_graph``,
+    ``optimize``) when ``build`` made the index."""
+
+    def __init__(self, params: IndexParams, dataset: torch.Tensor,
+                 graph: torch.Tensor):
+        self.params = params
+        self.dataset = dataset
+        self.graph = graph
+        self.build_seconds: dict = {}
+
+    @property
+    def metric(self) -> DistanceType:
+        return self.params.metric
+
+    @property
+    def size(self) -> int:
+        return self.dataset.shape[0]
+
+    @property
+    def dim(self) -> int:
+        return self.dataset.shape[1]
+
+    @property
+    def graph_degree(self) -> int:
+        return self.graph.shape[1]
+
+    @property
+    def device(self) -> torch.device:
+        return self.dataset.device
+
+
+# ------------------------------------------------------------------ optimize
+
+
+def _detour_counts(graph: torch.Tensor, node_tile: int) -> torch.Tensor:
+    """count[i, a] = #{b < a : G[i,a] ∈ G[G[i,b]]}, per node tile, the
+    membership accumulated over chunks of the 2-hop axis (any-over-c, so
+    duplicate ids count as the JAX package counts them)."""
+    n, k = graph.shape
+    chunk = min(16, k)
+    before = torch.triu(torch.ones(k, k, dtype=torch.bool,
+                                   device=graph.device), 1)  # [b, a]: b < a
+    out = []
+    for s in range(0, n, node_tile):
+        gt = graph[s:s + node_tile]
+        valid = gt >= 0
+        g2 = graph[gt.clamp_min(0).long()]  # [t, b, c] 2-hop ids
+        g2 = torch.where(valid[:, :, None], g2, -1)
+        member = torch.zeros((gt.shape[0], k, k), dtype=torch.bool,
+                             device=graph.device)
+        for c0 in range(0, k, chunk):
+            col = g2[:, :, c0:c0 + chunk]
+            member |= (col[:, :, :, None] == gt[:, None, None, :]).any(2)
+        member &= valid[:, None, :] & valid[:, :, None]
+        out.append((member & before).sum(1).to(torch.int32))
+    return torch.cat(out)
+
+
+def _prune(graph: torch.Tensor, counts: torch.Tensor,
+           out_degree: int) -> torch.Tensor:
+    """Keep the ``out_degree`` edges of smallest (detour count, rank),
+    invalid edges last, in rank order."""
+    k = graph.shape[1]
+    key = counts.to(torch.float32) * (k + 1) + torch.arange(
+        k, device=graph.device, dtype=torch.float32)[None, :]
+    key = torch.where(graph >= 0, key, torch.inf)
+    _, sel = topk_lowest_first(key, out_degree, select_min=True)
+    sel = torch.sort(sel, dim=1).values
+    return torch.gather(graph, 1, sel)
+
+
+def _reverse_graph(graph: torch.Tensor, max_rev: int) -> torch.Tensor:
+    """Reverse adjacency with ``max_rev`` slots per node: edge (i→j) lands
+    in slot (i·2654435761 + rank·40503) mod 2³² mod max_rev of j, the later
+    edge (in row-major order) winning a slot, as the JAX package's serial
+    scatter leaves it."""
+    n, d = graph.shape
+    dev = graph.device
+    src = torch.arange(n, dtype=torch.int64, device=dev)[:, None]
+    rank = torch.arange(d, dtype=torch.int64, device=dev)[None, :]
+    mask = 0xFFFFFFFF
+    slots = ((((src * 2654435761) & mask) + rank * 40503) & mask) % max_rev
+    tgt = torch.where(graph >= 0, graph, n)
+    return scatter_last_wins(n, max_rev, tgt, slots.expand(n, d),
+                             src.expand(n, d).to(torch.int32))
+
+
+def _augment_reverse(pruned: torch.Tensor, rev: torch.Tensor,
+                     row_tile: int = 1 << 16) -> torch.Tensor:
+    """Replace the tail slots of the pruned graph with reverse edges not
+    already present (forward edges keep priority; at most half the
+    degree)."""
+    n, d = pruned.shape
+    n_rev = rev.shape[1]
+    out = []
+    slot = torch.arange(d, device=pruned.device)[None, :]
+    for s in range(0, n, row_tile):
+        p, r = pruned[s:s + row_tile], rev[s:s + row_tile]
+        own = torch.arange(s, s + p.shape[0], device=p.device)[:, None]
+        dup = (r[:, :, None] == p[:, None, :]).any(2)
+        r = torch.where(dup | (r == own), -1, r)
+        order = torch.sort((r < 0).to(torch.int8), dim=1, stable=True).indices
+        r_c = torch.gather(r, 1, order)
+        n_replace = torch.clamp_max((r_c >= 0).sum(1), d // 2)
+        first = (d - n_replace)[:, None]
+        rev_idx = torch.clamp(slot - first, 0, n_rev - 1)
+        out.append(torch.where(slot >= first, torch.gather(r_c, 1, rev_idx),
+                               p))
+    return torch.cat(out)
+
+
+def _detour_tile(k: int, workspace_limit_bytes: int) -> int:
+    """Node tile of the detour count: the JAX package's per-node scratch
+    (≈ 25·K² bytes) against the workspace, capped at 4096 nodes (the JAX
+    package caps at 256 for the TPU's VMEM; the tile does not change the
+    counts)."""
+    per_node = 25 * k * k
+    tile = int(np.clip(workspace_limit_bytes // max(per_node, 1), 8, 4096))
+    return max(tile - tile % 8, 8)
+
+
+@tracing.range("cagra.optimize")
+def optimize(knn_graph, graph_degree: int, res: Optional[Resources] = None,
+             device=None) -> torch.Tensor:
+    """Prune an intermediate kNN graph [n, K] to ``graph_degree`` columns
+    (a graph already that narrow comes back as it is)."""
+    res = ensure_resources(res, device)
+    g = as_query_array(knn_graph, res.device, torch.int32)
+    k = g.shape[1]
+    if graph_degree >= k:
+        return g
+    counts = _detour_counts(g, _detour_tile(k, res.workspace_limit_bytes))
+    pruned = _prune(g, counts, int(graph_degree))
+    rev = _reverse_graph(pruned, int(graph_degree))
+    return _augment_reverse(pruned, rev)
+
+
+# --------------------------------------------------------------------- build
+
+
+def _clock(device: torch.device) -> float:
+    if device.type == "cuda":
+        torch.cuda.synchronize(device)
+    return time.perf_counter()
+
+
+@tracing.range("cagra.build")
+def build(dataset, params: Optional[IndexParams] = None,
+          res: Optional[Resources] = None, device=None) -> Index:
+    """kNN graph at the intermediate degree, then ``optimize`` to
+    ``graph_degree``. Runs on CUDA unless ``device="cpu"`` (or ``res``)
+    says otherwise."""
+    params = params or IndexParams()
+    res = ensure_resources(res, device)
+    dataset = as_query_array(dataset, res.device)
+    n = dataset.shape[0]
+    k_inter = int(min(params.intermediate_graph_degree, n - 1))
+    t0 = _clock(res.device)
+    if params.build_algo == BuildAlgo.NN_DESCENT:
+        from raft_tpu_torch.neighbors import nn_descent
+
+        nd_params = nn_descent.IndexParams(
+            graph_degree=k_inter,
+            intermediate_graph_degree=min(int(k_inter * 1.5), n - 1),
+            max_iterations=params.nn_descent_niter, metric=params.metric)
+        knn = nn_descent.build(dataset, nd_params, res=res).graph
+    else:
+        knn = _build_knn_graph_ivf_pq(dataset, k_inter, params, res)
+    t1 = _clock(res.device)
+    graph = optimize(knn, int(min(params.graph_degree, k_inter)), res=res)
+    index = Index(params, dataset, graph)
+    index.build_seconds = {"knn_graph": t1 - t0,
+                           "optimize": _clock(res.device) - t1}
+    return index
+
+
+def _drop_self(refined: torch.Tensor, row0: int, k_inter: int):
+    """Drop each row's own id where present, else its last slot."""
+    w = refined.shape[1]
+    rows = torch.arange(refined.shape[0], device=refined.device) + row0
+    is_self = refined == rows[:, None]
+    last = torch.arange(w, device=refined.device)[None, :] == w - 1
+    drop = torch.where(is_self.any(1, keepdim=True), is_self, last)
+    order = torch.sort(drop.to(torch.int8), dim=1, stable=True).indices
+    return torch.gather(refined, 1, order)[:, :k_inter].to(torch.int32)
+
+
+def _build_knn_graph_ivf_pq(dataset, k_inter: int, params: IndexParams,
+                            res: Resources) -> torch.Tensor:
+    """IVF-PQ build on the dataset, batched self-search for 2·(k_inter+1)
+    candidates, exact refine to k_inter+1, self dropped. The tail batch
+    overlaps the one before it, so every batch has the same shape."""
+    from raft_tpu_torch.neighbors import ivf_pq as ivf_pq_mod
+    from raft_tpu_torch.neighbors.refine import refine
+
+    n, dim = dataset.shape
+    n_lists = int(np.clip(int(np.sqrt(n) * 2), 16, 8192))
+    n_lists = min(n_lists, max(n // 64, 16))
+    ipq = ivf_pq_mod.IndexParams(
+        n_lists=n_lists,
+        metric=(DistanceType.L2Expanded
+                if params.metric != DistanceType.InnerProduct
+                else DistanceType.InnerProduct),
+        pq_dim=max(8, (dim // 2 + 7) // 8 * 8))
+    index = ivf_pq_mod.build(dataset, ipq, res=res)
+    top = k_inter + 1
+    sp = ivf_pq_mod.SearchParams(n_probes=max(min(n_lists, 32),
+                                              n_lists // 16))
+    batch = min(8192, n)
+    parts = []
+    for s in range(0, n, batch):
+        row0 = min(s, n - batch)
+        q = dataset[row0:row0 + batch]
+        _, cand = ivf_pq_mod.search(index, q, min(top * 2, n), sp, res=res)
+        _, refined = refine(dataset, q, cand, top, metric=params.metric,
+                            res=res)
+        keep = _drop_self(refined, row0, k_inter)
+        parts.append(keep if row0 == s else keep[s - row0:])
+    return torch.cat(parts)
+
+
+# -------------------------------------------------------------------- search
+
+
+def _distances_to(queries, q_norms, dataset, ids, metric: DistanceType,
+                  filter_words):
+    """The minimised distance of each query to its rows ``ids`` [b, c]:
+    squared L2 for both L2 metrics, the negated dot for inner product;
+    +inf for ids < 0 and for rows the filter clears. The arithmetic is the
+    kernel's (``gpu_kernels.beam_distances``), so both engines score a row
+    bitwise alike."""
+    d = gk.beam_distances(queries, q_norms, dataset, ids,
+                          inner_product=metric == DistanceType.InnerProduct)
+    if filter_words is not None:
+        d = torch.where(filter_mask(ids, filter_words), d, torch.inf)
+    return d
+
+
+def _search_glue(queries, dataset, graph, seed_ids, filter_words,
+                 metric: DistanceType, itopk: int, width: int, max_iter: int):
+    """One chunk of queries through the glue engine; returns the beam."""
+    qn = gk.beam_norms(queries)
+
+    def score(ids):
+        return _distances_to(queries, qn, dataset, ids, metric, filter_words)
+
+    buf_ids, buf_d, buf_fl = merge_topk_dedup_flagged(
+        seed_ids, score(seed_ids), torch.zeros_like(seed_ids, dtype=torch.bool),
+        itopk)
+    buf_ids = buf_ids.to(torch.int64)
+    # The buffer stays sorted by distance between hops, so the parent pick
+    # takes the first unexpanded entries, and dedup against the buffer
+    # (which holds no duplicate) happens before the merge; the merge is one
+    # stable sort of [buffer | targets] (gpu_kernels.beam_hop, the hop of the
+    # kernel's plain version too). A target equal to a buffer entry is
+    # dropped, so the buffer copy keeps its expanded flag; entries at +inf
+    # keep their ids, as in the JAX package.
+    done = torch.zeros(queries.shape[0], dtype=torch.bool,
+                       device=queries.device)
+    for _ in range(max_iter):
+        buf_d, buf_ids, buf_fl, active, *_ = gk.beam_hop(
+            buf_d, buf_ids, buf_fl, done, graph, width, score,
+            clear_inf=False)
+        done = done | ~active
+        if not bool(active.any()):
+            break
+    return buf_d, buf_ids
+
+
+@tracing.range("cagra.search_core")
+def search_core(queries, dataset, graph, seed_ids, filter_words,
+                metric: DistanceType, k: int, itopk: int, width: int,
+                max_iter: int, q_tile: Optional[int] = None):
+    """The glue engine (the JAX package's ``search_core``): seeds merged by
+    ``merge_topk_dedup_flagged``, then at most ``max_iter`` hops; a query
+    whose pick finds no unexpanded finite entry freezes, and the loop ends
+    when every query has. ``filter_words`` (None: no filter) are a bitset's
+    words: cleared rows never enter the beam as candidates. Queries run in
+    chunks of ``q_tile``; a query's result does not depend on its chunk.
+    Returns ``(distances [nq, k], ids [nq, k])`` in the metric's units."""
+    nq = queries.shape[0]
+    q_tile = nq if q_tile is None else max(int(q_tile), 1)
+    outs = [_search_glue(queries[s:s + q_tile], dataset, graph,
+                         seed_ids[s:s + q_tile], filter_words, metric, itopk,
+                         width, max_iter) for s in range(0, nq, q_tile)]
+    if not outs:
+        outs = [(queries.new_empty((0, itopk)),
+                 queries.new_empty((0, itopk), dtype=torch.int32))]
+    out_d = torch.cat([o[0] for o in outs])[:, :k]
+    out_i = torch.cat([o[1] for o in outs])[:, :k].to(torch.int32)
+    if metric == DistanceType.InnerProduct:
+        out_d = -out_d
+    elif metric == DistanceType.L2SqrtExpanded:
+        out_d = torch.sqrt(torch.clamp_min(out_d, 0.0))
+    return out_d, out_i
+
+
+def search_fused_core(queries, dataset, graph, seed_ids,
+                      metric: DistanceType, k: int, itopk: int, width: int,
+                      max_iter: int):
+    """The kernel engine: ``fused_cagra_topk`` (squared L2), then the
+    square root for L2SqrtExpanded."""
+    qf = queries.to(torch.float32).contiguous()
+    v, i = gk.fused_cagra_topk(
+        qf, dataset.to(torch.float32).contiguous(),
+        graph.to(torch.int32).contiguous(),
+        seed_ids.to(torch.int32).contiguous(), gk.beam_norms(qf), int(k),
+        itopk, width, max_iter)
+    if metric == DistanceType.L2SqrtExpanded:
+        v = torch.sqrt(torch.clamp_min(v, 0.0))
+    return v, i
+
+
+def resolve_search_plan(params: SearchParams, k: int, size: int):
+    """The resolved beam plan ``(itopk, width, max_iter, n_seeds)``."""
+    itopk = max(int(params.itopk_size), int(k))
+    width = max(int(params.search_width), 1)
+    max_iter = gk.resolve_max_iter(itopk, width, int(params.max_iterations))
+    n_rand = max(int(params.num_random_samplings), 1)
+    n_seeds = min(max(itopk, 32) * n_rand, int(size))
+    return itopk, width, max_iter, n_seeds
+
+
+def seed_table(params: SearchParams, n_queries: int, size: int,
+               n_seeds: int, device) -> torch.Tensor:
+    """Seeds [n_queries, n_seeds] int32: a stratified lattice over the
+    dataset's ids (every size/n_seeds stretch holds one), rotated per row
+    by the JAX package's draw, so row q's seeds depend only on q and the
+    mask. Only the per-row offsets are drawn on the host; the lattice is
+    laid out on ``device``."""
+    base = torch.arange(n_seeds, dtype=torch.int64, device=device) * size \
+        // n_seeds
+    offsets = torch.from_numpy(cagra_seed_offsets(
+        params.rand_xor_mask, n_queries, size)).to(device)
+    seeds = base[None, :] + offsets[:, None]  # < 2·size: one wrap is enough
+    return torch.where(seeds >= size, seeds - size, seeds).to(torch.int32)
+
+
+@dataclasses.dataclass
+class SearchPlan:
+    """``engine``: "pallas" (the kernel) or "xla" (the glue engine);
+    ``reason``: why the kernel was not taken (None when it was); ``plan``:
+    the resolved beam plan."""
+
+    engine: str
+    reason: Optional[str]
+    plan: dict
+
+
+def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
+                has_filter: bool = False) -> SearchPlan:
+    """The engine ``search`` takes for this request, and why."""
+    params = params or SearchParams()
+    if params.scan_mode not in ("auto", "xla", "pallas"):
+        raise ValueError(f"scan_mode={params.scan_mode!r}: expected 'auto', "
+                         "'xla' or 'pallas'")
+    itopk, width, max_iter, n_seeds = resolve_search_plan(params, k,
+                                                          index.size)
+    plan = {"itopk": itopk, "search_width": width, "max_iter": max_iter,
+            "n_seeds": n_seeds}
+    if params.scan_mode == "xla":
+        return SearchPlan("xla", "scan_mode_xla", plan)
+    reason = fused_ineligible_reason(index.metric, index.dataset.dtype, itopk,
+                                     has_filter, False)
+    if reason is None and gk.cagra_topk_smem_bytes(
+            itopk, index.dim, width, index.graph_degree) > gk.SMEM_LIMIT:
+        reason = "smem"
+    return SearchPlan("xla" if reason else "pallas", reason, plan)
+
+
+@tracing.range("cagra.search")
+def search(index: Index, queries, k: int,
+           params: Optional[SearchParams] = None, filter=None,
+           res: Optional[Resources] = None, explain: bool = False):
+    """Greedy graph search → ``(distances [nq, k] f32, ids [nq, k] int32)``
+    in the metric's units. ``filter`` is an optional
+    :class:`~raft_tpu_torch.core.bitset.Bitset` over dataset rows; cleared
+    rows never enter the beam. Runs on the index's device; ``plan_search``
+    says which engine it takes."""
+    params = params or SearchParams()
+    if explain:
+        raise NotImplementedError(
+            "explain=True and its obs.explain records are not ported yet "
+            "(ROADMAP); plan_search gives the engine and its reason")
+    if params.scan_dtype is not None:
+        raise NotImplementedError(
+            "the bf16 fast scan (scan_dtype) is not ported yet (ROADMAP)")
+    res = ensure_resources(res, index.device)
+    if isinstance(queries, torch.Tensor) and queries.dim() == 1:
+        queries = queries[None]
+    elif not isinstance(queries, torch.Tensor) and np.ndim(queries) == 1:
+        queries = np.asarray(queries)[None]
+    queries = as_query_array(queries, index.device)
+    if queries.shape[1] != index.dim:
+        raise ValueError(
+            f"query dim {queries.shape[1]} != index dim {index.dim}")
+    sp = plan_search(index, k, params, filter is not None)
+    itopk, width, max_iter = (sp.plan["itopk"], sp.plan["search_width"],
+                              sp.plan["max_iter"])
+    seeds = seed_table(params, queries.shape[0], index.size,
+                       sp.plan["n_seeds"], index.device)
+    if sp.engine == "pallas":
+        return search_fused_core(queries, index.dataset, index.graph, seeds,
+                                 index.metric, int(k), itopk, width, max_iter)
+    words = filter.words.to(index.device) if filter is not None else None
+    wd = width * index.graph_degree
+    per_q = (wd * (itopk + wd) + (itopk + wd) * 16
+             + (wd + sp.plan["n_seeds"]) * index.dim * 8)
+    q_tile = max(1, res.workspace_limit_bytes // per_q)
+    return search_core(queries, index.dataset, index.graph, seeds, words,
+                       index.metric, int(k), itopk, width, max_iter, q_tile)
+
+
+def serialize(index: Index, file, include_dataset: bool = True) -> None:
+    raise NotImplementedError(
+        "cagra.serialize is not ported yet (ROADMAP Queue A item 2)")
+
+
+def deserialize(file, dataset=None, res: Optional[Resources] = None) -> Index:
+    raise NotImplementedError(
+        "cagra.deserialize is not ported yet (ROADMAP Queue A item 2)")

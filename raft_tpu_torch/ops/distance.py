@@ -150,21 +150,23 @@ def inner_product(x, y) -> torch.Tensor:
     return dot_fp32(x, y)
 
 
-def gathered_distances(queries, vecs, metric: DistanceType) -> torch.Tensor:
+def gathered_distances(queries, vecs, metric: DistanceType,
+                       vec_norms_sq=None) -> torch.Tensor:
     """Distances between queries [t, d] and their own candidates [t, c, d]:
     raw dots for InnerProduct, 1 − cos for cosine, clamped squared L2 (square
-    root for L2SqrtExpanded)."""
+    root for L2SqrtExpanded). ``vec_norms_sq`` [t, c] gives the candidates'
+    squared norms when the caller has them (one pass over ``vecs`` less)."""
     qf = queries.to(torch.float32)
     vf = vecs.to(torch.float32)
     dots = einsum_fp32("td,tcd->tc", qf, vf)
     if metric == DistanceType.InnerProduct:
         return dots
+    vn2 = (vf * vf).sum(-1) if vec_norms_sq is None else vec_norms_sq
     if metric == DistanceType.CosineExpanded:
-        vn = torch.sqrt(torch.clamp_min((vf * vf).sum(-1), 1e-20))
+        vn = torch.sqrt(torch.clamp_min(vn2, 1e-20))
         qn = torch.sqrt(torch.clamp_min(row_norms_sq(qf), 1e-20))
         return 1.0 - dots / (vn * qn[:, None])
-    d = torch.clamp_min((row_norms_sq(qf)[:, None] + (vf * vf).sum(-1))
-                        - 2.0 * dots, 0.0)
+    d = torch.clamp_min((row_norms_sq(qf)[:, None] + vn2) - 2.0 * dots, 0.0)
     if metric == DistanceType.L2SqrtExpanded:
         d = torch.sqrt(d)
     return d

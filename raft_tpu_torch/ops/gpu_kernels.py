@@ -19,8 +19,9 @@ the plain version on the card. Launches go to the tensors' device, on
 PyTorch's current stream there.
 
 Selection order everywhere: ascending value; ties by candidate order (row
-id for brute force, (probe, slot) for IVF and IVF-PQ, column for select_k);
-+inf yields id -1; NaN is never selected.
+id for brute force, (probe, slot) for IVF and IVF-PQ, column for select_k,
+buffer first and then position for CAGRA's beam merges); +inf yields id -1;
+NaN is never selected.
 """
 
 from __future__ import annotations
@@ -49,6 +50,7 @@ SOURCES = {
     "fused_ivf_topk": "fused_ivf_topk.cu",
     "select_k": "select_k.cu",
     "fused_pq_topk": "fused_pq_topk.cu",
+    "fused_cagra_topk": "fused_cagra_topk.cu",
 }
 
 #: launches of each kernel since the last ``reset_launch_counts()``
@@ -69,6 +71,8 @@ _ARGTYPES = {
     "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
     "fused_pq_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                       _I, _I, _I, _VP, _VP, _VP],
+    "fused_cagra_topk": [_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
+                         _I, _I, _I, _VP, _VP, _VP],
 }
 
 
@@ -526,4 +530,290 @@ def fused_pq_topk(probes, q_rot, centers_rot, codebooks, cb_norms,
             _stream(dev))
     _check_rc("fused_pq_topk", rc)
     LAUNCHES["fused_pq_topk"] += 1
+    return out_v, out_i
+
+
+# ---------------------------------------------------- fused_cagra_topk
+
+CAGRA_THREADS = 128  # kThreads of fused_cagra_topk.cu
+MAX_ITOPK = 1024
+
+
+def _align16(b: int) -> int:
+    return (b + 15) & ~15
+
+
+def cagra_cand_cap(width: int, degree: int) -> int:
+    """Candidate slots of one fused_cagra_topk block: a hop's width·degree
+    targets (and a chunk of seeds), rounded up to a power of two >= 32."""
+    cap = 32
+    while cap < width * degree:
+        cap *= 2
+    return cap
+
+
+def cagra_topk_smem_bytes(itopk: int, dim: int, width: int,
+                          degree: int) -> int:
+    """Dynamic shared memory of one fused_cagra_topk block (the formula of
+    ``cagra_smem_bytes`` in fused_cagra_topk.cu): two beam buffers (keys,
+    ids, flags), the query row, the candidates' ids, keys and sort slots,
+    the parents and two counters."""
+    cap = cagra_cand_cap(width, degree)
+    return (2 * (2 * _align16(itopk * 4) + _align16(itopk))
+            + _align16(dim * 4) + cap * 8 + cap * 8 + _align16(width * 4)
+            + 16)
+
+
+def lane_order_sum(p: torch.Tensor) -> torch.Tensor:
+    """Sum over the last axis in the order fused_cagra_topk adds: element e
+    goes to lane (e // 4) % 32, each lane adds its elements in order
+    (groups of four, groups 32 apart), then the 32 lane sums are folded in
+    halves (lane l + lane l + 16, then + 8, 4, 2, 1: the xor shuffle
+    ladder). Every step is one float32 addition, so the result is bitwise
+    the kernel's."""
+    dim = p.shape[-1]
+    groups = -(-dim // 128)
+    pad = groups * 128 - dim
+    if pad:
+        p = torch.cat([p, p.new_zeros(*p.shape[:-1], pad)], dim=-1)
+    p = p.reshape(*p.shape[:-1], groups, 32, 4)
+    acc = p[..., 0, :, 0]
+    for j in range(groups):
+        for c in range(4):
+            if j or c:
+                acc = acc + p[..., j, :, c]
+    h = 16
+    while h:
+        acc = acc[..., :h] + acc[..., h:2 * h]
+        h //= 2
+    return acc[..., 0]
+
+
+def beam_norms(x: torch.Tensor) -> torch.Tensor:
+    """Squared row norms summed in the kernel's order (``lane_order_sum``),
+    so that they, and the distances built on them, are bitwise the same on
+    the card and on the CPU."""
+    xf = x.to(torch.float32)
+    return lane_order_sum(xf * xf)
+
+
+def beam_distances(queries, q_norms, dataset, ids,
+                   inner_product: bool = False) -> torch.Tensor:
+    """The minimised distance of each query [b, dim] to its rows ``ids``
+    [b, c] (+inf where an id is < 0), with fused_cagra_topk's products and
+    order of additions: max(‖q‖² + ‖v‖² − 2·q·v, 0) with ``q_norms`` [b]
+    the queries' squared norms, or −q·v for ``inner_product``."""
+    vecs = dataset[ids.clamp_min(0)].to(torch.float32)  # [b, c, dim]
+    q = queries.to(torch.float32)[:, None, :]
+    dot = lane_order_sum(vecs * q)
+    if inner_product:
+        d = -dot
+    else:
+        vn = lane_order_sum(vecs * vecs)
+        d = torch.clamp_min((q_norms[:, None] + vn) - 2.0 * dot, 0.0) + 0.0
+    return torch.where(ids < 0, torch.inf, d)
+
+
+def _beam_merge(bd, bi, bf, cd, ci, itopk: int, clear_inf: bool = True):
+    """The first ``itopk`` of a stable ascending sort of [buffer | candidates]
+    by distance (the buffer first on ties, candidates in position order).
+    With ``clear_inf`` +inf entries carry id -1 and a clear flag (the
+    kernel's padding); without it they keep their ids."""
+    d = torch.cat([bd, cd], 1)
+    sd, order = torch.sort(d, dim=1, stable=True)
+    sd, order = sd[:, :itopk], order[:, :itopk]
+    si = torch.gather(torch.cat([bi, ci], 1), 1, order)
+    sf = torch.gather(torch.cat([bf, torch.zeros_like(ci, dtype=torch.bool)],
+                                1), 1, order)
+    if not clear_inf:
+        return sd, si, sf
+    fin = torch.isfinite(sd)
+    return sd, torch.where(fin, si, -1), sf & fin
+
+
+def beam_hop(bd, bi, bf, done, graph, width: int, score,
+             clear_inf: bool = True):
+    """One hop of CAGRA's beam walk, shared by the kernel's plain version and
+    the glue engine. The buffers [b, itopk] (distances ascending, int64 ids,
+    expanded flags) of the rows not ``done``: flag the ``width`` first
+    unexpanded finite entries (the cheapest, lowest index on ties), gather
+    their graph rows (-1 for a missing parent; ids outside [0, n) are
+    invalid edges), drop a target equal to a buffer id or to an earlier
+    target, score the rest with ``score(ids [b, c]) -> [b, c]`` (+inf for an
+    id < 0) and merge (``_beam_merge``). A row with nothing left to expand
+    keeps its buffers. Returns ``(bd, bi, bf, active [b], parents [b, width],
+    targets [b, c], target distances [b, c])``."""
+    nq = bd.shape[0]
+    n = graph.shape[0]
+    avail = ~bf & torch.isfinite(bd) & ~done[:, None]
+    rank = torch.cumsum(avail.to(torch.int32), 1)
+    parents = []
+    for w in range(width):
+        hit = avail & (rank == w + 1)
+        ok = hit.any(1)
+        pos = hit.to(torch.int8).argmax(1, keepdim=True)
+        bf = bf | torch.zeros_like(bf).scatter(1, pos, ok[:, None])
+        parents.append(torch.where(ok, torch.gather(bi, 1, pos)[:, 0], -1))
+    par = torch.stack(parents, 1)
+    active = par[:, 0] >= 0
+    tg = graph[par.clamp_min(0)].to(torch.int64)  # [b, width, degree]
+    tg = torch.where(par[:, :, None] < 0, -1, tg).reshape(nq, -1)
+    tg = torch.where((tg < 0) | (tg >= n), -1, tg)
+    wd = tg.shape[1]
+    earlier = torch.tril(torch.ones(wd, wd, dtype=torch.bool,
+                                    device=tg.device), -1)
+    drop = (tg[:, :, None] == bi[:, None, :]).any(-1) \
+        | ((tg[:, :, None] == tg[:, None, :]) & earlier).any(-1)
+    tg = torch.where(drop, -1, tg)
+    td = score(tg)
+    nd, ni, nf = _beam_merge(bd, bi, bf, td, tg, bd.shape[1], clear_inf)
+    keep = ~active[:, None]
+    return (torch.where(keep, bd, nd), torch.where(keep, bi, ni),
+            torch.where(keep, bf, nf), active, par, tg, td)
+
+
+def _cagra_walk(queries, dataset, graph, seeds, q_norms, itopk: int,
+                width: int, max_iter: int, seen=None):
+    """The beam walk of a chunk of queries; returns the buffer and the
+    (hops, rows scored) per query. ``seen`` ([2, n] bool, or None) gets the
+    rows scored (row 0) and the nodes expanded (row 1) marked."""
+    nq = queries.shape[0]
+    n = graph.shape[0]
+    dev = queries.device
+    seeds = seeds.to(torch.int64)
+    seeds = torch.where((seeds < 0) | (seeds >= n), -1, seeds)
+    # a seed equal to an earlier seed is dropped (first copy kept)
+    order = torch.sort(seeds, dim=1, stable=True).indices
+    s_sorted = torch.gather(seeds, 1, order)
+    dup_sorted = torch.zeros_like(s_sorted, dtype=torch.bool)
+    dup_sorted[:, 1:] = (s_sorted[:, 1:] == s_sorted[:, :-1]) \
+        & (s_sorted[:, 1:] >= 0)
+    dup = torch.zeros_like(dup_sorted).scatter(1, order, dup_sorted)
+    seeds = torch.where(dup, -1, seeds)
+
+    def score(ids):
+        return beam_distances(queries, q_norms, dataset, ids)
+
+    sd = score(seeds)
+    rows = torch.isfinite(sd).sum(1)
+    if seen is not None:
+        seen[0, seeds[torch.isfinite(sd)]] = True
+    bd = torch.full((nq, itopk), torch.inf, device=dev)
+    bi = torch.full((nq, itopk), -1, dtype=torch.int64, device=dev)
+    bf = torch.zeros((nq, itopk), dtype=torch.bool, device=dev)
+    bd, bi, bf = _beam_merge(bd, bi, bf, sd, seeds, itopk)
+    hops = torch.zeros(nq, dtype=torch.int64, device=dev)
+    done = torch.zeros(nq, dtype=torch.bool, device=dev)
+    for _ in range(max_iter):
+        bd, bi, bf, active, par, tg, td = beam_hop(bd, bi, bf, done, graph,
+                                                   width, score)
+        done = done | ~active
+        if not bool(active.any()):
+            break
+        fin = torch.isfinite(td)  # rows that stayed done have no target
+        hops += active.to(torch.int64)
+        rows += fin.sum(1)
+        if seen is not None:
+            seen[0, tg[fin]] = True
+            seen[1, par[par >= 0]] = True
+    return bd, bi, torch.stack([hops, rows], 1)
+
+
+def fused_cagra_topk_plain(queries, dataset, graph, seed_ids, q_norms, k: int,
+                           itopk: int, width: int, max_iter: int,
+                           return_stats: bool = False):
+    """Plain version of ``fused_cagra_topk``: the same walk, batched over
+    queries (chunked), with the kernel's arithmetic and order of additions
+    (``lane_order_sum``) and its tie order. With ``return_stats`` a third
+    result, a dict, gives the walk's counts: ``hops`` and ``rows_scored``
+    [nq] int64 per query (rows scored are seeds and targets with a finite
+    distance), and over all queries ``rows_touched`` (distinct rows
+    scored) and ``nodes_expanded`` (distinct parents)."""
+    nq, dim = queries.shape
+    itopk = max(int(itopk), int(k))
+    wd = width * graph.shape[1]
+    per_q = (wd * (itopk + wd) + (wd + seed_ids.shape[1]) * dim * 12
+             + itopk * 64)
+    step = _row_chunk(1, per_q, 1 << 28)
+    seen = (torch.zeros((2, graph.shape[0]), dtype=torch.bool,
+                        device=queries.device) if return_stats else None)
+    out = [_cagra_walk(queries[s:s + step], dataset, graph,
+                       seed_ids[s:s + step], q_norms[s:s + step], itopk,
+                       width, max_iter, seen) for s in range(0, nq, step)]
+    if not out:
+        out = [(queries.new_empty((0, itopk)),
+                queries.new_empty((0, itopk), dtype=torch.int64),
+                queries.new_empty((0, 2), dtype=torch.int64))]
+    v = torch.cat([o[0] for o in out])[:, :k]
+    i = torch.cat([o[1] for o in out])[:, :k].to(torch.int32)
+    if not return_stats:
+        return v, i
+    counts = torch.cat([o[2] for o in out])
+    return v, i, {"hops": counts[:, 0], "rows_scored": counts[:, 1],
+                  "rows_touched": int(seen[0].sum()),
+                  "nodes_expanded": int(seen[1].sum())}
+
+
+def resolve_max_iter(itopk: int, width: int, max_iter: int) -> int:
+    """``max_iter`` <= 0 → the search plan's auto heuristic."""
+    if max_iter > 0:
+        return int(max_iter)
+    return int(min(max(itopk // width + 10, 16), 200))
+
+
+def fused_cagra_topk(queries, dataset, graph, seed_ids, q_norms, k: int,
+                     itopk: int, width: int = 1, max_iter: int = 0):
+    """The whole CAGRA beam walk of each query in one kernel.
+
+    queries [nq, dim] f32, dataset [n, dim] f32, graph [n, degree] int32
+    (-1 and ids outside [0, n) are invalid edges), seed_ids [nq, S] int32,
+    q_norms [nq] f32 (the queries' squared norms). Returns the ascending
+    squared L2 ``(distances [nq, k], ids [nq, k] int32)``, ids -1 where the
+    walk found fewer than k nodes. ``itopk`` (raised to k, at most 1024) is
+    the beam; ``max_iter`` <= 0 applies the auto heuristic."""
+    itopk = max(int(itopk), int(k))
+    _check_k("fused_cagra_topk", k)
+    if itopk > MAX_ITOPK:
+        raise ValueError(f"fused_cagra_topk is a small-beam kernel: itopk="
+                         f"{itopk} > {MAX_ITOPK}")
+    width = max(int(width), 1)
+    max_iter = resolve_max_iter(itopk, width, int(max_iter))
+    tensors = (queries, dataset, graph, seed_ids, q_norms)
+    if _on_cpu(*tensors):
+        return fused_cagra_topk_plain(*tensors, k, itopk, width, max_iter)
+    dev = queries.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_cagra_topk: unsupported device {dev}")
+    nq, dim = queries.shape
+    n, degree = graph.shape
+    n_seeds = seed_ids.shape[1]
+    _check("queries", queries, torch.float32, 2, dev)
+    _check("dataset", dataset, torch.float32, 2, dev)
+    _check("graph", graph, torch.int32, 2, dev)
+    _check("seed_ids", seed_ids, torch.int32, 2, dev)
+    _check("q_norms", q_norms, torch.float32, 1, dev)
+    if (dataset.shape[1] != dim or seed_ids.shape[0] != nq
+            or q_norms.shape[0] != nq or graph.shape[0] != n
+            or dataset.shape[0] != n or n_seeds < 1 or degree < 1):
+        raise ValueError("fused_cagra_topk: shapes disagree")
+    smem = cagra_topk_smem_bytes(itopk, dim, width, degree)
+    if smem > SMEM_LIMIT:
+        raise ValueError(
+            f"fused_cagra_topk: itopk={itopk}, dim={dim}, width={width}, "
+            f"degree={degree} need {smem} bytes of shared memory, more than "
+            f"a block's {SMEM_LIMIT}")
+    out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
+    out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
+    if nq > 0:
+        vec4 = int(dim % 4 == 0 and dataset.data_ptr() % 16 == 0
+                   and queries.data_ptr() % 16 == 0)
+        lib = _lib("fused_cagra_topk")
+        with torch.cuda.device(dev):
+            rc = lib.fused_cagra_topk(
+                queries.data_ptr(), dataset.data_ptr(), graph.data_ptr(),
+                seed_ids.data_ptr(), q_norms.data_ptr(), nq, n, dim, degree,
+                n_seeds, k, itopk, width, max_iter, vec4, out_v.data_ptr(),
+                out_i.data_ptr(), _stream(dev))
+        _check_rc("fused_cagra_topk", rc)
+        LAUNCHES["fused_cagra_topk"] += 1
     return out_v, out_i

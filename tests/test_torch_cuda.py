@@ -11,6 +11,9 @@ distance stands for max‖x‖²; an fp8 LUT adds two e4m3 steps of the
 largest LUT entry, as an entry may round the other way on the card); ids
 equal away from near-ties, near-ties as sets, and for the IVF-PQ engines at
 least 90% equal; select_k does no arithmetic and is held to equality.
+fused_cagra_topk is held to bitwise equality with its plain version (the
+plain version repeats the kernel's products and its order of additions),
+and so is the CAGRA kernel engine on the card with its CPU run.
 """
 
 import pytest
@@ -18,8 +21,9 @@ import torch
 
 from raft_tpu_torch import interop
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.neighbors import ivf_pq
+from raft_tpu_torch.neighbors import cagra, ivf_pq
 from raft_tpu_torch.ops import gpu_kernels as gk
+from raft_tpu_torch.stats import neighborhood_recall
 from raft_tpu_torch.testing import assert_topk_close
 
 pytestmark = pytest.mark.cuda
@@ -207,3 +211,109 @@ def _lut_abs_max(index, queries) -> float:
     cb = index.codebooks
     lut = (cb * cb).sum(-1) - 2 * torch.einsum("qlsj,scj->qlsc", sub, cb)
     return float(lut.abs().max())
+
+
+def _cagra_inputs(dev, n, dim, degree, nq, n_seeds, seed=12):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    data = _randn(dev, n, dim, seed=seed + 1)
+    q = _randn(dev, nq, dim, seed=seed + 2)
+    graph = torch.randint(0, n, (n, degree), generator=g, device=dev,
+                          dtype=torch.int32)
+    graph[::7, :3] = -1  # invalid edges
+    graph[3, 0] = n + 5  # an id outside [0, n) is invalid too
+    seeds = torch.randint(0, n, (nq, n_seeds), generator=g, device=dev,
+                          dtype=torch.int32)
+    return q, data, graph, seeds, (q * q).sum(1)
+
+
+def _cagra_both(args, k, itopk, width):
+    max_iter = gk.resolve_max_iter(max(itopk, k), width, 0)
+    before = gk.LAUNCHES["fused_cagra_topk"]
+    got = gk.fused_cagra_topk(*args, k, itopk, width, 0)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_cagra_topk"] == before + 1
+    want = gk.fused_cagra_topk_plain(*args, k, itopk, width, max_iter)
+    assert torch.equal(got[1], want[1])
+    assert torch.equal(got[0], want[0])
+    return got, want
+
+
+@pytest.mark.parametrize("k", [1, 10, 64])
+@pytest.mark.parametrize("itopk", [16, 64, 256, 1024])
+@pytest.mark.parametrize("width", [1, 4])
+def test_fused_cagra_topk_kernel_matches_plain(dev, k, itopk, width):
+    # degree 7: a ragged hop of width·7 targets
+    args = _cagra_inputs(dev, 3000, 40, 7, 40, max(itopk, 32))
+    _cagra_both(args, k, itopk, width)
+
+
+@pytest.mark.parametrize("dim,degree,width", [(33, 16, 2), (128, 32, 1),
+                                              (5, 8, 8)])
+def test_fused_cagra_topk_kernel_scalar_and_wide_hops(dev, dim, degree, width):
+    # dim 33 and 5 take the kernel's scalar loads (dim % 4 != 0)
+    args = _cagra_inputs(dev, 2000, dim, degree, 30, 64, seed=20)
+    _cagra_both(args, 10, 64, width)
+
+
+def test_fused_cagra_topk_kernel_duplicate_seeds_across_chunks(dev):
+    # seed chunks hold 32 entries here (width·degree = 7): copies of the
+    # first 40 seeds sit in later chunks
+    q, data, graph, seeds, qn = _cagra_inputs(dev, 1000, 16, 7, 20, 200)
+    seeds[:, 150:190] = seeds[:, 0:40]
+    seeds[:, 199] = -1
+    _cagra_both((q, data, graph, seeds, qn), 10, 32, 1)
+
+
+def test_fused_cagra_topk_wrapper_checks(dev):
+    q, data, graph, seeds, qn = _cagra_inputs(dev, 200, 8, 4, 3, 32)
+    with pytest.raises(ValueError, match="small-beam"):
+        gk.fused_cagra_topk(q, data, graph, seeds, qn, 10, 2048)
+    with pytest.raises(TypeError, match="dtype"):
+        gk.fused_cagra_topk(q, data, graph.long(), seeds, qn, 10, 64)
+    wide = _randn(dev, 200, 60000)
+    wq = _randn(dev, 3, 60000)
+    with pytest.raises(ValueError, match="shared memory"):
+        gk.fused_cagra_topk(wq, wide, graph, seeds, (wq * wq).sum(1), 10, 64)
+
+
+def _cagra_cpu_and_card(dev, build_algo=cagra.BuildAlgo.NN_DESCENT):
+    g = torch.Generator().manual_seed(13)
+    db = torch.randn(4000, 32, generator=g)
+    q = torch.randn(100, 32, generator=g)
+    params = cagra.IndexParams(intermediate_graph_degree=32, graph_degree=16,
+                               build_algo=build_algo)
+    cpu = cagra.build(db, params, device="cpu")
+    return db, q, params, cpu
+
+
+@pytest.mark.parametrize("mode", ["auto", "xla"])
+def test_cagra_search_on_the_card_matches_the_cpu(dev, mode):
+    db, q, params, cpu = _cagra_cpu_and_card(dev)
+    card = interop.cagra_index_from_numpy(params, db.numpy(),
+                                          cpu.graph.numpy(), device=dev)
+    sp = cagra.SearchParams(itopk_size=64, search_width=2, scan_mode=mode)
+    gk.reset_launch_counts()
+    got = cagra.search(card, q, 10, sp)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_cagra_topk"] == (1 if mode == "auto" else 0)
+    want = cagra.search(cpu, q, 10, sp)
+    if mode == "auto":  # the kernel and its plain version: bitwise
+        assert torch.equal(got[1].cpu(), want[1])
+        assert torch.equal(got[0].cpu(), want[0])
+    else:
+        assert_topk_close(got, want, 1e-4 * float((db * db).sum(1).max()),
+                          1e-5)
+
+
+@pytest.mark.parametrize("algo", ["NN_DESCENT", "IVF_PQ"])
+def test_cagra_build_on_the_card_recall_matches_the_cpu(dev, algo):
+    db, q, params, cpu = _cagra_cpu_and_card(dev, cagra.BuildAlgo[algo])
+    card = cagra.build(db, params, res=Resources(device=dev))
+    assert card.graph.device.type == "cuda"
+    d = (q * q).sum(1)[:, None] + (db * db).sum(1)[None] - 2 * q @ db.T
+    gt = torch.sort(d, dim=1, stable=True).indices[:, :10]
+    sp = cagra.SearchParams(itopk_size=64, search_width=2)
+    r_card = float(neighborhood_recall(cagra.search(card, q, 10, sp)[1].cpu(),
+                                       gt))
+    r_cpu = float(neighborhood_recall(cagra.search(cpu, q, 10, sp)[1], gt))
+    assert r_card >= r_cpu - 0.02, (r_card, r_cpu)

@@ -12,7 +12,9 @@ import pytest
 import torch
 
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch import interop
+from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
+                                      nn_descent)
 from raft_tpu_torch.neighbors.refine import refine
 
 REPO = Path(__file__).resolve().parents[1]
@@ -25,7 +27,7 @@ from raft_tpu_torch import interop, testing
 from raft_tpu_torch.bench import datagen
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, list_packing
-from raft_tpu_torch.neighbors import refine
+from raft_tpu_torch.neighbors import cagra, nn_descent, refine
 from raft_tpu_torch.bench import breakdown
 from raft_tpu_torch.ops import gpu_kernels, rng, select_k
 bad = sorted(m for m in sys.modules
@@ -49,6 +51,8 @@ def _no_cuda():
 
 @pytest.mark.parametrize("entry", ["brute_force.build", "brute_force.knn",
                                    "ivf_flat.build", "ivf_pq.build", "refine",
+                                   "nn_descent.build", "cagra.build",
+                                   "cagra.optimize", "cagra.search",
                                    "Resources"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
     _no_cuda()
@@ -61,6 +65,18 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
         "ivf_pq.build": lambda: ivf_pq.build(
             db, ivf_pq.IndexParams(n_lists=4, pq_dim=4)),
         "refine": lambda: refine(db, db[:4], np.zeros((4, 5), np.int32), 3),
+        "nn_descent.build": lambda: nn_descent.build(
+            db, nn_descent.IndexParams(graph_degree=4,
+                                       intermediate_graph_degree=8)),
+        "cagra.build": lambda: cagra.build(
+            db, cagra.IndexParams(intermediate_graph_degree=8,
+                                  graph_degree=4)),
+        "cagra.optimize": lambda: cagra.optimize(
+            np.zeros((64, 8), np.int32), 4),
+        # an index on the default device, then a search of it
+        "cagra.search": lambda: cagra.search(interop.cagra_index_from_numpy(
+            cagra.IndexParams(graph_degree=4), db,
+            np.zeros((64, 4), np.int32)), db[:4], 3),
         "Resources": lambda: Resources(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):

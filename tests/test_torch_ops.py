@@ -1,14 +1,17 @@
 """raft_tpu_torch's small modules against raft_tpu on the same numpy inputs:
-shape helpers, resources, tracing, bitset, distances, select_k, recall and
-row subsampling. All on the CPU (``device="cpu"``).
+shape helpers, resources, tracing, bitset, distances, select_k (with its
+tie order and the graph merges), recall, row subsampling and CAGRA's seed
+draw. All on the CPU (``device="cpu"``).
 
 Tolerances: distances rtol 1e-5 and atol 1e-4·max‖x‖² (fp32 sums taken in
 another order); selections exact in value and equal in id away from
-near-ties (``raft_tpu_torch.testing.assert_topk_close``).
+near-ties (``raft_tpu_torch.testing.assert_topk_close``); on tied inputs,
+and for the merges and the seed draw, ids (and flags) exactly equal.
 """
 
 import importlib
 
+import jax
 import jax.numpy as jnp
 import numpy as np
 import pytest
@@ -251,3 +254,78 @@ def test_subsample_rows_uniform_distinct_ordered():
     assert torch.equal(rows, torch.sort(rows).values)
     assert rows.unique().numel() == 100
     assert trng.subsample_rows(g, x, 5000) is x
+
+
+@pytest.mark.parametrize("algo", ["DIRECT", "TWO_PHASE"])
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("n", [3000, 200_000])
+def test_select_k_ties_resolve_as_jax(algo, select_min, n):
+    # integer-valued rows: every value is tied many times, so the order of
+    # the ties and the members at the k-th value are all that is tested
+    rng = np.random.default_rng(9)
+    v = rng.integers(0, 4, (8, n)).astype(np.float32)
+    v[1, :40] = np.inf
+    v[2, 7:9] = -0.0
+    v[2, -2:] = -0.0  # beyond the k lowest +0.0s: the sign decides
+    # rows without a tie at the k-th place (the single selection's path),
+    # one with both zeros among its members
+    v[5] = rng.permutation(n).astype(np.float32)
+    v[6] = -v[5]
+    v[6, [3, 11]] = [-0.0, 0.0]
+    want = jsel.select_k(v, 20, select_min, algo=jsel.SelectAlgo[algo])
+    got = tsel.select_k(_t(v), 20, select_min, algo=tsel.SelectAlgo[algo])
+    np.testing.assert_array_equal(got[1].numpy(), np.asarray(want[1]))
+    np.testing.assert_array_equal(got[0].numpy().view(np.int32),
+                                  np.asarray(want[0]).view(np.int32))
+
+
+def _merge_rows(seed=10, b=7, m=60):
+    """Rows with duplicate ids, -1 ids, +inf distances and tied finite
+    distances."""
+    rng = np.random.default_rng(seed)
+    ids = rng.integers(-1, 25, (b, m)).astype(np.int32)
+    d = rng.integers(0, 6, (b, m)).astype(np.float32)
+    d[:, m - 12:] = np.inf
+    d[3] = np.inf
+    flags = rng.random((b, m)) < 0.3
+    return ids, d, flags
+
+
+@pytest.mark.parametrize("k", [5, 24, 70])
+def test_merge_topk_dedup_matches_jax_exactly(k):
+    ids, d, _ = _merge_rows()
+    own = np.arange(ids.shape[0], dtype=np.int32)
+    if k > ids.shape[1]:  # JAX needs k <= m; the port pads with (-1, inf)
+        ids = np.pad(ids, ((0, 0), (0, k - ids.shape[1])), constant_values=-1)
+        d = np.pad(d, ((0, 0), (0, k - d.shape[1])), constant_values=np.inf)
+    wi, wd = jsel.merge_topk_dedup(jnp.asarray(ids), jnp.asarray(d), k,
+                                   exclude_ids=jnp.asarray(own))
+    gi, gd = tsel.merge_topk_dedup(_t(ids), _t(d), k, exclude_ids=_t(own))
+    assert gi.dtype == torch.int32
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+
+
+@pytest.mark.parametrize("k", [5, 24, 60])
+def test_merge_topk_dedup_flagged_matches_jax_exactly(k):
+    ids, d, flags = _merge_rows(11)
+    wi, wd, wf = jsel.merge_topk_dedup_flagged(
+        jnp.asarray(ids), jnp.asarray(d), jnp.asarray(flags), k)
+    gi, gd, gf = tsel.merge_topk_dedup_flagged(_t(ids), _t(d), _t(flags), k)
+    np.testing.assert_array_equal(gi.numpy(), np.asarray(wi))
+    np.testing.assert_array_equal(gd.numpy(), np.asarray(wd))
+    np.testing.assert_array_equal(gf.numpy(), np.asarray(wf))
+    assert not bool(gf[gi < 0].any())
+
+
+@pytest.mark.parametrize("size", [3000, 1_000_000])
+@pytest.mark.parametrize("mask", [0x128394, 0x7EADBEEF])
+def test_cagra_seed_offsets_bitwise_equal_to_jax(size, mask):
+    # raft_tpu.neighbors.cagra.search's draw: randint(fold_in(key(mask),
+    # row), (), 0, size) per row
+    key = jax.random.key(mask & 0x7FFFFFFF)
+    want = jax.vmap(lambda row: jax.random.randint(
+        jax.random.fold_in(key, row), (), 0, size, jnp.int32))(
+        jnp.arange(10_000, dtype=jnp.uint32))
+    got = trng.cagra_seed_offsets(mask, 10_000, size)
+    np.testing.assert_array_equal(got, np.asarray(want).astype(np.int64))
