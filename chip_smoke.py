@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 seed, 10,000 queries, k=10, L2) it
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the five CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
+2. builds the seven CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
@@ -29,11 +29,28 @@ seed, 10,000 queries, k=10, L2) it
    ``fused_cagra_topk`` (recall@10 >= 0.90, itopk doubling up to 512 until
    met); and the glue engine (``scan_mode="xla"``) on the first 1,000
    queries, held against the kernel path's result;
+5c. runs Lloyd k-means (``cluster.kmeans.fit``: 1024 clusters, k-means++
+   init, 20 iterations at most, tol 1e-4) on the dataset, its init and its
+   Lloyd loop timed apart, every E-step through ``fused_l2_argmin`` (one
+   launch per iteration plus the final assignment); then ``predict`` and
+   ``cluster_cost``. The final inertia must not exceed the k-means++
+   centres' cost, and ``predict``'s labels must equal ``fused_l2_topk``'s
+   nearest centre away from near-ties. ``fused_l2_nn_argmin`` is timed at
+   ``raft_tpu/bench/prims.py``'s shape (100,000 × 1,024 × 128);
+5d. runs the requests the fused IVF kernels decline, through ``ivf_scan``:
+   IVF-Flat (phase 4's index) and IVF-PQ (phase 5's, cache regime) with a
+   filter that removes 10% of the row ids, drawn from the seed (recall@10
+   against the port's filtered brute force >= 0.90 and >= 0.80; no removed
+   id returned), and an inner-product IVF-Flat index at
+   raft-ann-bench's ``glove-100-inner`` shape (1,183,514 × 100 unit-norm
+   rows from the seed, 10,000 queries, 1024 lists; recall@10 >= 0.90
+   against exact inner-product search). Probes double until a floor is met;
 6. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, and times kernel, plain version and, where
    one PyTorch call computes the same function, that call;
-7. prints one ``{"kernels": [...]}`` line, then, as the last line,
-   ``{"ok": true, "device": {...}}``.
+7. prints one ``{"kernels": [...]}`` line (the seven kernels;
+   ``fused_ivf_topk`` at two shapes, ``ivf_scan`` at three), then, as the
+   last line, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line. Any failed check raises, and the script
 then exits non-zero without the last line. Without a CUDA device, or
@@ -60,6 +77,15 @@ PQ_DIM, PQ_BITS, PQ_RECALL_FLOOR, REFINE_PROBES, REFINE_RECALL_FLOOR = (
 # raft_tpu/bench/conf/sift-128-euclidean.json:118-143, raft_cagra.d32
 CAGRA_DEGREE, CAGRA_INTER, CAGRA_ITOPK, CAGRA_MAX_ITOPK = 32, 64, 64, 512
 CAGRA_RECALL_FLOOR, CAGRA_GLUE_QUERIES = 0.90, 1000
+# Lloyd k-means: the IVF build's cluster count and iteration count
+# (raft_tpu_torch/neighbors/ivf_flat.py, IndexParams.kmeans_n_iters)
+KM_CLUSTERS, KM_ITERS, KM_TOL = 1024, 20, 1e-4
+# raft_tpu/bench/prims.py:47, bench_fused_l2_nn
+NN_ROWS = 100_000
+# the filtered requests drop this share of the row ids
+FILTER_REMOVED = 0.10
+# raft-ann-bench glove-100-inner: rows, dimension, inner product
+IP_ROWS, IP_DIM = 1_183_514, 100
 
 
 def emit(obj) -> None:
@@ -107,11 +133,15 @@ def main() -> int:
         return 2
     try:
         from raft_tpu_torch.bench.datagen import low_rank_clusters
+        from raft_tpu_torch.cluster import kmeans
+        from raft_tpu_torch.core.bitset import Bitset
         from raft_tpu_torch.core.resources import Resources
         from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
         from raft_tpu_torch.neighbors.refine import refine
         from raft_tpu_torch.ops import gpu_kernels as gk
         from raft_tpu_torch.ops.distance import row_norms_sq
+        from raft_tpu_torch.ops.fused_l2_nn import fused_l2_nn_argmin
+        from raft_tpu_torch.ops.select_k import select_k
         from raft_tpu_torch.stats import neighborhood_recall
         from raft_tpu_torch.testing import assert_topk_close
     except ImportError as e:
@@ -352,9 +382,183 @@ def main() -> int:
     if cg_recall < CAGRA_RECALL_FLOOR:
         raise AssertionError(f"cagra recall {cg_recall} < "
                              f"{CAGRA_RECALL_FLOOR}")
+    scale = float(torch.maximum(row_norms_sq(queries).max(), bf.norms.max()))
+
+    # ---- 5c. Lloyd k-means with k-means++ init; the init and the Lloyd loop
+    # are timed apart by wrapping the two functions fit calls
+    km_seconds, km_init = {}, []
+
+    def timed_attr(name, keep=None):
+        fn = getattr(kmeans, name)
+
+        def wrapper(*a, **kw):
+            out, km_seconds[name] = timed(lambda: fn(*a, **kw))
+            if keep is not None:
+                keep.append(out)
+            return out
+        return fn, wrapper
+
+    wrapped = {name: timed_attr(name, km_init if name == "_kmeans_pp_init"
+                                else None)
+               for name in ("_kmeans_pp_init", "_lloyd")}
+    km_params = kmeans.KMeansParams(n_clusters=KM_CLUSTERS, max_iter=KM_ITERS,
+                                    tol=KM_TOL, init="k-means++", n_init=1)
+    for name, (_, wrapper) in wrapped.items():
+        setattr(kmeans, name, wrapper)
+    try:
+        gk.reset_launch_counts()
+        (km_centers, km_labels, km_inertia, km_iters), km_fit_s = timed(
+            lambda: kmeans.fit(dataset, km_params,
+                               res=Resources(seed=args.seed)))
+        km_fit_launches = dict(gk.LAUNCHES)
+    finally:
+        for name, (fn, _) in wrapped.items():
+            setattr(kmeans, name, fn)
+    if km_fit_launches["fused_l2_argmin"] != km_iters + 1:
+        raise AssertionError(
+            f"kmeans.fit launched fused_l2_argmin "
+            f"{km_fit_launches['fused_l2_argmin']} times in {km_iters} "
+            "iterations (expected one per iteration plus the final E-step)")
+    gk.reset_launch_counts()
+    (pred_labels, pred_inertia), predict_s = timed(
+        lambda: kmeans.predict(km_centers, dataset))
+    km_cost, cost_s = timed(lambda: kmeans.cluster_cost(dataset, km_centers))
+    km_launches = {name: km_fit_launches[name] + gk.LAUNCHES[name]
+                   for name in gk.LAUNCHES}
+    pp_cost = float(kmeans.cluster_cost(dataset, km_init[0]))
+    if not float(km_inertia) <= pp_cost:
+        raise AssertionError(f"k-means inertia {float(km_inertia)} exceeds the "
+                             f"k-means++ centres' cost {pp_cost}")
+    # the same 1-NN by another kernel: fused_l2_topk's two nearest centres
+    top2_v, top2_i = gk.fused_l2_topk(dataset, km_centers, 2)
+    km_tol = 1e-4 * scale
+    clear = (top2_v[:, 1] - top2_v[:, 0]) > 2 * km_tol
+    km_disagree = int(((pred_labels != top2_i[:, 0]) & clear).sum())
+    if km_disagree or not bool(torch.isfinite(km_centers).all()):
+        raise AssertionError(f"kmeans.predict: {km_disagree} labels differ "
+                             "from fused_l2_topk's away from near-ties")
+    nn_rng = np.random.default_rng(args.seed)
+    nn_x = torch.from_numpy(nn_rng.standard_normal(
+        (NN_ROWS, DIM)).astype(np.float32)).to(dev)
+    nn_y = torch.from_numpy(nn_rng.standard_normal(
+        (KM_CLUSTERS, DIM)).astype(np.float32)).to(dev)
+    nn_ms = cuda_ms(lambda: fused_l2_nn_argmin(nn_x, nn_y), 10)
+    emit({"phase": "kmeans", "rows": N_ROWS, "n_clusters": KM_CLUSTERS,
+          "max_iter": KM_ITERS, "tol": KM_TOL, "init": "k-means++",
+          "n_iter": km_iters, "fit_seconds": km_fit_s,
+          "init_seconds": km_seconds["_kmeans_pp_init"],
+          "lloyd_seconds": km_seconds["_lloyd"],
+          "inertia": float(km_inertia), "kmeans_pp_cost": pp_cost,
+          "predict_seconds": predict_s, "predict_inertia": float(pred_inertia),
+          "cluster_cost_seconds": cost_s, "cluster_cost": float(km_cost),
+          "labels_clear_of_ties": int(clear.sum()),
+          "fused_l2_nn_argmin_ms": nn_ms,
+          "fused_l2_nn_argmin_shape": [NN_ROWS, KM_CLUSTERS, DIM],
+          "launches": km_launches})
+    del top2_v, top2_i, clear, nn_x, nn_y
+
+    # ---- 5d. filtered and inner-product requests, through ivf_scan. The
+    # filter removes 10% of the row ids; its ground truth is the port's
+    # filtered brute force (its tiled path, no kernel)
+    f_rng = np.random.default_rng(args.seed)
+    keep = np.ones(N_ROWS, bool)
+    keep[f_rng.choice(N_ROWS, int(FILTER_REMOVED * N_ROWS), replace=False)] = \
+        False
+    keep_t = torch.from_numpy(keep).to(dev)
+    filt = Bitset.from_mask(keep_t)
+    _, fgt_i = brute_force.search(bf, queries, K, filter=filt)
+
+    def scan_phase(name, search, floor, start_probes, gt, plan_fn=None):
+        """Search until the recall floor is met (probes doubling), the launch
+        counts set to 0 just before; ivf_scan must carry it."""
+        n_probes = start_probes
+        gk.reset_launch_counts()
+        while True:
+            plan = plan_fn(n_probes) if plan_fn else None
+            _, first_s = timed(lambda: search(n_probes))
+            (v, i), search_s = timed(lambda: search(n_probes))
+            recall = float(neighborhood_recall(i, gt))
+            if recall >= floor or n_probes >= N_LISTS:
+                break
+            n_probes *= 2
+        launches = dict(gk.LAUNCHES)
+        line = {"phase": name, "n_probes": n_probes,
+                "first_call_seconds": first_s, "search_seconds": search_s,
+                "qps": N_QUERIES / search_s, "recall_at_10": recall,
+                "launches": launches}
+        if plan is not None:
+            line.update(engine=plan.engine, reason=plan.reason,
+                        unfused_ivf_scan=plan.plan["unfused_ivf_scan"])
+        else:
+            line.update(engine="ivf_flat tiled path, ivf_scan")
+        emit(line)
+        if recall < floor:
+            raise AssertionError(f"{name} recall {recall} < {floor}")
+        if launches["ivf_scan"] < 1 or launches["fused_ivf_topk"] > 0:
+            raise AssertionError(f"{name} did not take the ivf_scan route")
+        if v.shape != (N_QUERIES, K) or not bool(torch.isfinite(v).all()):
+            raise AssertionError(f"{name}: distances not finite and complete")
+        return n_probes, launches, i
+
+    def flat_filtered(n_probes):
+        return ivf_flat.search(index, queries, K,
+                               ivf_flat.SearchParams(n_probes=n_probes),
+                               filter=filt)
+
+    fl_probes, fl_launches, fl_i = scan_phase(
+        "ivf_flat_filtered", flat_filtered, RECALL_FLOOR, N_PROBES, fgt_i)
+    if not bool(keep_t[fl_i.long()].all()) or bool((fl_i < 0).any()):
+        raise AssertionError("ivf_flat_filtered returned a removed id")
+
+    def pq_filtered(n_probes):
+        return ivf_pq.search(pq_index, queries, K,
+                             ivf_pq.SearchParams(n_probes=n_probes),
+                             filter=filt, res=card_res)
+
+    def pq_filtered_plan(n_probes):
+        plan = ivf_pq.plan_search(pq_index, K,
+                                  ivf_pq.SearchParams(n_probes=n_probes),
+                                  True, res=card_res)
+        if plan.engine != "cache" or not plan.plan["unfused_ivf_scan"]:
+            raise AssertionError(f"ivf_pq_filtered: engine {plan.engine} "
+                                 f"({plan.reason}, {plan.plan})")
+        return plan
+
+    pqf_probes, pqf_launches, pqf_i = scan_phase(
+        "ivf_pq_filtered", pq_filtered, PQ_RECALL_FLOOR, N_PROBES, fgt_i,
+        pq_filtered_plan)
+    if not bool(keep_t[pqf_i.long()].all()) or bool((pqf_i < 0).any()):
+        raise AssertionError("ivf_pq_filtered returned a removed id")
+    del fgt_i, fl_i, pqf_i
+
+    # inner product at glove-100-inner's shape: unit-norm rows from the seed
+    ip_rows = low_rank_clusters(np.random.default_rng(args.seed + 1),
+                                IP_ROWS + N_QUERIES, IP_DIM)
+    ip_rows /= np.linalg.norm(ip_rows, axis=1, keepdims=True)
+    ip_data = torch.from_numpy(ip_rows[:IP_ROWS]).to(dev)
+    ip_queries = torch.from_numpy(ip_rows[IP_ROWS:]).to(dev)
+    del ip_rows
+    _, ipgt_i = brute_force.search(
+        brute_force.build(ip_data, metric="inner_product"), ip_queries, K)
+    ip_index, ip_build_s = timed(lambda: ivf_flat.build(
+        ip_data, ivf_flat.IndexParams(n_lists=N_LISTS,
+                                      metric="inner_product")))
+
+    def flat_ip(n_probes):
+        return ivf_flat.search(ip_index, ip_queries, K,
+                               ivf_flat.SearchParams(n_probes=n_probes))
+
+    ip_probes, ip_launches, _ = scan_phase(
+        "ivf_flat_inner_product", flat_ip, RECALL_FLOOR, N_PROBES, ipgt_i)
+    emit({"phase": "ivf_flat_inner_product_build", "rows": IP_ROWS,
+          "dim": IP_DIM, "n_lists": N_LISTS, "build_seconds": ip_build_s,
+          "list_pad": ip_index.list_data.shape[1]})
+    del ipgt_i
+
     main_phases = (bf_launches, ivf_launches, pq_build_launches,
                    pq_cache_launches, pq_lut_launches, refine_launches,
-                   cg_build_launches, cagra_launches)
+                   cg_build_launches, cagra_launches, km_launches,
+                   fl_launches, pqf_launches, ip_launches)
     main_launches = {name: sum(ph[name] for ph in main_phases)
                      for name in gk.LAUNCHES}
 
@@ -511,6 +715,120 @@ def main() -> int:
           lambda *a: gk.fused_cagra_topk(*a, K, itopk, 1, cg_max_iter),
           lambda *a: gk.fused_cagra_topk_plain(*a, K, itopk, 1, cg_max_iter),
           cg_args, 0.0, 0.0, 5)
+
+    # the k-means E-step: the dataset against the final centres, clamped;
+    # ids must equal away from near-ties (the two nearest centres further
+    # apart than twice the tolerance, by fused_l2_topk's k=2)
+    x_n = row_norms_sq(dataset)
+    c_n = row_norms_sq(km_centers)
+    args = (dataset, km_centers, x_n, c_n, True)
+    got_v, got_i = gk.fused_l2_argmin(*args)
+    want_v, want_i = gk.fused_l2_argmin_plain(*args)
+    top2_v, _ = gk.fused_l2_topk(dataset, km_centers, 2, x_n, c_n)
+    clear = (top2_v[:, 1] - top2_v[:, 0]) > 2 * km_tol
+    err = float((got_v - want_v).abs().max())
+    bad_v = int(((got_v - want_v).abs() > km_tol + 1e-5 * want_v.abs()).sum())
+    bad_i = int(((got_i != want_i) & clear).sum())
+    if bad_v or bad_i:
+        raise AssertionError(f"fused_l2_argmin: {bad_v} values and {bad_i} "
+                             "ids away from near-ties differ from the plain "
+                             "version")
+    torch.cuda.synchronize()
+    m, n = N_ROWS, KM_CLUSTERS
+    entry = dict(
+        name="fused_l2_argmin", route="cuda",
+        source="raft_tpu_torch/csrc/fused_l2_argmin.cu",
+        replaces="raft_tpu/ops/pallas_kernels.py:88",
+        shape=f"k-means E-step: {m} x {n} x {DIM}, clamp",
+        launches=km_launches["fused_l2_argmin"], library_ms=None,
+        agrees_with_plain=True, max_abs_err=err,
+        id_agreement=float((got_i == want_i).float().mean()),
+        ids_clear_of_ties=int(clear.sum()),
+        ms=cuda_ms(lambda: gk.fused_l2_argmin(*args), 5),
+        plain_ms=cuda_ms(lambda: gk.fused_l2_argmin_plain(*args), 1, False),
+        **bound(4 * (m * DIM + n * DIM + m + n) + 8 * m, 2 * m * n * DIM))
+    kernels.append(entry)
+    emit({"phase": "kernel_check", **entry})
+    del got_v, got_i, want_v, want_i, top2_v, clear, x_n, args
+
+    def check_scan(entry, args, reps):
+        """ivf_scan against its plain version on one query tile: values
+        within 1e-4·max‖row‖² + 1e-5·|v|; the bound counts each probed slab
+        and its norms read once, the queries and probes, the partials
+        written once, and 2·rot operations a slot."""
+        probes_t, qres_t, data_t, norms_t = args
+        got = gk.ivf_scan(*args)
+        want = gk.ivf_scan_plain(*args)
+        atol = 1e-4 * float(norms_t.max())
+        err = float((got - want).abs().max())
+        if bool(((got - want).abs() > atol + 1e-5 * want.abs()).any()):
+            raise AssertionError(f"ivf_scan ({entry['shape']}): differs from "
+                                 f"the plain version by up to {err}")
+        torch.cuda.synchronize()
+        t, n_pr = probes_t.shape
+        n_lists_, pad_, rot_ = data_t.shape
+        slots = t * n_pr * pad_
+        n_probed = torch.unique(probes_t.long()).numel()
+        entry.update(
+            route="cuda", source="raft_tpu_torch/csrc/ivf_scan.cu",
+            replaces="raft_tpu/ops/pallas_kernels.py:328", library_ms=None,
+            agrees_with_plain=True, max_abs_err=err,
+            ms=cuda_ms(lambda: gk.ivf_scan(*args), reps),
+            plain_ms=cuda_ms(lambda: gk.ivf_scan_plain(*args), 1, False),
+            **bound(4 * (probes_t.numel() + qres_t.numel()) + n_probed * pad_
+                    * (rot_ * data_t.element_size() + 4) + 4 * slots,
+                    2 * rot_ * slots))
+        kernels.append(entry)
+        emit({"phase": "kernel_check", **entry})
+
+    # one query tile of the filtered IVF-Flat search, as _search_core
+    # builds it
+    fl_tile = ivf_flat.plan_scan_tiles(fl_probes, index.list_data.shape[1],
+                                       DIM, Resources().workspace_limit_bytes)
+    qt = queries[:fl_tile].to(torch.float32)
+    sc, _ = ivf_flat._coarse_scores(qt, index.centers, index.metric)
+    _, fl_pr = select_k(sc, fl_probes)
+    fl_pr = fl_pr.to(torch.int32).contiguous()
+    check_scan(dict(name="ivf_scan",
+                    shape=f"ivf_flat filtered: one tile of {qt.shape[0]} "
+                          f"queries x {fl_probes} probes, pad "
+                          f"{index.list_data.shape[1]}, rot {DIM}, f32",
+                    launches=fl_launches["ivf_scan"]),
+               (fl_pr, qt[:, None, :].expand(-1, fl_probes, -1).contiguous(),
+                index.list_data, index.ensure_row_norms()), 5)
+
+    # one query tile of the inner-product IVF-Flat search (rot 100)
+    ip_tile = ivf_flat.plan_scan_tiles(ip_probes, ip_index.list_data.shape[1],
+                                       IP_DIM,
+                                       Resources().workspace_limit_bytes)
+    qt = ip_queries[:ip_tile].to(torch.float32)
+    sc, smin = ivf_flat._coarse_scores(qt, ip_index.centers, ip_index.metric)
+    _, ip_pr = select_k(sc, ip_probes, select_min=smin)
+    check_scan(dict(name="ivf_scan",
+                    shape=f"ivf_flat inner product: one tile of "
+                          f"{qt.shape[0]} queries x {ip_probes} probes, pad "
+                          f"{ip_index.list_data.shape[1]}, rot {IP_DIM}, f32",
+                    launches=ip_launches["ivf_scan"]),
+               (ip_pr.to(torch.int32).contiguous(),
+                qt[:, None, :].expand(-1, ip_probes, -1).contiguous(),
+                ip_index.list_data, ip_index.ensure_row_norms()), 5)
+
+    # one query tile of the filtered IVF-PQ cache engine, as
+    # _search_cache_core builds it (L2: the per-probe residuals)
+    pq_tile = ivf_pq.plan_search(pq_index, K,
+                                 ivf_pq.SearchParams(n_probes=pqf_probes),
+                                 True, res=card_res).plan["q_tile"]
+    q_rot = queries[:pq_tile] @ pq_index.rotation.T
+    pq_pr, _ = ivf_pq._coarse(q_rot, pq_index.centers_rot, pqf_probes,
+                              pq_index.metric, 1.0)
+    qr_res = (q_rot[:, None, :] - pq_index.centers_rot[pq_pr]).contiguous()
+    check_scan(dict(name="ivf_scan",
+                    shape=f"ivf_pq cache filtered: one tile of "
+                          f"{q_rot.shape[0]} queries x {pqf_probes} probes, "
+                          f"pad {pq_pad}, rot {rot}, bf16",
+                    launches=pqf_launches["ivf_scan"]),
+               (pq_pr.to(torch.int32).contiguous(), qr_res,
+                pq_index.list_decoded, pq_index.decoded_norms), 5)
 
     # a model, not a measurement: the bytes the one-block-per-query designs
     # would read if nothing were reused between blocks (every probed row

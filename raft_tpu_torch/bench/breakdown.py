@@ -8,9 +8,12 @@ Builds chip_smoke.py's configuration (SIFT-1M's shape from the seed:
 decoded-cache regime the card's memory picks and in the LUT regime of a
 stated device memory that holds the packed codes but not the cache; CAGRA
 at ``raft_cagra.d32`` with itopk 64, through the kernel engine on every
-query and the glue engine on the first 1,000), runs
-each search once to warm up, then once under ``torch.profiler``, and prints
-one JSON line per search: host wall time, the device time summed over
+query and the glue engine on the first 1,000; IVF-Flat and the IVF-PQ cache
+engine again under chip_smoke.py's filter, which removes 10% of the row
+ids and sends both through the ``ivf_scan`` kernel; Lloyd k-means with 1024
+clusters, k-means++ init and 20 iterations), runs
+each call once to warm up, then once under ``torch.profiler``, and prints
+one JSON line per call: host wall time, the device time summed over
 kernels, their share of the wall time, and the kernels that take the most
 device time. Needs a CUDA card.
 """
@@ -28,6 +31,8 @@ import torch
 from torch.profiler import ProfilerActivity, profile
 
 from raft_tpu_torch.bench.datagen import low_rank_clusters
+from raft_tpu_torch.cluster import kmeans
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
 
@@ -35,6 +40,7 @@ N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES = 1024, 32
 PQ_DIM, PQ_BITS = 64, 8
 CAGRA_DEGREE, CAGRA_INTER, CAGRA_ITOPK, CAGRA_GLUE_QUERIES = 32, 64, 64, 1000
+KM_CLUSTERS, KM_ITERS, FILTER_REMOVED = 1024, 20, 0.10
 
 
 def _device_us(event) -> float:
@@ -91,6 +97,15 @@ def main() -> int:
         "brute_force", lambda: brute_force.search(bf, queries, K))))
     print(json.dumps(profile_call(
         "ivf_flat", lambda: ivf_flat.search(index, queries, K, params))))
+    # chip_smoke.py's filter: 10% of the row ids removed, drawn from the seed
+    keep = np.ones(N_ROWS, bool)
+    keep[np.random.default_rng(args.seed).choice(
+        N_ROWS, int(FILTER_REMOVED * N_ROWS), replace=False)] = False
+    filt = Bitset.from_mask(torch.from_numpy(keep).to(dev))
+    print(json.dumps(profile_call(
+        "ivf_flat", lambda: ivf_flat.search(index, queries, K, params,
+                                            filter=filt),
+        label="ivf_flat_filtered")))
     del index
     pq_index = ivf_pq.build(dataset, ivf_pq.IndexParams(
         n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS))
@@ -98,6 +113,10 @@ def main() -> int:
     print(json.dumps(profile_call(
         "ivf_pq", lambda: ivf_pq.search(pq_index, queries, K, pq_params),
         label="ivf_pq_cache")))
+    print(json.dumps(profile_call(
+        "ivf_pq", lambda: ivf_pq.search(pq_index, queries, K, pq_params,
+                                        filter=filt),
+        label="ivf_pq_cache_filtered")))
     ivf_pq.drop_scan_cache(pq_index)
     lut_res = Resources(device_memory_bytes=sum(
         ivf_pq.scan_memory_bytes(pq_index)))
@@ -118,6 +137,12 @@ def main() -> int:
             "cagra", lambda: cagra.search(cg_index, queries[:nq], K, sp),
             label=f"cagra_{cagra.plan_search(cg_index, K, sp).engine}"
                   f"_{nq}_queries")))
+    del cg_index
+    km_params = kmeans.KMeansParams(n_clusters=KM_CLUSTERS, max_iter=KM_ITERS)
+    print(json.dumps(profile_call(
+        "kmeans", lambda: kmeans.fit(dataset, km_params,
+                                     res=Resources(seed=args.seed)),
+        label="kmeans_fit")))
     return 0
 
 

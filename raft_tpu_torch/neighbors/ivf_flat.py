@@ -15,8 +15,12 @@ filter, no fast scan, k <= 1024) then take the fused kernel
 (``ops.gpu_kernels.fused_ivf_topk``), which scans the probed slabs and keeps
 each query's top-k without writing the candidates out; the overflow block
 is scanned by a matrix product and merged by one ``select_k``. Other
-requests take the tiled path, which gathers the probed lists per query
-tile. ``scan_mode="xla"`` forces the tiled path.
+requests (filtered, inner product, cosine, k > 1024) take the tiled path:
+per query tile the coarse selection, the probed slots' partial distances
+``‖row‖² − 2·q·row`` by the unfused scan kernel (``ops.gpu_kernels.ivf_scan``,
+which reads each probed slab where it lies), the metric's distances from
+them, and one ``select_k``. ``scan_mode="xla"`` forces the tiled path with
+the gather of the probed lists per query tile in place of the scan kernel.
 
 Not ported yet (each raises ``NotImplementedError``): ``explain=True``,
 ``serialize``/``deserialize``, the bf16 fast scan (``scan_dtype``), and
@@ -73,7 +77,8 @@ class IndexParams:
 @dataclasses.dataclass
 class SearchParams:
     """``scan_mode``: ``"auto"`` and ``"pallas"`` take the fused kernel for
-    every eligible request, ``"xla"`` forces the tiled path.
+    every eligible request and the scan kernel for the others, ``"xla"``
+    forces the tiled path with its gather.
     ``select_recall`` < 1 asks for approximate selection, which the port
     answers exactly. ``scan_dtype``/``refine_ratio`` belong to the bf16 fast
     scan, not ported yet."""
@@ -335,10 +340,13 @@ def _overflow_scan(qf, o_f32, o_norms, o_ok_base, overflow_indices,
 
 
 def _search_core(queries, index: Index, filter_words, k: int, n_probes: int,
-                 q_tile: int, select_recall: float = 1.0):
-    """Tiled search: per query tile, gather the probed lists
-    [t, P, pad, dim], score every slot, and select over the probed slots
-    plus the overflow block."""
+                 q_tile: int, select_recall: float = 1.0,
+                 use_scan: bool = False):
+    """Tiled search: per query tile, score every probed slot and select over
+    the probed slots plus the overflow block. With ``use_scan`` the slots'
+    partials ``‖row‖² − 2·q·row`` come from ``gk.ivf_scan`` (the JAX
+    package's ``use_pallas`` arithmetic), else from a gather of the probed
+    lists [t, P, pad, dim] and one product."""
     metric = index.metric
     list_data, list_indices = index.list_data, index.list_indices
     list_pad = list_data.shape[1]
@@ -362,21 +370,36 @@ def _search_core(queries, index: Index, filter_words, k: int, n_probes: int,
         g_idx = list_indices[probes]  # [t, P, pad]
         g_valid = valid_slot[probes]
         qf = qt.to(torch.float32)
-        g_data = list_data[probes].to(torch.float32)  # [t, P, pad, dim]
-        dots = torch.einsum("td,tpld->tpl", qf, g_data)
+        qn2 = row_norms_sq(qf)[:, None, None]
+        is_l2 = metric in (DistanceType.L2Expanded,
+                           DistanceType.L2SqrtExpanded)
+        # each branch keeps its JAX counterpart's arithmetic: dots and the
+        # L2 form come from the partials ‖v‖² − 2·q·v with the kernel, from
+        # the product and ‖v‖² − 2·dots after the gather without it
+        if use_scan:
+            row_norms = index.ensure_row_norms()
+            qv = qf[:, None, :].expand(t, n_probes, qf.shape[1]).contiguous()
+            part = gk.ivf_scan(probes.to(torch.int32).contiguous(), qv,
+                               list_data, row_norms)  # ‖v‖² − 2·q·v
+            vn2 = row_norms[probes]
+            dots = None if is_l2 else 0.5 * (vn2 - part)
+            l2 = qn2 + part if is_l2 else None
+        else:
+            g_data = list_data[probes].to(torch.float32)  # [t, P, pad, dim]
+            dots = torch.einsum("td,tpld->tpl", qf, g_data)
+            vn2 = (None if metric == DistanceType.InnerProduct
+                   else (g_data * g_data).sum(-1))
+            l2 = (qn2 + vn2) - 2.0 * dots if is_l2 else None
         if metric == DistanceType.InnerProduct:
             d = dots
+        elif metric == DistanceType.CosineExpanded:
+            vn = torch.sqrt(torch.clamp_min(vn2, 1e-20))
+            qn = torch.sqrt(torch.clamp_min(qn2, 1e-20))
+            d = 1.0 - dots / (vn * qn)
         else:
-            vn2 = (g_data * g_data).sum(-1)
-            if metric == DistanceType.CosineExpanded:
-                vn = torch.sqrt(torch.clamp_min(vn2, 1e-20))
-                qn = torch.sqrt(torch.clamp_min(row_norms_sq(qf), 1e-20))
-                d = 1.0 - dots / (vn * qn[:, None, None])
-            else:
-                d = (row_norms_sq(qf)[:, None, None] + vn2) - 2.0 * dots
-                d = torch.clamp_min(d, 0.0)
-                if metric == DistanceType.L2SqrtExpanded:
-                    d = torch.sqrt(d)
+            d = torch.clamp_min(l2, 0.0)
+            if metric == DistanceType.L2SqrtExpanded:
+                d = torch.sqrt(d)
         ok = g_valid
         if filter_words is not None:
             ok = ok & bitset_filter_mask(g_idx, filter_words)
@@ -476,7 +499,8 @@ def search(index: Index, queries, k: int,
                              res.workspace_limit_bytes)
     words = filter.words.to(index.device) if filter is not None else None
     return _search_core(queries, index, words, int(k), n_probes, q_tile,
-                        float(params.select_recall))
+                        float(params.select_recall),
+                        use_scan=params.scan_mode != "xla")
 
 
 def serialize(index: Index, file) -> None:

@@ -24,10 +24,13 @@ engines (``plan_search`` says which, and why):
   which builds each probe's LUT in shared memory and scans the packed codes
   (pq_bits 8, PER_SUBSPACE, float32 LUT and distances, a LUT that fits a
   block's shared memory);
-- ``cache`` and ``lut``: the unfused engines in PyTorch, which take every
-  request the fused ones decline (InnerProduct, filters, pq_bits 4-7,
-  PER_CLUSTER, bf16 or fp8 LUTs, bf16 distances). The LUT engine tiles
-  queries and probes jointly from the workspace budget.
+- ``cache`` and ``lut``: the unfused engines, which take every request the
+  fused ones decline (InnerProduct, filters, k > 1024, pq_bits 4-7,
+  PER_CLUSTER, bf16 or fp8 LUTs, bf16 distances). Under ``"auto"`` and
+  ``"pallas"`` the cache engine scans the probed slots through the unfused
+  scan kernel ``ops.gpu_kernels.ivf_scan`` (``plan["unfused_ivf_scan"]``);
+  a forced ``"cache"`` gathers the probed slabs instead. The LUT engine
+  tiles queries and probes jointly from the workspace budget.
 
 ``scan_mode="auto"``/``"pallas"`` choose between the cache and LUT regimes by
 the same memory model as the JAX package (``resolve_scan_mode``, against
@@ -774,11 +777,13 @@ def _finish(flat_d, flat_i, k: int, metric: DistanceType, select_recall):
 
 def _search_cache_core(queries, index: Index, filter_words, k: int,
                        n_probes: int, q_tile: int,
-                       select_recall: float = 1.0):
+                       select_recall: float = 1.0, use_scan: bool = False):
     """ADC scan over the decoded-residual cache, per query tile: the same
     distances as the LUT engine (‖q_res − dec‖² expanded into ‖q_res‖² −
-    2·q_res·dec + ‖dec‖²; q·center + q_rot·dec for inner product), by one
-    batched product per tile."""
+    2·q_res·dec + ‖dec‖²; q·center + q_rot·dec for inner product). With
+    ``use_scan`` the partials ‖dec‖² − 2·q·dec come from ``gk.ivf_scan`` (the
+    JAX package's ``use_pallas`` arithmetic), else from a gather of the
+    probed slabs and one batched product per tile."""
     metric = index.metric
     list_pad = index.list_decoded.shape[1]
     minimize = metric != DistanceType.InnerProduct
@@ -794,15 +799,31 @@ def _search_cache_core(queries, index: Index, filter_words, k: int,
         probes, dots_c = _coarse(q_rot, centers_rot, n_probes, metric,
                                  select_recall)
         g_idx = index.list_indices[probes]
-        g_dec = index.list_decoded[probes]  # [t, P, pad, rot]
-        if metric == DistanceType.InnerProduct:
-            dots = einsum_fp32("td,tpld->tpl", q_rot, g_dec)
-            d = torch.gather(dots_c, 1, probes)[:, :, None] + dots
+        if use_scan:
+            pr32 = probes.to(torch.int32).contiguous()
+            if metric == DistanceType.InnerProduct:
+                qv = q_rot[:, None, :].expand(t, n_probes, -1).contiguous()
+                part = gk.ivf_scan(pr32, qv, index.list_decoded,
+                                   index.decoded_norms)
+                g_n = index.decoded_norms[probes]
+                base = torch.gather(dots_c, 1, probes)
+                d = base[:, :, None] + 0.5 * (g_n - part)
+            else:
+                qr_res = (q_rot[:, None, :] - centers_rot[probes]).contiguous()
+                part = gk.ivf_scan(pr32, qr_res, index.list_decoded,
+                                   index.decoded_norms)
+                d = (qr_res * qr_res).sum(-1)[:, :, None] + part
         else:
-            qr_res = q_rot[:, None, :] - centers_rot[probes]  # [t, P, rot]
-            dots = einsum_fp32("tpd,tpld->tpl", qr_res, g_dec)
-            qn = (qr_res * qr_res).sum(-1)
-            d = (qn[:, :, None] - 2.0 * dots) + index.decoded_norms[probes]
+            g_dec = index.list_decoded[probes]  # [t, P, pad, rot]
+            if metric == DistanceType.InnerProduct:
+                dots = einsum_fp32("td,tpld->tpl", q_rot, g_dec)
+                d = torch.gather(dots_c, 1, probes)[:, :, None] + dots
+            else:
+                qr_res = q_rot[:, None, :] - centers_rot[probes]  # [t, P, rot]
+                dots = einsum_fp32("tpd,tpld->tpl", qr_res, g_dec)
+                qn = (qr_res * qr_res).sum(-1)
+                d = (qn[:, :, None] - 2.0 * dots) \
+                    + index.decoded_norms[probes]
         ok = valid_slot[probes]
         if filter_words is not None:
             ok = ok & bitset_filter_mask(g_idx, filter_words)
@@ -1114,7 +1135,9 @@ class SearchPlan:
     ``"k_gt_1024"``), or ``"lut_params_unsupported"`` (the LUT regime's
     request needs the unfused engine: pq_bits < 8, PER_CLUSTER, a LUT or
     distance dtype other than float32, or a LUT beyond shared memory).
-    ``plan`` holds the tiles and the memory regime."""
+    ``plan`` holds the tiles, the memory regime and ``unfused_ivf_scan``:
+    whether the engine scans through the ``ivf_scan`` kernel (the unfused
+    cache engine under ``"auto"``/``"pallas"``)."""
 
     engine: str
     reason: str
@@ -1148,13 +1171,16 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
     if fused and ineligible is None:
         if memory_mode == "cache":
             return SearchPlan("pallas_cache", dreason,
-                              {"memory_model": "cache"})
+                              {"memory_model": "cache",
+                               "unfused_ivf_scan": False})
         if (index.params.codebook_kind == CodebookGen.PER_SUBSPACE
                 and index.pq_bits == 8
                 and params.lut_dtype == torch.float32
                 and params.internal_distance_dtype == torch.float32
                 and gk.fused_pq_fits(index.pq_dim, index.pq_len, k)):
-            return SearchPlan("pallas_lut", dreason, {"memory_model": "lut"})
+            return SearchPlan("pallas_lut", dreason,
+                              {"memory_model": "lut",
+                               "unfused_ivf_scan": False})
         lut_unsupported = True
     mode = memory_mode if fused else requested
     if not fused:
@@ -1168,6 +1194,7 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
                                   res.workspace_limit_bytes)
         return SearchPlan("cache", reason, {
             "memory_model": "cache", "memory_auto": fused, "q_tile": q_tile,
+            "unfused_ivf_scan": fused,
             "predicted_workspace_bytes": q_tile * cache_bytes_per_query(
                 n_probes, list_pad, index.rot_dim)})
     lut_b = params.lut_dtype.itemsize
@@ -1178,6 +1205,7 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
                                         dist_b)
     return SearchPlan("lut", reason, {
         "memory_model": "lut", "memory_auto": fused, "q_tile": q_tile,
+        "unfused_ivf_scan": False,
         "probe_tile": probe_tile,
         "predicted_workspace_bytes": q_tile * probe_tile
         * lut_bytes_per_query_probe(list_pad, index.pq_dim, index.pq_bits,
@@ -1223,7 +1251,8 @@ def search(index: Index, queries, k: int,
         ensure_scan_cache(index, params.scan_cache_dtype)
         return _search_cache_core(queries, index, words, k, n_probes,
                                   plan.plan["q_tile"],
-                                  float(params.select_recall))
+                                  float(params.select_recall),
+                                  plan.plan["unfused_ivf_scan"])
     return _search_lut_core(queries, index, words, k, n_probes,
                             plan.plan["q_tile"], params.lut_dtype,
                             params.internal_distance_dtype,

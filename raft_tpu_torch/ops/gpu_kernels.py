@@ -21,7 +21,9 @@ PyTorch's current stream there.
 Selection order everywhere: ascending value; ties by candidate order (row
 id for brute force, (probe, slot) for IVF and IVF-PQ, column for select_k,
 buffer first and then position for CAGRA's beam merges); +inf yields id -1;
-NaN is never selected.
+NaN is never selected. ``fused_l2_argmin`` is a 1-NN: the first minimum,
+lowest y index on ties, also when the minimum is +inf; ``ivf_scan`` selects
+nothing and writes every probed slot.
 """
 
 from __future__ import annotations
@@ -51,6 +53,8 @@ SOURCES = {
     "select_k": "select_k.cu",
     "fused_pq_topk": "fused_pq_topk.cu",
     "fused_cagra_topk": "fused_cagra_topk.cu",
+    "fused_l2_argmin": "fused_l2_argmin.cu",
+    "ivf_scan": "ivf_scan.cu",
 }
 
 #: launches of each kernel since the last ``reset_launch_counts()``
@@ -73,6 +77,8 @@ _ARGTYPES = {
                       _I, _I, _I, _VP, _VP, _VP],
     "fused_cagra_topk": [_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _I, _VP, _VP, _VP],
+    "fused_l2_argmin": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _VP, _VP, _VP],
+    "ivf_scan": [_VP, _VP, _VP, _I, _VP, _LL, _I, _I, _I, _VP, _VP],
 }
 
 
@@ -817,3 +823,134 @@ def fused_cagra_topk(queries, dataset, graph, seed_ids, q_norms, k: int,
         _check_rc("fused_cagra_topk", rc)
         LAUNCHES["fused_cagra_topk"] += 1
     return out_v, out_i
+
+
+# ----------------------------------------------------- fused_l2_argmin
+
+def fused_l2_argmin_plain(x, y, x_norms=None, y_norms=None,
+                          clamp: bool = False, tile: Optional[int] = None):
+    """Plain version of ``fused_l2_argmin``: the distances of ``tile`` x rows
+    at a time (from a 512 MB budget when not given) by one fp32 matrix
+    product, the clamp if asked, and the first minimum of each row."""
+    xn = row_norms_sq(x) if x_norms is None else x_norms
+    yn = row_norms_sq(y) if y_norms is None else y_norms
+    step = max(1, int(tile)) if tile else _row_chunk(y.shape[0], 16)
+    out_v, out_i = [], []
+    for s in range(0, x.shape[0], step):
+        d = (xn[s:s + step, None] + yn[None, :]) - 2.0 * dot_fp32(
+            x[s:s + step], y)
+        if clamp:
+            d = torch.clamp_min(d, 0.0)
+        v, i = torch.min(d, dim=1)
+        out_v.append(v)
+        out_i.append(i.to(torch.int32))
+    if not out_v:
+        return (x.new_empty((0,), dtype=torch.float32),
+                x.new_empty((0,), dtype=torch.int32))
+    return torch.cat(out_v), torch.cat(out_i)
+
+
+def fused_l2_argmin(x, y, x_norms=None, y_norms=None, clamp: bool = False,
+                    tile: Optional[int] = None):
+    """Squared-L2 1-NN of every x row among the y rows: ``(min distance [m]
+    f32, argmin [m] int32)``, ties to the lowest y index. x [m, d] and y
+    [n, d] float32, n >= 1; norms [m], [n] (computed when not given).
+    ``clamp`` applies max(d, 0) before the comparison (the k-means E-step's
+    form). ``tile`` is the plain version's row chunk on the CPU; the kernel
+    walks x in its own blocks."""
+    xn = row_norms_sq(x) if x_norms is None else x_norms
+    yn = row_norms_sq(y) if y_norms is None else y_norms
+    if y.shape[0] < 1:
+        raise ValueError("fused_l2_argmin: y has no rows")
+    if _on_cpu(x, y, xn, yn):
+        return fused_l2_argmin_plain(x, y, xn, yn, clamp, tile)
+    dev = x.device
+    if dev.type != "cuda":
+        raise ValueError(f"fused_l2_argmin: unsupported device {dev}")
+    m, d = x.shape
+    n = y.shape[0]
+    _check("x", x, torch.float32, 2, dev)
+    _check("y", y, torch.float32, 2, dev)
+    _check("x_norms", xn, torch.float32, 1, dev)
+    _check("y_norms", yn, torch.float32, 1, dev)
+    if y.shape[1] != d or xn.shape[0] != m or yn.shape[0] != n:
+        raise ValueError("fused_l2_argmin: shapes disagree")
+    out_v = torch.empty((m,), dtype=torch.float32, device=dev)
+    out_i = torch.empty((m,), dtype=torch.int32, device=dev)
+    if m == 0:
+        return out_v, out_i
+    lib = _lib("fused_l2_argmin")
+    with torch.cuda.device(dev):
+        rc = lib.fused_l2_argmin(
+            x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, d,
+            int(bool(clamp)), out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
+    _check_rc("fused_l2_argmin", rc)
+    LAUNCHES["fused_l2_argmin"] += 1
+    return out_v, out_i
+
+
+# ------------------------------------------------------------ ivf_scan
+
+
+def ivf_scan_plain(probes, qres, list_data, row_norms):
+    """Plain version of ``ivf_scan``: gather the probed slabs (chunked over
+    queries), one fp32 product, ``row_norms − 2·dot``; +inf for a probe
+    outside [0, n_lists)."""
+    nq, n_probes = probes.shape
+    n_lists, pad, rot = list_data.shape
+    out = []
+    step = _row_chunk(n_probes * pad * rot, 8)
+    for s in range(0, nq, step):
+        pr = probes[s:s + step].to(torch.int64)
+        valid = (pr >= 0) & (pr < n_lists)
+        pr = pr.clamp(0, n_lists - 1)
+        dots = einsum_fp32("tpr,tplr->tpl", qres[s:s + step], list_data[pr])
+        part = row_norms[pr] - 2.0 * dots
+        out.append(torch.where(valid[:, :, None], part, torch.inf))
+    if not out:
+        return qres.new_empty((0, n_probes, pad), dtype=torch.float32)
+    return torch.cat(out)
+
+
+def ivf_scan(probes, qres, list_data, row_norms):
+    """Partial distances of every probed slot, the scan of the IVF requests
+    the fused kernels decline: ``out [nq, P, pad] f32`` with
+    out[q, p, s] = row_norms[l, s] − 2·list_data[l, s]·qres[q, p], l =
+    probes[q, p] (+inf for a probe outside [0, n_lists)). probes [nq, P]
+    int32; qres [nq, P, rot] f32 (the query replicated per probe, or its
+    residual); list_data [n_lists, pad, rot] f32 or bf16 (fp32
+    accumulation); row_norms [n_lists, pad] f32. Every slot is written; the
+    caller adds the query's norm and masks unfilled slots."""
+    tensors = (probes, qres, list_data, row_norms)
+    if _on_cpu(*tensors):
+        return ivf_scan_plain(*tensors)
+    dev = probes.device
+    if dev.type != "cuda":
+        raise ValueError(f"ivf_scan: unsupported device {dev}")
+    nq, n_probes = probes.shape
+    n_lists, pad, rot = list_data.shape
+    _check("probes", probes, torch.int32, 2, dev)
+    _check("qres", qres, torch.float32, 3, dev)
+    _check("list_data", list_data, (torch.float32, torch.bfloat16), 3, dev)
+    _check("row_norms", row_norms, torch.float32, 2, dev)
+    if (tuple(qres.shape) != (nq, n_probes, rot)
+            or tuple(row_norms.shape) != (n_lists, pad)):
+        raise ValueError("ivf_scan: shapes disagree")
+    if rot < 1 or rot * 4 > SMEM_LIMIT:
+        raise ValueError(f"ivf_scan: rot={rot} outside [1, {SMEM_LIMIT // 4}]")
+    out = torch.empty((nq, n_probes, pad), dtype=torch.float32, device=dev)
+    n_pairs = nq * n_probes
+    if n_pairs == 0 or pad == 0:
+        return out
+    if n_pairs > 2**31 - 1:
+        raise ValueError(f"ivf_scan: {n_pairs} (query, probe) pairs exceed "
+                         "one launch's grid")
+    lib = _lib("ivf_scan")
+    with torch.cuda.device(dev):
+        rc = lib.ivf_scan(
+            probes.data_ptr(), qres.data_ptr(), list_data.data_ptr(),
+            int(list_data.dtype == torch.bfloat16), row_norms.data_ptr(),
+            n_pairs, n_lists, pad, rot, out.data_ptr(), _stream(dev))
+    _check_rc("ivf_scan", rc)
+    LAUNCHES["ivf_scan"] += 1
+    return out

@@ -14,14 +14,25 @@ least 90% equal; select_k does no arithmetic and is held to equality.
 fused_cagra_topk is held to bitwise equality with its plain version (the
 plain version repeats the kernel's products and its order of additions),
 and so is the CAGRA kernel engine on the card with its CPU run.
+fused_l2_argmin: values rtol 1e-5 and atol 1e-4·max‖x‖², ids equal where
+the nearest distinct y vector beats the next by more than twice that (in
+float64), and equal everywhere for exact copies of a row (whose distances
+the kernel computes bitwise alike), including copies in different ranges
+of a split y. ivf_scan: rtol 1e-5 and atol 1e-4·max‖row‖². k-means on the
+card against the CPU: one update from the same centres, and a whole fit
+from centres that leave every row far from a tie: labels and n_iter
+equal, centres and inertia rtol 1e-5 (index_add_ atomics sum in another
+order).
 """
 
 import pytest
 import torch
 
 from raft_tpu_torch import interop
+from raft_tpu_torch.cluster import kmeans
+from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch.neighbors import cagra, ivf_pq
+from raft_tpu_torch.neighbors import cagra, ivf_flat, ivf_pq
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.stats import neighborhood_recall
 from raft_tpu_torch.testing import assert_topk_close
@@ -317,3 +328,267 @@ def test_cagra_build_on_the_card_recall_matches_the_cpu(dev, algo):
                                        gt))
     r_cpu = float(neighborhood_recall(cagra.search(cpu, q, 10, sp)[1], gt))
     assert r_card >= r_cpu - 0.02, (r_card, r_cpu)
+
+
+# ------------------------------------------------------ fused_l2_argmin
+
+
+def _nn_far_from_ties(x, y, tol):
+    """Rows whose nearest distinct y vector beats the next distinct one by
+    more than 2·tol (float64 on the host)."""
+    xd, yd = x.double().cpu(), torch.unique(y.double().cpu(), dim=0)
+    if yd.shape[0] < 2:
+        return torch.ones(x.shape[0], dtype=torch.bool, device=x.device)
+    d = torch.cdist(xd, yd) ** 2
+    part = torch.sort(d, dim=1).values
+    return (part[:, 1] - part[:, 0] > 2 * tol).to(x.device)
+
+
+def _argmin_both(x, y, clamp=False, xn=None, yn=None):
+    before = gk.LAUNCHES["fused_l2_argmin"]
+    got = gk.fused_l2_argmin(x, y, xn, yn, clamp=clamp)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_l2_argmin"] == before + 1
+    return got, gk.fused_l2_argmin_plain(x, y, xn, yn, clamp=clamp)
+
+
+@pytest.mark.parametrize("clamp", [False, True])
+@pytest.mark.parametrize("m,n,d", [(37, 131, 24), (1000, 1024, 128),
+                                   (5, 50000, 100), (130, 3000, 33),
+                                   (1, 1, 7), (200, 129, 1)])
+def test_fused_l2_argmin_kernel_matches_plain(dev, m, n, d, clamp):
+    x, y = _randn(dev, m, d, seed=21), _randn(dev, n, d, seed=22)
+    got, want = _argmin_both(x, y, clamp)
+    tol = 1e-4 * float(max((x * x).sum(1).max(), (y * y).sum(1).max()))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=tol)
+    ok = _nn_far_from_ties(x, y, tol)
+    assert torch.equal(got[1][ok], want[1][ok])
+    assert got[1].dtype == torch.int32 and int(got[1].min()) >= 0
+
+
+@pytest.mark.parametrize("m,copies", [(5, 300), (700, 3)])
+def test_fused_l2_argmin_kernel_ties_go_to_the_lowest_index(dev, m, copies):
+    # 40 distinct rows repeated every 40 rows: a row's copies lie in several
+    # 128-row y tiles and in the columns of several threads of its x row
+    base = _randn(dev, 40, 16, seed=23)
+    y = base.repeat(copies, 1)
+    pick = torch.arange(m, device=dev) % 40
+    x = base[pick] + 0.01 * _randn(dev, m, 16, seed=24)
+    got, _ = _argmin_both(x, y)
+    assert torch.equal(got[1], pick.to(torch.int32))
+
+
+def test_fused_l2_argmin_kernel_clamp_ties_at_zero(dev):
+    # norms stated below the rows' own: every distance is negative; the
+    # clamped 1-NN ties at 0 everywhere and takes index 0, across tiles too
+    x, y = _randn(dev, 4, 32, seed=25), _randn(dev, 20000, 32, seed=26)
+    xn = (x * x).sum(1) - 1e4
+    yn = (y * y).sum(1)
+    got, want = _argmin_both(x, y, True, xn, yn)
+    assert torch.equal(got[0], torch.zeros_like(got[0]))
+    assert torch.equal(got[1], torch.zeros_like(got[1])) and torch.equal(
+        want[1], got[1])
+    got, want = _argmin_both(x, y, False, xn, yn)
+    assert bool((got[0] < 0).all())
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-1)
+
+
+def test_fused_l2_argmin_checks_its_inputs(dev):
+    x = _randn(dev, 8, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        gk.fused_l2_argmin(x.double(), x.double())
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.fused_l2_argmin(x[:, ::2], x[:, ::2])
+    with pytest.raises(ValueError, match="disagree"):
+        gk.fused_l2_argmin(x, x[:, :8].contiguous())
+    with pytest.raises(ValueError, match="no rows"):
+        gk.fused_l2_argmin(x, x[:0])
+    with pytest.raises(ValueError, match="is on"):
+        gk.fused_l2_argmin(x, x.cpu())
+
+
+# ------------------------------------------------------------ ivf_scan
+
+
+@pytest.mark.parametrize("L,pad,rot,nq,P,dtype", [
+    (50, 600, 128, 64, 8, torch.float32),
+    (50, 600, 128, 64, 8, torch.bfloat16),
+    (6, 300, 100, 9, 3, torch.bfloat16),   # odd rot, 2-byte rows
+    (6, 301, 100, 9, 3, torch.float32),
+    (3, 8, 4, 2, 1, torch.float32),
+    (4, 37, 1, 3, 2, torch.bfloat16)])
+def test_ivf_scan_kernel_matches_plain(dev, L, pad, rot, nq, P, dtype):
+    data = _randn(dev, L, pad, rot, seed=27).to(dtype)
+    norms = (data.float() ** 2).sum(-1)
+    g = torch.Generator(device=dev).manual_seed(28)
+    probes = torch.randint(0, L, (nq, P), generator=g, device=dev,
+                           dtype=torch.int32)
+    qres = _randn(dev, nq, P, rot, seed=29)
+    before = gk.LAUNCHES["ivf_scan"]
+    got = gk.ivf_scan(probes, qres, data, norms)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ivf_scan"] == before + 1
+    want = gk.ivf_scan_plain(probes, qres, data, norms)
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-4 * float(norms.max()))
+
+
+def test_ivf_scan_kernel_probe_out_of_range(dev):
+    data = _randn(dev, 3, 40, 16, seed=30)
+    norms = (data ** 2).sum(-1)
+    probes = torch.tensor([[0, 3], [-1, 2]], dtype=torch.int32, device=dev)
+    qres = _randn(dev, 2, 2, 16, seed=31)
+    got = gk.ivf_scan(probes, qres, data, norms)
+    torch.cuda.synchronize()
+    assert bool(torch.isinf(got[0, 1]).all() and torch.isinf(got[1, 0]).all())
+    torch.testing.assert_close(got, gk.ivf_scan_plain(probes, qres, data,
+                                                      norms),
+                               rtol=1e-5, atol=1e-4 * float(norms.max()))
+
+
+def test_ivf_scan_checks_its_inputs(dev):
+    data = _randn(dev, 3, 8, 16)
+    norms = (data ** 2).sum(-1)
+    probes = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    qres = _randn(dev, 2, 2, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        gk.ivf_scan(probes.long(), qres, data, norms)
+    with pytest.raises(ValueError, match="disagree"):
+        gk.ivf_scan(probes, qres[:, :, :8].contiguous(), data, norms)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.ivf_scan(probes, qres, data.transpose(0, 1), norms)
+
+
+# --------------------------------------- k-means and the IVF scan route
+
+
+def _blobs(seed=32, n=6000):
+    """n rows in 12 separated blobs, their means, and 12 random rows."""
+    g = torch.Generator().manual_seed(seed)
+    means = torch.randn(12, 24, generator=g) * 6
+    x = means[torch.randint(0, 12, (n,), generator=g)] + torch.randn(
+        n, 24, generator=g)
+    return x, means, x[torch.randperm(n, generator=g)[:12]]
+
+
+def _tie_margin(x, c):
+    """The smallest ratio (float64) of a row's gap between its nearest and
+    second-nearest centre to 2·(d+4)·2⁻²⁴·(‖x‖+max‖c‖)², a bound on the
+    fp32 rounding of either side's distances. Above 1, the kernel and the
+    plain version must give every row the same label."""
+    xd, cd = x.double(), c.double()
+    part = torch.sort(torch.cdist(xd, cd) ** 2, dim=1).values
+    bound = 2 * (x.shape[1] + 4) * 2.0 ** -24 * (
+        xd.norm(dim=1) + cd.norm(dim=1).max()) ** 2
+    return float(((part[:, 1] - part[:, 0]) / bound).min())
+
+
+def test_update_centroids_on_the_card_matches_the_cpu(dev):
+    x, _, c0 = _blobs()
+    want = kmeans.update_centroids(x, c0, device="cpu")
+    gk.reset_launch_counts()
+    got = kmeans.update_centroids(x.to(dev), c0.to(dev))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_l2_argmin"] == 1
+    torch.testing.assert_close(got[1].cpu(), want[1], rtol=0, atol=0)
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+    # the M-step sums in row order: the same centres on every run
+    again = kmeans.update_centroids(x.to(dev), c0.to(dev))
+    assert torch.equal(again[0], got[0]) and torch.equal(again[1], got[1])
+
+
+def test_kmeans_on_the_card_matches_the_cpu(dev):
+    # From random rows at tol 1e-12: the M-step sums the same way on every
+    # run, so both fits stop when the labels stop changing, the card at the
+    # CPU's n_iter, well before max_iter.
+    x, _, c0 = _blobs(seed=33, n=2000)
+    p = kmeans.KMeansParams(n_clusters=12, init="array", max_iter=100,
+                            tol=1e-12)
+    want = kmeans.fit(x, p, init_centers=c0, device="cpu")
+    assert want[3] < p.max_iter
+    # at every E-step of the CPU's fit each row's nearest centre leads the
+    # next by more than the rounding of either side
+    c = c0
+    for _ in range(want[3] + 1):
+        assert _tie_margin(x, c) > 1
+        c = kmeans.update_centroids(x, c, device="cpu")[0]
+    gk.reset_launch_counts()
+    got = kmeans.fit(x, p, init_centers=c0, device=dev)
+    torch.cuda.synchronize()
+    assert got[3] == want[3]
+    assert gk.LAUNCHES["fused_l2_argmin"] == got[3] + 1
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-4)
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(float(got[2]), float(want[2]), rtol=1e-5,
+                               atol=0.0)
+    pred, inertia = kmeans.predict(got[0], x.to(dev))
+    assert torch.equal(pred.cpu(), want[1])
+    torch.testing.assert_close(float(inertia), float(want[2]), rtol=1e-5,
+                               atol=0.0)
+    assert gk.LAUNCHES["fused_l2_argmin"] == got[3] + 2
+    # k-means++ on the card: its centres are rows, and Lloyd improves on them
+    xd = x.to(dev)
+    pp0 = kmeans._kmeans_pp_init(Resources(device=dev, seed=1).generator, xd,
+                                 12)
+    assert all(bool((xd == c).all(1).any()) for c in pp0)
+    pp = kmeans.fit(xd, p, init_centers=pp0, device=dev)
+    assert float(pp[2]) <= float(kmeans.cluster_cost(xd, pp0))
+
+
+def test_kmeans_pp_draw_on_the_card_takes_more_than_2_pow_24_rows(dev):
+    n = 2 ** 24 + 10
+    w = torch.zeros(n, dtype=torch.float32, device=dev)
+    w[n - 5] = 0.25
+    gen = Resources(device=dev, seed=2).generator
+    assert kmeans._weighted_draw(gen, w).tolist() == [n - 5]
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product", "cosine"])
+def test_filtered_ivf_flat_on_the_card_matches_the_cpu(dev, metric):
+    g = torch.Generator().manual_seed(33)
+    db = torch.randn(4000, 40, generator=g)
+    q = torch.randn(60, 40, generator=g)
+    cpu = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=16, metric=metric),
+                         device="cpu")
+    card = interop.ivf_flat_index_from_numpy(
+        cpu.params, *(t.numpy() for t in (cpu.centers, cpu.list_data,
+                                          cpu.list_indices, cpu.list_sizes)),
+        cpu.n_rows, cpu.overflow_data.numpy(), cpu.overflow_indices.numpy(),
+        device=dev)
+    mask = torch.rand(4000, generator=g) < 0.9
+    sp = ivf_flat.SearchParams(n_probes=6)
+    gk.reset_launch_counts()
+    got = ivf_flat.search(card, q, 10, sp, filter=Bitset.from_mask(mask))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ivf_scan"] >= 1 and gk.LAUNCHES["fused_ivf_topk"] == 0
+    want = ivf_flat.search(cpu, q, 10, sp, filter=Bitset.from_mask(mask))
+    scale = 1.0 if metric == "cosine" else float((db * db).sum(1).max())
+    assert_topk_close(got, want, 1e-4 * scale, 1e-5)
+    assert bool(mask[got[1][got[1] >= 0].cpu().long()].all())
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "inner_product"])
+def test_filtered_ivf_pq_cache_on_the_card_matches_the_cpu(dev, metric):
+    g = torch.Generator().manual_seed(34)
+    db = torch.randn(4000, 32, generator=g)
+    q = torch.randn(50, 32, generator=g)
+    cpu = ivf_pq.build(db, ivf_pq.IndexParams(n_lists=16, pq_dim=16,
+                                              metric=metric), device="cpu")
+    card = interop.ivf_pq_index_from_numpy(
+        cpu.params, cpu.pq_dim, *(t.numpy() for t in (
+            cpu.centers, cpu.rotation, cpu.codebooks, cpu.list_codes,
+            cpu.list_indices, cpu.list_sizes)), cpu.n_rows,
+        *(t.numpy() for t in (cpu.overflow_codes, cpu.overflow_labels,
+                              cpu.overflow_indices)), device=dev)
+    mask = torch.rand(4000, generator=g) < 0.9
+    sp = ivf_pq.SearchParams(n_probes=6)
+    plan = ivf_pq.plan_search(card, 10, sp, True)
+    assert plan.engine == "cache" and plan.plan["unfused_ivf_scan"]
+    gk.reset_launch_counts()
+    got = ivf_pq.search(card, q, 10, sp, filter=Bitset.from_mask(mask))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ivf_scan"] >= 1
+    want = ivf_pq.search(cpu, q, 10, sp, filter=Bitset.from_mask(mask))
+    agree = assert_topk_close(got, want, 1e-4 * float(want[0].abs().max()),
+                              1e-5)
+    assert agree["id_agreement"] >= 0.9, agree

@@ -13,6 +13,7 @@ import torch
 
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch import interop
+from raft_tpu_torch.cluster import kmeans
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       nn_descent)
 from raft_tpu_torch.neighbors.refine import refine
@@ -25,11 +26,11 @@ import chip_smoke
 import raft_tpu_torch
 from raft_tpu_torch import interop, testing
 from raft_tpu_torch.bench import datagen
-from raft_tpu_torch.cluster import kmeans_balanced
+from raft_tpu_torch.cluster import kmeans, kmeans_balanced
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, list_packing
 from raft_tpu_torch.neighbors import cagra, nn_descent, refine
 from raft_tpu_torch.bench import breakdown
-from raft_tpu_torch.ops import gpu_kernels, rng, select_k
+from raft_tpu_torch.ops import fused_l2_nn, gpu_kernels, rng, select_k
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
 print("BAD", bad)
@@ -53,7 +54,7 @@ def _no_cuda():
                                    "ivf_flat.build", "ivf_pq.build", "refine",
                                    "nn_descent.build", "cagra.build",
                                    "cagra.optimize", "cagra.search",
-                                   "Resources"])
+                                   "kmeans.fit", "Resources"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
     _no_cuda()
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
@@ -77,6 +78,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
         "cagra.search": lambda: cagra.search(interop.cagra_index_from_numpy(
             cagra.IndexParams(graph_degree=4), db,
             np.zeros((64, 4), np.int32)), db[:4], 3),
+        "kmeans.fit": lambda: kmeans.fit(db, kmeans.KMeansParams(
+            n_clusters=4)),
         "Resources": lambda: Resources(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):

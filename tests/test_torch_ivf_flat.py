@@ -16,6 +16,8 @@ within 0.02 of the JAX build's.
 
 import importlib
 
+import jax.numpy as jnp
+
 import numpy as np
 import pytest
 import torch
@@ -285,3 +287,96 @@ def test_cpu_search_launches_no_kernel(data, jindex):
     gk.reset_launch_counts()
     tivf.search(t, q, 10)
     assert sum(gk.LAUNCHES.values()) == 0
+
+
+# ------------------------------------------------------ the unfused scan
+
+
+@pytest.mark.parametrize("dtype", ["float32", "bfloat16"])
+@pytest.mark.parametrize("rot", [8, 100])
+def test_plain_ivf_scan_matches_pallas_interpret(dtype, rot):
+    from raft_tpu.ops import pallas_kernels as pk
+
+    rng = np.random.default_rng(rot)
+    L, pad, nq, P = 6, 40, 5, 3
+    data = rng.standard_normal((L, pad, rot)).astype(np.float32)
+    data_t = torch.from_numpy(data).to(getattr(torch, dtype))
+    norms = (data_t.float() ** 2).sum(-1)
+    probes = rng.integers(0, L, (nq, P)).astype(np.int32)
+    qres = rng.standard_normal((nq, P, rot)).astype(np.float32)
+    want = pk.ivf_scan(probes, qres, jnp.asarray(data_t.float().numpy()).astype(
+        getattr(jnp, dtype)), norms.numpy(), interpret=True)
+    got = gk.ivf_scan(torch.from_numpy(probes), torch.from_numpy(qres),
+                      data_t, norms)
+    assert got.shape == (nq, P, pad) and got.dtype == torch.float32
+    np.testing.assert_allclose(got.numpy(), np.asarray(want), rtol=1e-5,
+                               atol=1e-4 * float(norms.max()))
+
+
+def test_plain_ivf_scan_writes_inf_for_a_probe_out_of_range():
+    data = torch.randn(3, 5, 4, generator=torch.Generator().manual_seed(0))
+    norms = (data ** 2).sum(-1)
+    probes = torch.tensor([[0, 3], [-1, 2]], dtype=torch.int32)
+    got = gk.ivf_scan(probes, torch.ones(2, 2, 4), data, norms)
+    assert torch.isinf(got[0, 1]).all() and torch.isinf(got[1, 0]).all()
+    torch.testing.assert_close(got[1, 1], norms[2] - 2.0 * data[2].sum(-1))
+
+
+def _jax_scan_search(j, q, k, n_probes, mask=None):
+    """JAX's tiled search through its unfused scan kernel (``use_pallas``) in
+    interpret mode, one query tile."""
+    words = (JBitset.from_mask(mask).words if mask is not None
+             else jnp.zeros((0,), jnp.uint32))
+    return jivf.search_core(
+        q, j.centers, j.list_data, j.list_indices, j.list_sizes, words,
+        j.metric, k, n_probes, q.shape[0], mask is not None,
+        row_norms=j.ensure_row_norms(), use_pallas=True,
+        pallas_interpret=True, overflow_data=j.overflow_data,
+        overflow_indices=j.overflow_indices,
+        has_overflow=j.overflow_data.shape[0] > 0)
+
+
+_SCAN_CASES = [("filter", "sqeuclidean", 10), ("filter", "euclidean", 10),
+               ("filter", "inner_product", 10), (None, "inner_product", 10),
+               (None, "cosine", 10), (None, "sqeuclidean", 1100),
+               ("filter", "cosine", 1100)]
+
+
+@pytest.mark.parametrize("filt,metric,k", _SCAN_CASES)
+def test_auto_route_scans_like_jax_use_pallas(data, jindex, monkeypatch,
+                                              filt, metric, k):
+    db, q = data
+    q = q[:8]
+    j, t = _with_metric(jindex, metric)
+    mask = (np.random.default_rng(23).random(len(db)) < 0.7
+            if filt else None)
+    want = _jax_scan_search(j, q, k, 6, mask)
+    calls = []
+    real_scan = gk.ivf_scan
+    monkeypatch.setattr(gk, "ivf_scan",
+                        lambda *a: calls.append(a[0].shape) or real_scan(*a))
+    got = tivf.search(t, q, k, tivf.SearchParams(n_probes=6),
+                      filter=(Bitset.from_mask(torch.from_numpy(mask))
+                              if filt else None))
+    assert calls  # the auto route went through the scan
+    assert_topk_close(got, want, _atol(metric, db), 1e-5)
+    if filt:  # past the valid candidates both packages return bad-fill slots
+        ids, fin = got[1].numpy(), np.isfinite(got[0].numpy())
+        assert mask[ids[fin]].all()
+    calls.clear()
+    tivf.search(t, q, k, tivf.SearchParams(n_probes=6, scan_mode="xla"))
+    assert not calls  # the forced tiled path keeps its gather
+
+
+def test_auto_route_with_overflow_scans_like_jax_use_pallas():
+    rng = np.random.default_rng(5)
+    db = np.concatenate([
+        rng.standard_normal((500, 16)).astype(np.float32),
+        rng.standard_normal((150, 16)).astype(np.float32) * 0.05 + 2.0])
+    q = rng.standard_normal((9, 16)).astype(np.float32)
+    idx = jivf.build(db, jivf.IndexParams(n_lists=8, list_pad_expansion=1.01))
+    assert idx.overflow_data.shape[0] > 0
+    j, t = _with_metric(idx, "inner_product")
+    want = _jax_scan_search(j, q, 10, 4)
+    got = tivf.search(t, q, 10, tivf.SearchParams(n_probes=4))
+    assert_topk_close(got, want, _atol("inner_product", db), 1e-5)

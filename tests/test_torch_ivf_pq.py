@@ -663,3 +663,79 @@ def test_deferred_pieces_raise(data, jindex):
         tpq.SearchParams(lut_dtype="float16")
     with pytest.raises(ValueError, match="pq_bits"):
         tpq.IndexParams(pq_bits=3)
+
+
+# ------------------------------------------ the unfused cache engine's scan
+
+
+def _jax_cache_scan(j, q, k, n_probes, mask=None):
+    """JAX's unfused cache engine through its scan kernel (``use_pallas``)
+    in interpret mode, one query tile, on a bf16 cache."""
+    jpq.ensure_scan_cache(j, jnp.bfloat16)
+    jpq.ensure_overflow_decoded(j, jnp.bfloat16)
+    words = (JBitset.from_mask(mask).words if mask is not None
+             else jnp.zeros((0,), jnp.uint32))
+    has_overflow = j.overflow_codes.shape[0] > 0
+    return jpq.search_cache_core(
+        q, j.centers, j.rotation, j.list_decoded, j.decoded_norms,
+        j.list_indices, j.list_sizes, words, j.metric, k, n_probes,
+        q.shape[0], mask is not None, True, True,
+        j.overflow_decoded if has_overflow else None,
+        j.overflow_norms if has_overflow else None,
+        j.overflow_indices, has_overflow)
+
+
+@pytest.mark.parametrize("case,k", [("filter", 10), ("inner_product", 10),
+                                    ("euclidean_filter", 10),
+                                    ("sqeuclidean", 1100),
+                                    ("overflow_ip", 10)])
+def test_auto_cache_engine_scans_like_jax_use_pallas(data, jindex, joverflow,
+                                                     monkeypatch, case, k):
+    if case == "overflow_ip":
+        j0, db, q = joverflow
+    else:
+        j0, (db, q) = jindex, data
+    q = q[:8]
+    metric = {"inner_product": "inner_product", "overflow_ip": "inner_product",
+              "euclidean_filter": "euclidean"}.get(case, "sqeuclidean")
+    j, t = _carry(j0, metric)
+    mask = (np.random.default_rng(24).random(len(db)) < 0.7
+            if "filter" in case else None)
+    tf = Bitset.from_mask(torch.from_numpy(mask)) if mask is not None else None
+    sp = tpq.SearchParams(n_probes=6)
+    plan = tpq.plan_search(t, k, sp, mask is not None)
+    assert plan.engine == "cache" and plan.plan["unfused_ivf_scan"]
+    calls = []
+    real_scan = gk.ivf_scan
+    monkeypatch.setattr(gk, "ivf_scan",
+                        lambda *a: calls.append(a[0].shape) or real_scan(*a))
+    got = tpq.search(t, q, k, sp, filter=tf)
+    assert calls
+    want = _jax_cache_scan(j, q, k, 6, mask)
+    agree = assert_topk_close(got, want, 1e-4 * _scale(db, metric), 1e-5)
+    assert agree["id_agreement"] >= 0.95, agree
+    if mask is not None:
+        ids, fin = got[1].numpy(), np.isfinite(got[0].numpy())
+        assert mask[ids[fin]].all()
+    # a forced "cache" keeps the gather
+    forced = tpq.SearchParams(n_probes=6, scan_mode="cache")
+    assert not tpq.plan_search(t, k, forced, mask is not None).plan[
+        "unfused_ivf_scan"]
+    calls.clear()
+    tpq.search(t, q, k, forced, filter=tf)
+    assert not calls
+
+
+def test_only_the_auto_cache_engine_plans_the_scan(data, jindex):
+    _, t = _carry(jindex)
+    for sp, has_filter, res, want in [
+            (tpq.SearchParams(), False, None, ("pallas_cache", False)),
+            (tpq.SearchParams(), True, None, ("cache", True)),
+            (tpq.SearchParams(scan_mode="pallas"), True, None,
+             ("cache", True)),
+            (tpq.SearchParams(scan_mode="cache"), True, None,
+             ("cache", False)),
+            (tpq.SearchParams(), True, _lut_res(t), ("lut", False)),
+            (tpq.SearchParams(), False, _lut_res(t), ("pallas_lut", False))]:
+        plan = tpq.plan_search(t, 10, sp, has_filter, res=res)
+        assert (plan.engine, plan.plan["unfused_ivf_scan"]) == want
