@@ -8,7 +8,7 @@ Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 seed, 10,000 queries, k=10, L2) it
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the seven CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
+2. builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
@@ -45,10 +45,22 @@ seed, 10,000 queries, k=10, L2) it
    raft-ann-bench's ``glove-100-inner`` shape (1,183,514 × 100 unit-norm
    rows from the seed, 10,000 queries, 1024 lists; recall@10 >= 0.90
    against exact inner-product search). Probes double until a floor is met;
+5e. runs the sharded path (``raft_tpu_torch.parallel``) on phase 3's rows
+   over 4 logical ranks on the card (250,000 rows a rank, the queries
+   replicated): ``sharded.knn`` with the allgather, tree and ring merges
+   (bitwise equal; ids equal to phase 3's away from near-ties; the ring's
+   hops through ``ring_shift``, size·(size-1) launches a call); a sharded
+   IVF-Flat build (1024 lists a rank) searched at 32 probes with the ring
+   merge (recall@10 >= 0.90, bitwise equal to allgather); a sharded IVF-PQ
+   build at ``raft_ivf_pq.d64b8n1024`` a rank in the cache regime, the same
+   way (recall@10 >= 0.80); and ``sharded.kmeans_fit`` (1024 clusters, 20
+   iterations), whose inertia must be below its initial centres' cost,
+   and whose first iteration, run alone, must equal a float64 M-step over
+   all the rows within 1e-5 of the largest centre coordinate;
 6. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, and times kernel, plain version and, where
    one PyTorch call computes the same function, that call;
-7. prints one ``{"kernels": [...]}`` line (the seven kernels;
+7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_ivf_topk`` at two shapes, ``ivf_scan`` at three), then, as the
    last line, ``{"ok": true, "device": {...}}``.
 
@@ -86,6 +98,8 @@ NN_ROWS = 100_000
 FILTER_REMOVED = 0.10
 # raft-ann-bench glove-100-inner: rows, dimension, inner product
 IP_ROWS, IP_DIM = 1_183_514, 100
+# the sharded path: logical ranks on the one card, the merge engines
+N_RANKS, MERGE_ENGINES = 4, ("allgather", "tree", "ring")
 
 
 def emit(obj) -> None:
@@ -121,6 +135,33 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
+def graph_ms(fn, calls: int, reps: int = 10) -> float:
+    """Mean device time of one ``fn()`` from a CUDA graph of ``calls``
+    calls replayed ``reps`` times, so that no host launch cost sits between
+    the kernels (for work shorter than a launch)."""
+    import torch
+
+    side = torch.cuda.Stream()
+    side.wait_stream(torch.cuda.current_stream())
+    with torch.cuda.stream(side):
+        fn()  # warm up off the default stream, as capture asks
+    torch.cuda.current_stream().wait_stream(side)
+    graph = torch.cuda.CUDAGraph()
+    with torch.cuda.graph(graph):
+        for _ in range(calls):
+            fn()
+    graph.replay()
+    torch.cuda.synchronize()
+    start = torch.cuda.Event(enable_timing=True)
+    end = torch.cuda.Event(enable_timing=True)
+    start.record()
+    for _ in range(reps):
+        graph.replay()
+    end.record()
+    torch.cuda.synchronize()
+    return start.elapsed_time(end) / (reps * calls)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -142,6 +183,8 @@ def main() -> int:
         from raft_tpu_torch.ops.distance import row_norms_sq
         from raft_tpu_torch.ops.fused_l2_nn import fused_l2_nn_argmin
         from raft_tpu_torch.ops.select_k import select_k
+        from raft_tpu_torch.parallel import comms as tcomms
+        from raft_tpu_torch.parallel import sharded
         from raft_tpu_torch.stats import neighborhood_recall
         from raft_tpu_torch.testing import assert_topk_close
     except ImportError as e:
@@ -555,10 +598,195 @@ def main() -> int:
           "list_pad": ip_index.list_data.shape[1]})
     del ipgt_i
 
+    # ---- 5e. the sharded path: phase 3's rows over 4 logical ranks on the
+    # card. Every call runs once cold; the counts are set to 0 just before
+    # the warm call and read just after it. The ring merge's first blocks
+    # are kept for phase 6.
+    ring_comms = tcomms.init_comms([dev] * N_RANKS)
+    ring_blocks, ring_shift = [], gk.ring_shift
+
+    def keep_ring_blocks(blocks):
+        if not ring_blocks:
+            ring_blocks.extend(blocks)
+        return ring_shift(blocks)
+
+    def warm_call(fn):
+        """(fn(), seconds, launches, first-call seconds)."""
+        _, cold_s = timed(fn)
+        gk.reset_launch_counts()
+        out, warm_s = timed(fn)
+        return out, warm_s, dict(gk.LAUNCHES), cold_s
+
+    def bitwise_equal(a, b) -> bool:
+        return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+                and torch.equal(a[1], b[1]))
+
+    sharded_phases = []
+    ring_hops = N_RANKS * (N_RANKS - 1)
+    gk.ring_shift = keep_ring_blocks
+    try:
+        sk_out, sk_line = {}, {}
+        for mode in MERGE_ENGINES:
+            out, sk_s, launches, cold_s = warm_call(lambda: sharded.knn(
+                ring_comms, queries, dataset, K, merge_mode=mode))
+            sk_out[mode] = out
+            sk_line[mode] = {"first_call_seconds": cold_s, "seconds": sk_s,
+                             "qps": N_QUERIES / sk_s, "launches": launches}
+            sharded_phases.append(launches)
+            if launches["fused_l2_topk"] < N_RANKS:
+                raise AssertionError(f"sharded knn ({mode}): each rank must "
+                                     "launch fused_l2_topk")
+        if sk_line["ring"]["launches"]["ring_shift"] != ring_hops:
+            raise AssertionError(
+                f"sharded knn (ring) launched ring_shift "
+                f"{sk_line['ring']['launches']['ring_shift']} times, "
+                f"expected {ring_hops}")
+        for mode in ("tree", "ring"):
+            if not bitwise_equal(sk_out[mode], sk_out["allgather"]):
+                raise AssertionError(f"sharded knn: {mode} differs from "
+                                     "allgather")
+        sk_agree = assert_topk_close(sk_out["ring"], (gt_v, gt_i),
+                                     1e-4 * scale, 1e-5, "sharded knn")
+        emit({"phase": "sharded_knn", "ranks": N_RANKS,
+              "rows_per_rank": N_ROWS // N_RANKS, "k": K,
+              "engines": sk_line, "bitwise_equal_engines": True,
+              "vs_brute_force": sk_agree,
+              "ring_shift_launches_per_call": ring_hops})
+        del sk_out
+
+        def sharded_ivf_phase(name, index, params_of, floor, build_s,
+                              build_launches, search, kernel):
+            """Ring search until the recall floor is met (probes doubling),
+            then the allgather merge on the same index, bitwise equal."""
+            n_probes = N_PROBES
+            while True:
+                sp = params_of(n_probes)
+                (v, i), s_s, launches, cold_s = warm_call(
+                    lambda: search(index, queries, K, sp, merge_mode="ring"))
+                recall = float(neighborhood_recall(i, gt_i))
+                if recall >= floor or n_probes >= N_LISTS:
+                    break
+                n_probes *= 2
+            sharded_phases.append(launches)
+            gather = search(index, queries, K, sp, merge_mode="allgather")
+            emit({"phase": name, "ranks": N_RANKS, "n_lists": N_LISTS,
+                  "n_probes": n_probes, "build_seconds": build_s,
+                  "build_launches": build_launches,
+                  "first_call_seconds": cold_s, "search_seconds": s_s,
+                  "qps": N_QUERIES / s_s, "recall_at_10": recall,
+                  "bitwise_equal_allgather": bitwise_equal((v, i), gather),
+                  "launches": launches})
+            if recall < floor:
+                raise AssertionError(f"{name} recall {recall} < {floor}")
+            if not bitwise_equal((v, i), gather):
+                raise AssertionError(f"{name}: ring differs from allgather")
+            if launches[kernel] < N_RANKS or launches["select_k"] < N_RANKS \
+                    or launches["ring_shift"] != ring_hops:
+                raise AssertionError(f"{name}: launches {launches}")
+            if v.shape != (N_QUERIES, K) or not bool(torch.isfinite(v).all()):
+                raise AssertionError(f"{name}: distances not finite and "
+                                     "complete")
+
+        gk.reset_launch_counts()
+        sf_index, sf_build_s = timed(lambda: sharded.build_ivf_flat(
+            ring_comms, dataset, ivf_flat.IndexParams(n_lists=N_LISTS),
+            res=Resources(seed=args.seed)))
+        sf_build_launches = dict(gk.LAUNCHES)
+        sharded_phases.append(sf_build_launches)
+        sharded_ivf_phase(
+            "sharded_ivf_flat", sf_index,
+            lambda p: ivf_flat.SearchParams(n_probes=p), RECALL_FLOOR,
+            sf_build_s, sf_build_launches, sharded.search_ivf_flat,
+            "fused_ivf_topk")
+        del sf_index
+
+        gk.reset_launch_counts()
+        sp_index, sp_build_s = timed(lambda: sharded.build_ivf_pq(
+            ring_comms, dataset, ivf_pq.IndexParams(
+                n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS,
+                kmeans_n_iters=20), res=Resources(seed=args.seed),
+            scan_mode="cache"))
+        sp_build_launches = dict(gk.LAUNCHES)
+        sharded_phases.append(sp_build_launches)
+        for idx in sp_index.indexes:
+            engine = ivf_pq.plan_search(idx, K, ivf_pq.SearchParams(
+                n_probes=N_PROBES), memory_mode="cache").engine
+            if engine != "pallas_cache":
+                raise AssertionError(f"sharded_ivf_pq: a rank's engine is "
+                                     f"{engine}, expected pallas_cache")
+        sharded_ivf_phase(
+            "sharded_ivf_pq", sp_index,
+            lambda p: ivf_pq.SearchParams(n_probes=p), PQ_RECALL_FLOOR,
+            sp_build_s, sp_build_launches, sharded.search_ivf_pq,
+            "fused_ivf_topk")
+        del sp_index
+    finally:
+        gk.ring_shift = ring_shift
+
+    # sharded k-means; its initial rows are kept to cost its init
+    skm_init, draw = [], sharded._initial_rows
+
+    def keep_init(*a):
+        skm_init.append(draw(*a))
+        return skm_init[-1]
+
+    sharded._initial_rows = keep_init
+    try:
+        gk.reset_launch_counts()
+        (skm_c, skm_l), skm_s = timed(lambda: sharded.kmeans_fit(
+            ring_comms, dataset, KM_CLUSTERS, KM_ITERS,
+            res=Resources(seed=args.seed)))
+        skm_launches = dict(gk.LAUNCHES)
+    finally:
+        sharded._initial_rows = draw
+    sharded_phases.append(skm_launches)
+    skm_init_c = dataset[torch.sort(skm_init[0].to(dev)).values]
+    skm_init_cost = float(kmeans.cluster_cost(dataset, skm_init_c))
+    skm_cost = float(kmeans.cluster_cost(dataset, skm_c))
+    emit({"phase": "sharded_kmeans", "ranks": N_RANKS, "rows": N_ROWS,
+          "n_clusters": KM_CLUSTERS, "n_iters": KM_ITERS,
+          "fit_seconds": skm_s, "inertia": skm_cost,
+          "initial_centres_cost": skm_init_cost, "launches": skm_launches})
+    if not (skm_cost < skm_init_cost and bool(torch.isfinite(skm_c).all())):
+        raise AssertionError(f"sharded k-means inertia {skm_cost} is not "
+                             f"below its initial centres' {skm_init_cost}")
+    if skm_l.shape != (N_ROWS,) or bool((skm_l < 0).any()) \
+            or bool((skm_l >= KM_CLUSTERS).any()):
+        raise AssertionError("sharded k-means labels out of range")
+    del skm_c, skm_l
+    # one iteration from the same initial rows, held against a float64
+    # M-step over every rank's rows at once: a rank's sums or counts left
+    # out of the allreduce, or two ranks' swapped, move a centre far past
+    # the tolerance
+    sharded._initial_rows = lambda *a: skm_init[0]
+    try:
+        one_c, _ = sharded.kmeans_fit(ring_comms, dataset, KM_CLUSTERS, 1,
+                                      res=Resources(seed=args.seed))
+    finally:
+        sharded._initial_rows = draw
+    rank_rows = -(-N_ROWS // N_RANKS)
+    one_lab = torch.cat([sharded._assign(dataset[lo:lo + rank_rows],
+                                         skm_init_c)
+                         for lo in range(0, N_ROWS, rank_rows)])
+    one_cnt = torch.bincount(one_lab, minlength=KM_CLUSTERS)
+    one_ref = torch.zeros((KM_CLUSTERS, DIM), dtype=torch.float64,
+                          device=dev).index_add_(0, one_lab, dataset.double())
+    one_ref = torch.where((one_cnt > 0)[:, None],
+                          one_ref / one_cnt.clamp_min(1)[:, None],
+                          skm_init_c.double())
+    one_err = float((one_c.double() - one_ref).abs().max())
+    one_tol = 1e-5 * float(one_ref.abs().max())
+    emit({"phase": "sharded_kmeans_one_step", "max_abs_err": one_err,
+          "tolerance": one_tol, "reference": "float64 M-step of all rows"})
+    if not one_err <= one_tol:
+        raise AssertionError(f"sharded k-means step differs from the "
+                             f"all-rows M-step by {one_err} > {one_tol}")
+    del one_c, one_lab, one_ref, skm_init_c
+
     main_phases = (bf_launches, ivf_launches, pq_build_launches,
                    pq_cache_launches, pq_lut_launches, refine_launches,
                    cg_build_launches, cagra_launches, km_launches,
-                   fl_launches, pqf_launches, ip_launches)
+                   fl_launches, pqf_launches, ip_launches, *sharded_phases)
     main_launches = {name: sum(ph[name] for ph in main_phases)
                      for name in gk.LAUNCHES}
 
@@ -829,6 +1057,40 @@ def main() -> int:
                     launches=pqf_launches["ivf_scan"]),
                (pq_pr.to(torch.int32).contiguous(), qr_res,
                 pq_index.list_decoded, pq_index.decoded_norms), 5)
+
+    # the ring merge's hop: the [3, nq, k] f32 blocks of the sharded knn's
+    # first ring call, bitwise against the plain version; per launch, from
+    # CUDA graphs (a launch costs more than this copy); the library yardstick
+    # is Tensor.copy_ of each block
+    blocks = ring_blocks
+    got, want = gk.ring_shift(blocks), gk.ring_shift_plain(blocks)
+    for r in range(N_RANKS):
+        if not torch.equal(got[r].view(torch.int32), want[r].view(torch.int32)):
+            raise AssertionError("ring_shift differs from its plain version")
+    torch.cuda.synchronize()
+    block_bytes = blocks[0].numel() * blocks[0].element_size()
+    copies = [torch.empty_like(b) for b in blocks]
+
+    def library_copy():
+        for c, b in zip(copies, blocks):
+            c.copy_(b)
+
+    entry = dict(
+        name="ring_shift", route="cuda",
+        source="raft_tpu_torch/csrc/ring_shift.cu",
+        replaces="raft_tpu/ops/pallas_kernels.py:1469",
+        shape=f"ring merge hop: {N_RANKS} ranks on one card, blocks "
+              f"{list(blocks[0].shape)} f32 ({block_bytes} bytes), per launch",
+        launches=main_launches["ring_shift"], agrees_with_plain=True,
+        max_abs_err=0.0, bitwise=True,
+        ms=graph_ms(lambda: gk.ring_shift(blocks), 20) / N_RANKS,
+        ms_eager=cuda_ms(lambda: gk.ring_shift(blocks), 50) / N_RANKS,
+        plain_ms=graph_ms(lambda: gk.ring_shift_plain(blocks), 20) / N_RANKS,
+        library_ms=graph_ms(library_copy, 20) / N_RANKS,
+        **bound(2 * block_bytes, 0))
+    kernels.append(entry)
+    emit({"phase": "kernel_check", **entry})
+    del got, want, copies
 
     # a model, not a measurement: the bytes the one-block-per-query designs
     # would read if nothing were reused between blocks (every probed row

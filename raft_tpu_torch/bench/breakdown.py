@@ -11,11 +11,15 @@ at ``raft_cagra.d32`` with itopk 64, through the kernel engine on every
 query and the glue engine on the first 1,000; IVF-Flat and the IVF-PQ cache
 engine again under chip_smoke.py's filter, which removes 10% of the row
 ids and sends both through the ``ivf_scan`` kernel; Lloyd k-means with 1024
-clusters, k-means++ init and 20 iterations), runs
+clusters, k-means++ init and 20 iterations; the sharded path over 4 logical
+ranks on the card: exact kNN with each merge engine, IVF-Flat and IVF-PQ
+(cache regime), 1024 lists a rank, with the ring merge), runs
 each call once to warm up, then once under ``torch.profiler``, and prints
 one JSON line per call: host wall time, the device time summed over
 kernels, their share of the wall time, and the kernels that take the most
-device time. Needs a CUDA card.
+device time. For each sharded search a second line profiles its cross-rank
+merge alone, on the candidates the search handed it. ``--only sharded``
+runs the sharded part alone. Needs a CUDA card.
 """
 
 from __future__ import annotations
@@ -35,12 +39,14 @@ from raft_tpu_torch.cluster import kmeans
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
+from raft_tpu_torch.parallel import comms, sharded
 
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES = 1024, 32
 PQ_DIM, PQ_BITS = 64, 8
 CAGRA_DEGREE, CAGRA_INTER, CAGRA_ITOPK, CAGRA_GLUE_QUERIES = 32, 64, 64, 1000
 KM_CLUSTERS, KM_ITERS, FILTER_REMOVED = 1024, 20, 0.10
+N_RANKS = 4
 
 
 def _device_us(event) -> float:
@@ -76,9 +82,53 @@ def profile_call(name: str, fn, top: int = 8,
                             for n, us, c in kernels[:top]]}
 
 
+def profile_sharded(dataset, queries, seed: int) -> None:
+    """The sharded searches over N_RANKS logical ranks on the card, and
+    each one's merge alone (on the candidates its last call merged)."""
+    ring = comms.init_comms([dataset.device] * N_RANKS)
+    merges, plan_merge = [], sharded._plan_merge
+
+    def keep_merge(*a):
+        merges.append(a)
+        return plan_merge(*a)
+
+    sharded._plan_merge = keep_merge
+    try:
+        for mode in ("allgather", "tree", "ring"):
+            print(json.dumps(profile_call(
+                "sharded.knn", lambda: sharded.knn(ring, queries, dataset, K,
+                                                   merge_mode=mode),
+                label=f"sharded_knn_{mode}")))
+            print(json.dumps(profile_call(
+                "sharded.merge", lambda: plan_merge(*merges[-1]),
+                label=f"sharded_knn_{mode}_merge")))
+        index = sharded.build_ivf_flat(ring, dataset, ivf_flat.IndexParams(
+            n_lists=N_LISTS), res=Resources(seed=seed))
+        params = ivf_flat.SearchParams(n_probes=N_PROBES)
+        print(json.dumps(profile_call(
+            "sharded.ivf_flat", lambda: sharded.search_ivf_flat(
+                index, queries, K, params, merge_mode="ring"),
+            label="sharded_ivf_flat_ring")))
+        print(json.dumps(profile_call(
+            "sharded.merge", lambda: plan_merge(*merges[-1]),
+            label="sharded_ivf_flat_ring_merge")))
+        del index
+        index = sharded.build_ivf_pq(ring, dataset, ivf_pq.IndexParams(
+            n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS),
+            res=Resources(seed=seed), scan_mode="cache")
+        pq_params = ivf_pq.SearchParams(n_probes=N_PROBES)
+        print(json.dumps(profile_call(
+            "sharded.ivf_pq", lambda: sharded.search_ivf_pq(
+                index, queries, K, pq_params, merge_mode="ring"),
+            label="sharded_ivf_pq_cache_ring")))
+    finally:
+        sharded._plan_merge = plan_merge
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
+    parser.add_argument("--only", choices=("all", "sharded"), default="all")
     args = parser.parse_args()
     if not torch.cuda.is_available():
         print("breakdown: no CUDA device", file=sys.stderr)
@@ -89,10 +139,13 @@ def main() -> int:
                              N_ROWS + N_QUERIES, DIM)
     dataset = torch.from_numpy(rows[:N_ROWS]).to(dev)
     queries = torch.from_numpy(rows[N_ROWS:]).to(dev)
+    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
+    if args.only == "sharded":
+        profile_sharded(dataset, queries, args.seed)
+        return 0
     bf = brute_force.build(dataset, metric="sqeuclidean")
     index = ivf_flat.build(dataset, ivf_flat.IndexParams(n_lists=N_LISTS))
     params = ivf_flat.SearchParams(n_probes=N_PROBES)
-    print(json.dumps({"device": torch.cuda.get_device_name(0)}))
     print(json.dumps(profile_call(
         "brute_force", lambda: brute_force.search(bf, queries, K))))
     print(json.dumps(profile_call(
@@ -143,6 +196,7 @@ def main() -> int:
         "kmeans", lambda: kmeans.fit(dataset, km_params,
                                      res=Resources(seed=args.seed)),
         label="kmeans_fit")))
+    profile_sharded(dataset, queries, args.seed)
     return 0
 
 

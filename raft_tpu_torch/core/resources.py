@@ -61,6 +61,17 @@ class Resources:
         self.generator.manual_seed(int(seed))
         self._workspace_limit = workspace_limit_bytes
         self._device_memory = device_memory_bytes
+        self._comms = None  # set by parallel.comms.inject_comms
+
+    @property
+    def comms(self):
+        """The injected communicator (``parallel.comms.Comms``); raises when
+        none was injected."""
+        if self._comms is None:
+            raise RuntimeError(
+                "No communicator injected into this Resources; call "
+                "raft_tpu_torch.parallel.comms.inject_comms(res, ...) first.")
+        return self._comms
 
     @property
     def device_memory_bytes(self) -> Optional[int]:
@@ -119,3 +130,36 @@ def ensure_resources(res: Optional[Resources] = None,
     if device is not None and resolve_device(device) != res.device:
         raise ValueError(f"device={device} disagrees with res.device={res.device}")
     return res
+
+
+def solve_merge_bytes(size: int, nq: int, kk: int, k_out: int,
+                      val_bytes: int = 4, idx_bytes: int = 4,
+                      pos_bytes: int = 4) -> dict:
+    """Predicted bytes each rank receives in each sharded top-k merge engine
+    (``parallel.sharded`` ``merge_mode``; the same model as
+    ``raft_tpu.core.resources``):
+
+    - ``allgather``: every rank holds the whole [nq, size·kk] value + id
+      slab; (size-1)/size of it comes from the other ranks.
+    - ``tree``: log₂(size) hypercube rounds; round r receives a
+      min(k_out, kk·2^r)-wide (value, pos, id) carry from the partner.
+    - ``ring``: size-1 hops of the fixed [nq, kk] (value, pos, id) block.
+
+    A size that is not a power of two never takes the tree (dispatch falls
+    back to allgather), so its tree entry is the allgather cost."""
+    size, nq, kk, k_out = int(size), int(nq), int(kk), int(k_out)
+    pair = val_bytes + idx_bytes
+    triple = pair + pos_bytes
+    out = {
+        "allgather": (size - 1) * nq * kk * pair,
+        "ring": (size - 1) * nq * kk * triple,
+    }
+    tree = 0
+    width, step = kk, 1
+    while step < size:
+        tree += nq * width * triple
+        width = min(k_out, 2 * width)
+        step *= 2
+    out["tree"] = tree if size >= 2 and (size & (size - 1)) == 0 \
+        else out["allgather"]
+    return out

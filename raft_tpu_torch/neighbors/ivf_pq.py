@@ -196,6 +196,10 @@ class Index:
         # full rotated overflow vectors [n_over, rot_dim] + ‖v‖² f32
         self.overflow_decoded = None
         self.overflow_norms = None
+        # True when the overflow rows came decoded, without their codes
+        # (``interop.sharded_ivf_pq_from_numpy``): they cannot be decoded
+        # in another dtype or re-packed
+        self.overflow_decoded_only = False
         self._safe_ids = None
 
     @property
@@ -543,6 +547,12 @@ def ensure_overflow_decoded(index: Index, dtype=torch.bfloat16) -> None:
     if (index.overflow_decoded is not None
             and index.overflow_decoded.dtype == dtype):
         return
+    if index.overflow_decoded_only:
+        raise ValueError(
+            f"the overflow rows of this index came decoded in "
+            f"{index.overflow_decoded.dtype} without their codes; search it "
+            f"with scan_cache_dtype={index.overflow_decoded.dtype}, not "
+            f"{dtype}")
     per_cluster = index.params.codebook_kind == CodebookGen.PER_CLUSTER
     index.overflow_decoded, index.overflow_norms = _decode_overflow(
         index.codebooks, index.centers_rot, index.overflow_codes,
@@ -648,6 +658,9 @@ def extend(index: Index, new_vectors, new_indices=None,
            res: Optional[Resources] = None) -> Index:
     """Encode and add vectors (with ids, or ids past every existing one) on
     the index's device and return the new index."""
+    if index.overflow_decoded_only:
+        raise ValueError("the overflow rows of this index came decoded "
+                         "without their codes, so it cannot be extended")
     dev = index.device
     res = ensure_resources(res, dev)
     new_vectors = _as_tensor(new_vectors, dev).to(torch.float32)
@@ -1146,10 +1159,15 @@ class SearchPlan:
 
 def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
                 has_filter: bool = False,
-                res: Optional[Resources] = None) -> SearchPlan:
+                res: Optional[Resources] = None,
+                memory_mode: Optional[str] = None) -> SearchPlan:
     """Resolve the engine of ``search(index, queries, k, params, filter)``
-    without running it."""
+    without running it. ``memory_mode`` (``"cache"`` or ``"lut"``) states the
+    memory regime instead of ``resolve_scan_mode``'s choice, as a sharded
+    index built for one regime does."""
     params = params or SearchParams()
+    if memory_mode not in (None, "cache", "lut"):
+        raise ValueError(f"unknown memory_mode: {memory_mode!r}")
     if params.scan_mode not in ("auto", "cache", "lut", "pallas"):
         raise ValueError(f"unknown scan_mode: {params.scan_mode!r}")
     res = ensure_resources(res, index.device)
@@ -1158,11 +1176,12 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
     list_pad = index.list_codes.shape[1]
     requested = params.scan_mode
     fused = requested in ("auto", "pallas")
-    memory_mode = resolve_scan_mode(
-        index.n_lists, list_pad, index.rot_dim, index.list_codes.shape[2],
-        params.scan_cache_dtype.itemsize,
-        device_memory_bytes=res.device_memory_bytes,
-        workspace_limit_bytes=res.workspace_limit_bytes)
+    if memory_mode is None:
+        memory_mode = resolve_scan_mode(
+            index.n_lists, list_pad, index.rot_dim, index.list_codes.shape[2],
+            params.scan_cache_dtype.itemsize,
+            device_memory_bytes=res.device_memory_bytes,
+            workspace_limit_bytes=res.workspace_limit_bytes)
     dreason = "auto_fused" if requested == "auto" else "forced"
     ineligible = fused_ineligible_reason(index.metric, index.list_codes.dtype,
                                          k, has_filter, False,
@@ -1216,12 +1235,14 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
 def search(index: Index, queries, k: int,
            params: Optional[SearchParams] = None,
            filter: Optional[Bitset] = None,
-           res: Optional[Resources] = None, explain: bool = False):
+           res: Optional[Resources] = None, explain: bool = False,
+           memory_mode: Optional[str] = None):
     """Search → ``(distances [nq, k] f32, ids [nq, k] i32)``: ADC distances
     (squared for L2Expanded, square-rooted for L2SqrtExpanded, scores for
     InnerProduct), source row ids, -1 where fewer than k candidates were
     probed. Runs on the index's device; ``plan_search`` says which engine
-    it takes."""
+    it takes. ``memory_mode`` (``"cache"`` or ``"lut"``) states the memory
+    regime, as a sharded index built for one regime does."""
     params = params or SearchParams()
     if explain:
         raise NotImplementedError(
@@ -1235,8 +1256,9 @@ def search(index: Index, queries, k: int,
         raise ValueError(
             f"query dim {queries.shape[1]} != index dim {index.dim}")
     k = int(k)
+    plan = plan_search(index, k, params, filter is not None, res,
+                       memory_mode=memory_mode)
     n_probes = int(min(params.n_probes, index.n_lists))
-    plan = plan_search(index, k, params, filter is not None, res)
     if index.overflow_codes.shape[0] > 0:
         ensure_overflow_decoded(index, params.scan_cache_dtype)
     if plan.engine == "pallas_cache":

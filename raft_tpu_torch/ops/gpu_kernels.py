@@ -23,7 +23,7 @@ id for brute force, (probe, slot) for IVF and IVF-PQ, column for select_k,
 buffer first and then position for CAGRA's beam merges); +inf yields id -1;
 NaN is never selected. ``fused_l2_argmin`` is a 1-NN: the first minimum,
 lowest y index on ties, also when the minimum is +inf; ``ivf_scan`` selects
-nothing and writes every probed slot.
+nothing and writes every probed slot; ``ring_shift`` copies bytes.
 """
 
 from __future__ import annotations
@@ -55,6 +55,7 @@ SOURCES = {
     "fused_cagra_topk": "fused_cagra_topk.cu",
     "fused_l2_argmin": "fused_l2_argmin.cu",
     "ivf_scan": "ivf_scan.cu",
+    "ring_shift": "ring_shift.cu",
 }
 
 #: launches of each kernel since the last ``reset_launch_counts()``
@@ -79,7 +80,12 @@ _ARGTYPES = {
                          _I, _I, _I, _VP, _VP, _VP],
     "fused_l2_argmin": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _VP, _VP, _VP],
     "ivf_scan": [_VP, _VP, _VP, _I, _VP, _LL, _I, _I, _I, _VP, _VP],
+    "ring_shift_copy": [_VP, _VP, _LL, _I, _VP],
+    "ring_shift_enable_peer": [_I, _I],
 }
+#: the C functions of each library (default: the kernel's own name)
+_FUNCTIONS = {"select_k": ["select_k_rows"],
+              "ring_shift": ["ring_shift_copy", "ring_shift_enable_peer"]}
 
 
 def reset_launch_counts() -> None:
@@ -141,8 +147,7 @@ def _lib(name: str) -> ctypes.CDLL:
     with _lib_lock:
         if name not in _libs:
             lib = ctypes.CDLL(str(build_all([name])[name]))
-            fn_names = ["select_k_rows"] if name == "select_k" else [name]
-            for fn_name in fn_names:
+            for fn_name in _FUNCTIONS.get(name, [name]):
                 fn = getattr(lib, fn_name)
                 fn.argtypes = _ARGTYPES[fn_name]
                 fn.restype = ctypes.c_int
@@ -953,4 +958,71 @@ def ivf_scan(probes, qres, list_data, row_norms):
             n_pairs, n_lists, pad, rot, out.data_ptr(), _stream(dev))
     _check_rc("ivf_scan", rc)
     LAUNCHES["ivf_scan"] += 1
+    return out
+
+
+# ----------------------------------------------------------- ring_shift
+
+
+def ring_shift_plain(blocks):
+    """Plain version of ``ring_shift``: rank r receives a copy of rank
+    r-1's block on its own device."""
+    size = len(blocks)
+    return [blocks[(r - 1) % size].to(blocks[r].device, copy=True)
+            for r in range(size)]
+
+
+def ring_shift(blocks):
+    """+1 ring rotation of one block per rank (the counterpart of
+    ``pallas_ring_shift``): ``out[r]`` is a copy of ``blocks[r - 1]`` on
+    ``blocks[r]``'s device. The blocks share shape and dtype and are
+    contiguous; devices may repeat (logical ranks on one card) or differ
+    (peer cards, which must reach each other's memory: no copy is staged
+    through the host). One kernel launch per rank with a non-empty block,
+    on the source device's current stream, ordered after the destination
+    stream's earlier work and before its later work."""
+    size = len(blocks)
+    if size == 0:
+        return []
+    if _on_cpu(*blocks):
+        return ring_shift_plain(blocks)
+    shape, dtype = blocks[0].shape, blocks[0].dtype
+    for r, b in enumerate(blocks):
+        if b.device.type != "cuda":
+            raise ValueError(f"ring_shift: block {r} is on {b.device}; all "
+                             "blocks must be on CUDA devices (or all on the "
+                             "CPU)")
+        if b.shape != shape or b.dtype != dtype:
+            raise ValueError(f"ring_shift: block {r} is {tuple(b.shape)} "
+                             f"{b.dtype}, block 0 {tuple(shape)} {dtype}")
+        if not b.is_contiguous():
+            raise ValueError(f"ring_shift: block {r} must be contiguous")
+    out = [torch.empty(shape, dtype=dtype, device=b.device) for b in blocks]
+    n_bytes = blocks[0].numel() * blocks[0].element_size()
+    if n_bytes == 0:
+        return out
+    lib = _lib("ring_shift")
+    for r in range(size):
+        src, dst = blocks[r], out[(r + 1) % size]
+        sdev, ddev = src.device, dst.device
+        if sdev != ddev:
+            rc = lib.ring_shift_enable_peer(sdev.index, ddev.index)
+            if rc != 0:
+                raise RuntimeError(
+                    f"ring_shift: {sdev} cannot write the memory of {ddev} "
+                    f"(CUDA error {rc}: "
+                    f"{lib.rtt_error_string(rc).decode()})")
+        s_stream = torch.cuda.current_stream(sdev)
+        d_stream = torch.cuda.current_stream(ddev)
+        if s_stream != d_stream:
+            s_stream.wait_stream(d_stream)
+            dst.record_stream(s_stream)
+        n_sm = torch.cuda.get_device_properties(sdev).multi_processor_count
+        with torch.cuda.device(sdev):
+            rc = lib.ring_shift_copy(src.data_ptr(), dst.data_ptr(), n_bytes,
+                                     n_sm, s_stream.cuda_stream)
+        _check_rc("ring_shift", rc)
+        LAUNCHES["ring_shift"] += 1
+        if s_stream != d_stream:
+            d_stream.wait_stream(s_stream)
     return out

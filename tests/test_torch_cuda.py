@@ -22,7 +22,12 @@ of a split y. ivf_scan: rtol 1e-5 and atol 1e-4·max‖row‖². k-means on the
 card against the CPU: one update from the same centres, and a whole fit
 from centres that leave every row far from a tie: labels and n_iter
 equal, centres and inertia rtol 1e-5 (index_add_ atomics sum in another
-order).
+order). ring_shift: bitwise against its plain version and its input, on
+random bytes of every dtype. The sharded searches on the card: the three
+merge engines bitwise equal, and against the CPU as the searches above.
+Sharded k-means on the card against the CPU from the same initial rows:
+two card fits bitwise equal, labels equal (every E-step of the CPU's fit
+clear of a tie), centres rtol 1e-5.
 """
 
 import pytest
@@ -592,3 +597,166 @@ def test_filtered_ivf_pq_cache_on_the_card_matches_the_cpu(dev, metric):
     agree = assert_topk_close(got, want, 1e-4 * float(want[0].abs().max()),
                               1e-5)
     assert agree["id_agreement"] >= 0.9, agree
+
+
+# ------------------------------------------------------------ ring_shift
+
+_RING_BLOCKS = [(torch.uint8, (0,)), (torch.float32, (1,)),
+                (torch.float32, (105,)), (torch.bfloat16, (210,)),
+                (torch.int32, (105,)), (torch.uint8, (1001,)),
+                (torch.float32, (3, 10000, 10)),
+                (torch.bfloat16, (3, 10000, 20)),
+                (torch.int32, (3, 10000, 10)), (torch.uint8, (1200000,))]
+
+
+def _ring_blocks(dev, size, dtype, shape, seed=0):
+    g = torch.Generator(device=dev).manual_seed(seed)
+    raw = torch.randint(0, 256, (size, *shape, torch.finfo(dtype).bits // 8
+                                 if dtype.is_floating_point
+                                 else torch.iinfo(dtype).bits // 8),
+                        generator=g, device=dev, dtype=torch.uint8)
+    return [raw[r].contiguous().view(dtype).reshape(shape)
+            for r in range(size)]
+
+
+@pytest.mark.parametrize("size", [2, 3, 4, 8])
+@pytest.mark.parametrize("dtype,shape", _RING_BLOCKS)
+def test_ring_shift_kernel_matches_plain_bitwise(dev, size, dtype, shape):
+    # random bytes: every bit pattern (NaNs, signed zeros) must survive
+    blocks = _ring_blocks(dev, size, dtype, shape)
+    n_bytes = blocks[0].numel() * blocks[0].element_size()
+    before = gk.LAUNCHES["ring_shift"]
+    got = gk.ring_shift(blocks)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ring_shift"] == before + (size if n_bytes else 0)
+    want = gk.ring_shift_plain(blocks)
+    for r in range(size):
+        assert got[r].data_ptr() not in {b.data_ptr() for b in blocks} \
+            or n_bytes == 0
+        assert got[r].dtype == dtype and got[r].shape == blocks[r].shape
+        assert torch.equal(got[r].view(torch.uint8), want[r].view(torch.uint8))
+        assert torch.equal(got[r].view(torch.uint8),
+                           blocks[(r - 1) % size].view(torch.uint8))
+
+
+def test_ring_shift_kernel_unaligned_and_repeated(dev):
+    # views one byte into their storage take the kernel's byte loop; a
+    # ring of `size` shifts in a row, each reusing the last one's buffers,
+    # returns every block home, also on a side stream
+    base = _ring_blocks(dev, 4, torch.uint8, (4097,), seed=1)
+    blocks = [b[1:] for b in base]
+    assert all(b.data_ptr() % 16 for b in blocks)
+    side = torch.cuda.Stream(dev)
+    side.wait_stream(torch.cuda.current_stream(dev))
+    with torch.cuda.stream(side):
+        cur = blocks
+        for _ in range(4):
+            cur = gk.ring_shift(cur)
+    torch.cuda.synchronize()
+    assert all(torch.equal(a, b) for a, b in zip(cur, blocks))
+
+
+def test_ring_shift_checks_its_inputs(dev):
+    a = torch.zeros((4, 6), device=dev)
+    with pytest.raises(ValueError, match="contiguous"):
+        gk.ring_shift([a[:, :3], a[:, 3:]])
+    with pytest.raises(ValueError, match="block 1"):
+        gk.ring_shift([a, a[:2].contiguous()])
+    with pytest.raises(ValueError, match="CUDA devices"):
+        gk.ring_shift([a, a.cpu()])
+
+
+def test_sharded_knn_engines_bitwise_on_the_card(dev):
+    from raft_tpu_torch.parallel import comms, sharded
+
+    g = torch.Generator().manual_seed(40)
+    db = torch.randn(20000, 64, generator=g)
+    q = torch.randn(300, 64, generator=g)
+    tc = comms.init_comms([dev] * 4)
+    gk.reset_launch_counts()
+    outs = {m: sharded.knn(tc, q, db, 10, merge_mode=m)
+            for m in ("allgather", "tree", "ring")}
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ring_shift"] == 4 * 3
+    assert gk.LAUNCHES["fused_l2_topk"] == 3 * 4
+    for m in ("tree", "ring"):
+        assert torch.equal(outs[m][0].view(torch.int32),
+                           outs["allgather"][0].view(torch.int32)), m
+        assert torch.equal(outs[m][1], outs["allgather"][1]), m
+    cpu = sharded.knn(comms.init_comms(["cpu"] * 4), q, db, 10,
+                      merge_mode="ring")
+    assert_topk_close(outs["ring"], cpu, 1e-4 * float((db * db).sum(1).max()),
+                      1e-5)
+
+
+def test_sharded_ivf_flat_on_the_card_matches_the_cpu(dev):
+    from raft_tpu_torch.parallel import comms, sharded
+
+    g = torch.Generator().manual_seed(41)
+    db = torch.randn(8000, 32, generator=g)
+    q = torch.randn(200, 32, generator=g)
+    cpu_comms = comms.init_comms(["cpu"] * 4)
+    cpu = sharded.build_ivf_flat(cpu_comms, db,
+                                 ivf_flat.IndexParams(n_lists=16),
+                                 res=Resources(device="cpu", seed=1))
+    card_comms = comms.init_comms([dev] * 4)
+    card = sharded.ShardedIvfFlat(card_comms, [
+        interop.ivf_flat_index_from_numpy(
+            i.params, *(t.numpy() for t in (i.centers, i.list_data,
+                                            i.list_indices, i.list_sizes)),
+            i.n_rows, i.overflow_data.numpy(), i.overflow_indices.numpy(),
+            device=dev) for i in cpu.indexes], cpu.metric, cpu.n_rows,
+        cpu.bounds)
+    sp = ivf_flat.SearchParams(n_probes=6)
+    gk.reset_launch_counts()
+    got = sharded.search_ivf_flat(card, q, 10, sp, merge_mode="ring")
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_ivf_topk"] == 4
+    assert gk.LAUNCHES["ring_shift"] == 12
+    want = sharded.search_ivf_flat(cpu, q, 10, sp, merge_mode="ring")
+    assert_topk_close(got, want, 1e-4 * float((db * db).sum(1).max()), 1e-5)
+    tree = sharded.search_ivf_flat(card, q, 10, sp, merge_mode="tree")
+    assert torch.equal(tree[1], got[1])
+
+
+def _sharded_kmeans_trajectory(sharded, x, tc, n_iters, **kw):
+    """The CPU fit's centres after 0..n_iters iterations."""
+    return [sharded.kmeans_fit(tc, x, 12, i, res=Resources(device="cpu"),
+                               **kw)[0] for i in range(n_iters + 1)]
+
+
+@pytest.mark.parametrize("balance", [None, 0.5])
+def test_sharded_kmeans_on_the_card_matches_the_cpu(dev, balance,
+                                                    monkeypatch):
+    # the same initial rows and donors on both; the card's four logical
+    # ranks sum each cluster in row order and allreduce in rank order, so
+    # two card fits give the same bits and the card tracks the CPU fit
+    from raft_tpu_torch.parallel import comms, sharded
+
+    x, _, _ = _blobs(seed=111, n=2000)
+    g = torch.Generator().manual_seed(11)
+    init = torch.randperm(2000, generator=g)[:12]
+    donors = torch.randint(0, 2000, (64,), generator=g)
+    monkeypatch.setattr(sharded, "_initial_rows",
+                        lambda gen, n, k: init.to(gen.device))
+    monkeypatch.setattr(sharded, "_donor_rows",
+                        lambda gen, n, p: donors.to(gen.device))
+    kw = dict(balance_threshold=balance, donor_pool=64)
+    cpu = comms.init_comms(["cpu"] * 4)
+    traj = _sharded_kmeans_trajectory(sharded, x, cpu, 8, **kw)
+    want = traj[-1], sharded.kmeans_fit(cpu, x, 12, 8,
+                                        res=Resources(device="cpu"), **kw)[1]
+    # at every E-step of the CPU's fit each row's nearest centre leads the
+    # next by more than the rounding of either side
+    assert all(_tie_margin(x, c) > 1 for c in traj)
+    if balance is not None:  # the rescue re-seeds a centre on this data
+        assert not torch.equal(want[0], _sharded_kmeans_trajectory(
+            sharded, x, cpu, 8)[-1])
+    card = comms.init_comms([dev] * 4)
+    got = sharded.kmeans_fit(card, x, 12, 8, res=Resources(device=dev), **kw)
+    again = sharded.kmeans_fit(card, x, 12, 8, res=Resources(device=dev),
+                               **kw)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
+    assert torch.equal(got[1].cpu(), want[1])
+    torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)

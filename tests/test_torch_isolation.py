@@ -17,6 +17,7 @@ from raft_tpu_torch.cluster import kmeans
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       nn_descent)
 from raft_tpu_torch.neighbors.refine import refine
+from raft_tpu_torch.parallel import comms, sharded
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -31,6 +32,7 @@ from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, list_packing
 from raft_tpu_torch.neighbors import cagra, nn_descent, refine
 from raft_tpu_torch.bench import breakdown
 from raft_tpu_torch.ops import fused_l2_nn, gpu_kernels, rng, select_k
+from raft_tpu_torch.parallel import comms, sharded
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
 print("BAD", bad)
@@ -54,7 +56,8 @@ def _no_cuda():
                                    "ivf_flat.build", "ivf_pq.build", "refine",
                                    "nn_descent.build", "cagra.build",
                                    "cagra.optimize", "cagra.search",
-                                   "kmeans.fit", "Resources"])
+                                   "kmeans.fit", "Resources", "init_comms",
+                                   "sharded.knn"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
     _no_cuda()
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
@@ -81,6 +84,9 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
         "kmeans.fit": lambda: kmeans.fit(db, kmeans.KMeansParams(
             n_clusters=4)),
         "Resources": lambda: Resources(),
+        # one rank per CUDA device, the default
+        "init_comms": lambda: comms.init_comms(),
+        "sharded.knn": lambda: sharded.knn(comms.init_comms(), db[:4], db, 3),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()
