@@ -1,19 +1,23 @@
 #!/usr/bin/env python3
 """Drive raft_tpu_torch's main path on one CUDA card and check every kernel.
 
-    python3 chip_smoke.py [--seed N]
+    python3 chip_smoke.py [--seed N] [--parent TREE]
 
 Run from the repository root on a machine with an NVIDIA H100 (sm_90a) and
 ``nvcc``. At SIFT-1M's shape (1,000,000 × 128 float32 rows made from the
 seed, 10,000 queries, k=10, L2) it
 
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
-2. builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (timed);
+2. builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (timed), and
+   prints ptxas's registers, spills and static shared memory of the
+   kernels of ``fused_l2_topk`` and ``ivf_scan``;
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
 4. runs IVF-Flat (``ivf_flat.build`` with 1024 lists + ``search`` with 32
-   probes) the same way and checks recall@10 >= 0.90 against phase 3;
+   probes) the same way and checks recall@10 >= 0.90 against phase 3; then
+   builds the index again and checks that every part of it is bitwise equal
+   (the builds' sums run in row order on the card);
 5. runs IVF-PQ at the repository's ``raft_ivf_pq.d64b8n1024`` configuration
    (1024 lists, pq_dim 64, pq_bits 8, 20 k-means iterations): the build;
    search with 32 probes in the decoded-cache regime the card's own memory
@@ -59,10 +63,18 @@ seed, 10,000 queries, k=10, L2) it
    all the rows within 1e-5 of the largest centre coordinate;
 6. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, and times kernel, plain version and, where
-   one PyTorch call computes the same function, that call;
+   one PyTorch call computes the same function, that call
+   (``fused_l2_topk`` also over one 250,000-row shard of phase 5e, with its
+   fp32 bound and the 3xTF32 tensor-core bound; ``ivf_scan`` also bitwise
+   equal over two runs). With ``--parent TREE`` (a source tree, such as the
+   parent commit unpacked under ``build/``) it saves the inputs of those
+   ``fused_l2_topk`` and ``ivf_scan`` calls and times that tree's kernels
+   and this tree's on them in turns (parent, this, this, parent, one
+   ``raft_tpu_torch/bench/kernel_ab.py`` process each): the rows get
+   ``parent_ms`` and ``ab_ms``, null without the option;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
-   ``fused_ivf_topk`` at two shapes, ``ivf_scan`` at three), then, as the
-   last line, ``{"ok": true, "device": {...}}``.
+   ``fused_l2_topk`` and ``fused_ivf_topk`` at two shapes, ``ivf_scan`` at
+   three), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line. Any failed check raises, and the script
 then exits non-zero without the last line. Without a CUDA device, or
@@ -73,12 +85,16 @@ from __future__ import annotations
 
 import argparse
 import json
+import os
+import re
 import subprocess
 import sys
 import time
+from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
 PEAK_FP32_FLOPS = 67e12
+PEAK_TF32_FLOPS = 495e12
 PEAK_BYTES_PER_S = 3.35e12
 
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
@@ -162,10 +178,68 @@ def graph_ms(fn, calls: int, reps: int = 10) -> float:
     return start.elapsed_time(end) / (reps * calls)
 
 
+def ptxas_figures(lib: Path) -> dict:
+    """Registers, spills and static shared memory of each kernel of a
+    library, from ptxas's report kept beside it (``gpu_kernels.build_all``)."""
+    out, name = {}, None
+    for line in lib.with_suffix(".log").read_text().splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            name = base = kernel_name(m.group(1))
+            suffix = 1
+            while name in out:
+                suffix += 1
+                name = f"{base}#{suffix}"
+            out[name] = {}
+        elif name and "spill stores" in line:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own identifier in a mangled name: the first
+    length-prefixed identifier that ends in "kernel"."""
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        digits = m.group()
+        for j in range(len(digits)):
+            ident = mangled[m.end():m.end() + int(digits[j:])]
+            if len(ident) == int(digits[j:]) and ident.endswith("kernel"):
+                return ident
+    return mangled
+
+
+def time_trees(inputs: Path, trees) -> list:
+    """kernel_ab.py's times of the saved calls, one process per tree, in the
+    order given."""
+    script = Path(__file__).resolve().parent / "raft_tpu_torch" / "bench" \
+        / "kernel_ab.py"
+    runs = []
+    for tree in trees:
+        proc = subprocess.run(
+            [sys.executable, str(script), str(inputs)], capture_output=True,
+            text=True, timeout=600,
+            env={**os.environ, "PYTHONPATH": str(tree)})
+        if proc.returncode != 0:
+            raise RuntimeError(f"kernel_ab.py on {tree} exited "
+                               f"{proc.returncode}:\n{proc.stderr[-3000:]}")
+        runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
+    return runs
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
-    args = parser.parse_args()
+    parser.add_argument("--parent", default=None,
+                        help="a source tree (the parent commit, unpacked) "
+                        "whose fused_l2_topk and ivf_scan are timed on the "
+                        "same inputs, in turns with this tree's")
+    opts = parser.parse_args()
 
     import torch
 
@@ -210,9 +284,11 @@ def main() -> int:
     paths, build_kernels_s = timed(gk.build_all)
     emit({"phase": "build", "seconds": build_kernels_s,
           "libraries": {k: str(v.name) for k, v in paths.items()}})
+    emit({"phase": "ptxas", **{name: ptxas_figures(paths[name])
+                               for name in ("fused_l2_topk", "ivf_scan")}})
 
     # data at SIFT-1M's shape, from the seed (set-up, not timed)
-    rng = np.random.default_rng(args.seed)
+    rng = np.random.default_rng(opts.seed)
     rows = low_rank_clusters(rng, N_ROWS + N_QUERIES, DIM)
     dataset = torch.from_numpy(rows[:N_ROWS]).to(dev)
     queries = torch.from_numpy(rows[N_ROWS:]).to(dev)
@@ -262,6 +338,21 @@ def main() -> int:
             raise AssertionError(f"ivf_flat.search did not launch {name}")
     if not bool(torch.isfinite(iv).all()):
         raise AssertionError("IVF-Flat distances are not finite")
+
+    # the same build again: every part of the index bitwise equal (the
+    # build's sums run in row order, so the card repeats itself)
+    again, rebuild_s = timed(lambda: ivf_flat.build(
+        dataset, ivf_flat.IndexParams(n_lists=N_LISTS)))
+    differ = [name for name in ("centers", "list_data", "list_indices",
+                                "list_sizes", "overflow_data",
+                                "overflow_indices")
+              if getattr(again, name).shape != getattr(index, name).shape
+              or not torch.equal(getattr(again, name), getattr(index, name))]
+    emit({"phase": "ivf_flat_rebuild", "build_seconds": rebuild_s,
+          "bitwise_equal": not differ, "differ": differ})
+    if differ:
+        raise AssertionError(f"two IVF-Flat builds differ in {differ}")
+    del again
 
     # ---- 5. IVF-PQ: build, the two regimes of the fused dispatch, refine
     gk.reset_launch_counts()
@@ -452,7 +543,7 @@ def main() -> int:
         gk.reset_launch_counts()
         (km_centers, km_labels, km_inertia, km_iters), km_fit_s = timed(
             lambda: kmeans.fit(dataset, km_params,
-                               res=Resources(seed=args.seed)))
+                               res=Resources(seed=opts.seed)))
         km_fit_launches = dict(gk.LAUNCHES)
     finally:
         for name, (fn, _) in wrapped.items():
@@ -480,7 +571,7 @@ def main() -> int:
     if km_disagree or not bool(torch.isfinite(km_centers).all()):
         raise AssertionError(f"kmeans.predict: {km_disagree} labels differ "
                              "from fused_l2_topk's away from near-ties")
-    nn_rng = np.random.default_rng(args.seed)
+    nn_rng = np.random.default_rng(opts.seed)
     nn_x = torch.from_numpy(nn_rng.standard_normal(
         (NN_ROWS, DIM)).astype(np.float32)).to(dev)
     nn_y = torch.from_numpy(nn_rng.standard_normal(
@@ -503,7 +594,7 @@ def main() -> int:
     # ---- 5d. filtered and inner-product requests, through ivf_scan. The
     # filter removes 10% of the row ids; its ground truth is the port's
     # filtered brute force (its tiled path, no kernel)
-    f_rng = np.random.default_rng(args.seed)
+    f_rng = np.random.default_rng(opts.seed)
     keep = np.ones(N_ROWS, bool)
     keep[f_rng.choice(N_ROWS, int(FILTER_REMOVED * N_ROWS), replace=False)] = \
         False
@@ -575,7 +666,7 @@ def main() -> int:
     del fgt_i, fl_i, pqf_i
 
     # inner product at glove-100-inner's shape: unit-norm rows from the seed
-    ip_rows = low_rank_clusters(np.random.default_rng(args.seed + 1),
+    ip_rows = low_rank_clusters(np.random.default_rng(opts.seed + 1),
                                 IP_ROWS + N_QUERIES, IP_DIM)
     ip_rows /= np.linalg.norm(ip_rows, axis=1, keepdims=True)
     ip_data = torch.from_numpy(ip_rows[:IP_ROWS]).to(dev)
@@ -690,7 +781,7 @@ def main() -> int:
         gk.reset_launch_counts()
         sf_index, sf_build_s = timed(lambda: sharded.build_ivf_flat(
             ring_comms, dataset, ivf_flat.IndexParams(n_lists=N_LISTS),
-            res=Resources(seed=args.seed)))
+            res=Resources(seed=opts.seed)))
         sf_build_launches = dict(gk.LAUNCHES)
         sharded_phases.append(sf_build_launches)
         sharded_ivf_phase(
@@ -704,7 +795,7 @@ def main() -> int:
         sp_index, sp_build_s = timed(lambda: sharded.build_ivf_pq(
             ring_comms, dataset, ivf_pq.IndexParams(
                 n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS,
-                kmeans_n_iters=20), res=Resources(seed=args.seed),
+                kmeans_n_iters=20), res=Resources(seed=opts.seed),
             scan_mode="cache"))
         sp_build_launches = dict(gk.LAUNCHES)
         sharded_phases.append(sp_build_launches)
@@ -735,7 +826,7 @@ def main() -> int:
         gk.reset_launch_counts()
         (skm_c, skm_l), skm_s = timed(lambda: sharded.kmeans_fit(
             ring_comms, dataset, KM_CLUSTERS, KM_ITERS,
-            res=Resources(seed=args.seed)))
+            res=Resources(seed=opts.seed)))
         skm_launches = dict(gk.LAUNCHES)
     finally:
         sharded._initial_rows = draw
@@ -761,7 +852,7 @@ def main() -> int:
     sharded._initial_rows = lambda *a: skm_init[0]
     try:
         one_c, _ = sharded.kmeans_fit(ring_comms, dataset, KM_CLUSTERS, 1,
-                                      res=Resources(seed=args.seed))
+                                      res=Resources(seed=opts.seed))
     finally:
         sharded._initial_rows = draw
     rank_rows = -(-N_ROWS // N_RANKS)
@@ -815,20 +906,39 @@ def main() -> int:
         v = plain(*args)[0]
         return float(v[torch.isfinite(v)].abs().max())
 
-    kernels = []
+    def l2_topk_entry(m, n, launches):
+        """fused_l2_topk's row: the fp32 bound outside the tensor cores (the
+        products as FMA at 67 TFLOP/s) and the 3xTF32 bound of the design
+        (three TF32 products at 495 TFLOP/s)."""
+        n_bytes = 4 * (m * DIM + n * DIM + m + n) + 8 * m * K
+        tc = 3 * 2 * m * n * DIM / PEAK_TF32_FLOPS
+        return dict(name="fused_l2_topk", route="cuda",
+                    source="raft_tpu_torch/csrc/fused_l2_topk.cu",
+                    replaces="raft_tpu/ops/pallas_kernels.py:610",
+                    shape=f"{m} x {n} x {DIM}, k={K}", launches=launches,
+                    library_ms=None, **bound(n_bytes, 2 * m * n * DIM),
+                    bound_3xtf32_ms=1e3 * max(tc, n_bytes / PEAK_BYTES_PER_S),
+                    bound_3xtf32_by=("operations (3xTF32)"
+                                     if tc > n_bytes / PEAK_BYTES_PER_S
+                                     else "bytes"))
+
+    kernels, ab_cases = [], {}
     x = queries
     xn, yn = row_norms_sq(x), bf.norms
     scale = float(torch.maximum(xn.max(), yn.max()))
     m, n = N_QUERIES, N_ROWS
-    check(dict(name="fused_l2_topk", route="cuda",
-               source="raft_tpu_torch/csrc/fused_l2_topk.cu",
-               replaces="raft_tpu/ops/pallas_kernels.py:610",
-               shape=f"{m} x {n} x {DIM}, k={K}",
-               launches=main_launches["fused_l2_topk"], library_ms=None,
-               **bound(4 * (m * DIM + n * DIM + m + n) + 8 * m * K,
-                       2 * m * n * DIM)),
-          gk.fused_l2_topk, gk.fused_l2_topk_plain, (x, dataset, K, xn, yn),
-          1e-4 * scale, 1e-5, 3)
+    sharded_l2 = sum(ph["fused_l2_topk"] for ph in sharded_phases)
+    args = (x, dataset, K, xn, yn)
+    check(l2_topk_entry(m, n, main_launches["fused_l2_topk"] - sharded_l2),
+          gk.fused_l2_topk, gk.fused_l2_topk_plain, args, 1e-4 * scale, 1e-5,
+          3)
+    ab_cases["fused_l2_topk"] = ("fused_l2_topk", args, 3)
+    # one rank's search of the sharded kNN: a 250,000-row shard
+    shard = dataset[:N_ROWS // N_RANKS]
+    args = (x, shard, K, xn, yn[:N_ROWS // N_RANKS])
+    check(l2_topk_entry(m, shard.shape[0], sharded_l2), gk.fused_l2_topk,
+          gk.fused_l2_topk_plain, args, 1e-4 * scale, 1e-5, 5)
+    ab_cases["fused_l2_topk_shard"] = ("fused_l2_topk", args, 5)
 
     # the IVF kernel's inputs, as the fused IVF-Flat search builds them
     qf = queries.to(torch.float32)
@@ -979,24 +1089,44 @@ def main() -> int:
     emit({"phase": "kernel_check", **entry})
     del got_v, got_i, want_v, want_i, top2_v, clear, x_n, args
 
-    def check_scan(entry, args, reps):
+    scan_model = {}
+
+    def check_scan(label, entry, args, reps):
         """ivf_scan against its plain version on one query tile: values
-        within 1e-4·max‖row‖² + 1e-5·|v|; the bound counts each probed slab
-        and its norms read once, the queries and probes, the partials
-        written once, and 2·rot operations a slot."""
+        within 1e-4·max‖row‖² + 1e-5·|v|, and bitwise equal over two runs;
+        the bound counts each probed slab and its norms read once, the
+        queries and probes, the partials written once, and 2·rot operations
+        a slot. The design's slab traffic goes to the read model: each
+        probed slab and its norms once per group of up to 32 of its pairs,
+        each pair's query once per 64-slot chunk (against once per pair for
+        the slab, in the one-block-per-pair design it replaces)."""
         probes_t, qres_t, data_t, norms_t = args
         got = gk.ivf_scan(*args)
+        again = gk.ivf_scan(*args)
         want = gk.ivf_scan_plain(*args)
         atol = 1e-4 * float(norms_t.max())
         err = float((got - want).abs().max())
         if bool(((got - want).abs() > atol + 1e-5 * want.abs()).any()):
             raise AssertionError(f"ivf_scan ({entry['shape']}): differs from "
                                  f"the plain version by up to {err}")
+        if not torch.equal(got.view(torch.int32), again.view(torch.int32)):
+            raise AssertionError(f"ivf_scan ({entry['shape']}): two runs "
+                                 "differ")
         torch.cuda.synchronize()
         t, n_pr = probes_t.shape
         n_lists_, pad_, rot_ = data_t.shape
         slots = t * n_pr * pad_
         n_probed = torch.unique(probes_t.long()).numel()
+        per_list = torch.bincount(probes_t.long().flatten(),
+                                  minlength=n_lists_)
+        groups = int((-(-per_list // gk.IVF_SCAN_GROUP)).sum())
+        slab_row = rot_ * data_t.element_size() + 4
+        scan_model[label] = {
+            "grouped_bytes": groups * pad_ * slab_row
+            + t * n_pr * -(-pad_ // gk.IVF_SCAN_SLOTS) * rot_ * 4 + 4 * slots,
+            "per_pair_bytes": t * n_pr * pad_ * slab_row + 4 * slots,
+            "groups": groups}
+        ab_cases[f"ivf_scan_{label}"] = ("ivf_scan", args, reps)
         entry.update(
             route="cuda", source="raft_tpu_torch/csrc/ivf_scan.cu",
             replaces="raft_tpu/ops/pallas_kernels.py:328", library_ms=None,
@@ -1017,7 +1147,7 @@ def main() -> int:
     sc, _ = ivf_flat._coarse_scores(qt, index.centers, index.metric)
     _, fl_pr = select_k(sc, fl_probes)
     fl_pr = fl_pr.to(torch.int32).contiguous()
-    check_scan(dict(name="ivf_scan",
+    check_scan("ivf_flat_filtered", dict(name="ivf_scan",
                     shape=f"ivf_flat filtered: one tile of {qt.shape[0]} "
                           f"queries x {fl_probes} probes, pad "
                           f"{index.list_data.shape[1]}, rot {DIM}, f32",
@@ -1032,7 +1162,7 @@ def main() -> int:
     qt = ip_queries[:ip_tile].to(torch.float32)
     sc, smin = ivf_flat._coarse_scores(qt, ip_index.centers, ip_index.metric)
     _, ip_pr = select_k(sc, ip_probes, select_min=smin)
-    check_scan(dict(name="ivf_scan",
+    check_scan("ivf_flat_inner_product", dict(name="ivf_scan",
                     shape=f"ivf_flat inner product: one tile of "
                           f"{qt.shape[0]} queries x {ip_probes} probes, pad "
                           f"{ip_index.list_data.shape[1]}, rot {IP_DIM}, f32",
@@ -1050,7 +1180,7 @@ def main() -> int:
     pq_pr, _ = ivf_pq._coarse(q_rot, pq_index.centers_rot, pqf_probes,
                               pq_index.metric, 1.0)
     qr_res = (q_rot[:, None, :] - pq_index.centers_rot[pq_pr]).contiguous()
-    check_scan(dict(name="ivf_scan",
+    check_scan("ivf_pq_filtered", dict(name="ivf_scan",
                     shape=f"ivf_pq cache filtered: one tile of "
                           f"{q_rot.shape[0]} queries x {pqf_probes} probes, "
                           f"pad {pq_pad}, rot {rot}, bf16",
@@ -1097,7 +1227,7 @@ def main() -> int:
     # once per query; the LUT kernel's codebooks and their norms once per
     # (query, probe); the beam walk's rows once per visit and its graph rows
     # once per hop); nothing in the run measures it
-    rows = [k["rows_scanned"] for k in kernels[1:4]]
+    rows = [k["rows_scanned"] for k in kernels if "rows_scanned" in k]
     emit({"phase": "read_model", "measured": False,
           "fused_ivf_topk_ivf_flat_bytes": rows[0] * DIM * 4,
           "fused_ivf_topk_ivf_pq_cache_bytes": rows[1] * rot * 2,
@@ -1106,7 +1236,34 @@ def main() -> int:
           "fused_pq_topk_codebook_bytes": n_luts * PQ_DIM * 256
           * (pq_len + 1) * 4,
           "fused_cagra_topk_visit_bytes": cg_rows * DIM * 4
-          + cg_hops * CAGRA_DEGREE * 4})
+          + cg_hops * CAGRA_DEGREE * 4,
+          "ivf_scan": scan_model})
+
+    # the parent tree's fused_l2_topk and ivf_scan on the same inputs, in
+    # turns with this tree's (parent, this, this, parent), one process each
+    if opts.parent:
+        ab_path = gk.BUILD_DIR / "ab_inputs.pt"
+        ab_path.parent.mkdir(parents=True, exist_ok=True)
+        from raft_tpu_torch.bench.kernel_ab import save_inputs
+        save_inputs(ab_path, ab_cases)
+        here = Path(__file__).resolve().parent
+        runs = time_trees(ab_path, [opts.parent, here, here, opts.parent])
+        ab_path.unlink()
+        emit({"phase": "parent_ab", "parent": opts.parent,
+              "order": ["parent", "this", "this", "parent"],
+              "runs": [r["ms"] for r in runs]})
+    names = {"fused_l2_topk": iter(("fused_l2_topk", "fused_l2_topk_shard")),
+             "ivf_scan": iter(("ivf_scan_ivf_flat_filtered",
+                               "ivf_scan_ivf_flat_inner_product",
+                               "ivf_scan_ivf_pq_filtered"))}
+    for kern in kernels:
+        if kern["name"] in names:
+            case = next(names[kern["name"]])
+            kern["parent_ms"] = kern["ab_ms"] = None
+            if opts.parent:
+                kern["parent_ms"] = (runs[0]["ms"][case]
+                                     + runs[3]["ms"][case]) / 2
+                kern["ab_ms"] = (runs[1]["ms"][case] + runs[2]["ms"][case]) / 2
 
     for kern in kernels:
         if kern["launches"] < 1:

@@ -10,7 +10,10 @@ stated device memory that holds the packed codes but not the cache; CAGRA
 at ``raft_cagra.d32`` with itopk 64, through the kernel engine on every
 query and the glue engine on the first 1,000; IVF-Flat and the IVF-PQ cache
 engine again under chip_smoke.py's filter, which removes 10% of the row
-ids and sends both through the ``ivf_scan`` kernel; Lloyd k-means with 1024
+ids and sends both through the ``ivf_scan`` kernel; inner-product IVF-Flat
+at chip_smoke.py's glove-100-inner shape (1,183,514 × 100 unit-norm rows
+from the seed, 1024 lists, 32 probes), also through ``ivf_scan``; Lloyd
+k-means with 1024
 clusters, k-means++ init and 20 iterations; the sharded path over 4 logical
 ranks on the card: exact kNN with each merge engine, IVF-Flat and IVF-PQ
 (cache regime), 1024 lists a rank, with the ring merge), runs
@@ -47,6 +50,7 @@ PQ_DIM, PQ_BITS = 64, 8
 CAGRA_DEGREE, CAGRA_INTER, CAGRA_ITOPK, CAGRA_GLUE_QUERIES = 32, 64, 64, 1000
 KM_CLUSTERS, KM_ITERS, FILTER_REMOVED = 1024, 20, 0.10
 N_RANKS = 4
+IP_ROWS, IP_DIM = 1_183_514, 100  # raft-ann-bench glove-100-inner
 
 
 def _device_us(event) -> float:
@@ -171,6 +175,17 @@ def main() -> int:
                                         filter=filt),
         label="ivf_pq_cache_filtered")))
     ivf_pq.drop_scan_cache(pq_index)
+    ip_rows = low_rank_clusters(np.random.default_rng(args.seed + 1),
+                                IP_ROWS + N_QUERIES, IP_DIM)
+    ip_rows /= np.linalg.norm(ip_rows, axis=1, keepdims=True)
+    ip_data = torch.from_numpy(ip_rows[:IP_ROWS]).to(dev)
+    ip_queries = torch.from_numpy(ip_rows[IP_ROWS:]).to(dev)
+    ip_index = ivf_flat.build(ip_data, ivf_flat.IndexParams(
+        n_lists=N_LISTS, metric="inner_product"))
+    print(json.dumps(profile_call(
+        "ivf_flat", lambda: ivf_flat.search(ip_index, ip_queries, K, params),
+        label="ivf_flat_inner_product")))
+    del ip_rows, ip_data, ip_queries, ip_index
     lut_res = Resources(device_memory_bytes=sum(
         ivf_pq.scan_memory_bytes(pq_index)))
     if ivf_pq.plan_search(pq_index, K, pq_params,

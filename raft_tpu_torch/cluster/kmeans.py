@@ -10,7 +10,7 @@ In PyTorch the JAX package's ``lax.while_loop`` is a Python loop (its
 condition reads the shift on the host once per iteration) and ``fori_loop``
 is a loop. The scatter-add ``.at[].add`` becomes a stable sort by label and
 a segment sum, which adds each cluster's rows in row order on the CPU and
-on the card alike: ``index_add_``'s atomics on the card would add them in a
+on the card alike: an atomic scatter-add on the card would add them in a
 new order every run, so the shift would never reach 0 once the labels
 settle. Random draws (the k-means++ samples, the random init's permutation)
 come from the resources' ``torch.Generator``, so they differ from

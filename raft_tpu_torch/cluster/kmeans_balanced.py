@@ -8,10 +8,13 @@ balance polish that splits hot clusters into starving ones.
 
 In PyTorch the JAX package's ``lax.while_loop`` is a Python loop (its
 condition needs one host read per iteration), ``lax.map`` over mesoclusters
-is a loop, and ``.at[].add`` is ``index_add_``. The E-step is a plain fp32
-matrix product plus argmin, as the JAX package left it to XLA: no kernel
-of this slice runs in the build. Random draws come from the caller's
-``torch.Generator``.
+is a loop, and ``.at[].add`` is a stable sort by label and a segment sum
+(``sum_by_label``), which adds each cluster's rows in row order on the CPU
+and on the card alike, so two builds from the same generator are bitwise
+equal (an atomic scatter-add on the card would add them in a new order
+every run). The E-step is a plain fp32 matrix product plus argmin, as the
+JAX package left it to XLA: no hand-written kernel runs in the build.
+Random draws come from the caller's ``torch.Generator``.
 """
 
 from __future__ import annotations
@@ -96,20 +99,29 @@ def _predict_labels(x, centers, metric: DistanceType, active_mask=None,
     return torch.cat(out).to(torch.int32)
 
 
+def sum_by_label(values, labels, n_groups: int) -> torch.Tensor:
+    """Sums of the rows of ``values`` [n, ...] by ``labels`` [n] (in
+    [0, n_groups)) → [n_groups, ...], 0 for an empty group. Each group's
+    rows are added in row order (a stable sort by label, then a segment
+    sum), so the result is the same on every run, on the CPU and the card."""
+    lab = labels.to(torch.int64)
+    order = torch.argsort(lab, stable=True)
+    lengths = torch.bincount(lab, minlength=n_groups)
+    return torch.segment_reduce(values[order], "sum", lengths=lengths)
+
+
 def calc_centers_and_sizes(x, labels, n_clusters: int, weights=None
                            ) -> Tuple[torch.Tensor, torch.Tensor]:
     """M-step: per-cluster (weighted) mean and size."""
     xf = x.to(torch.float32)
-    lab = labels.to(torch.int64)
     if weights is not None:
         w = weights.to(torch.float32)
         xf = xf * w[:, None]
+        counts = sum_by_label(w, labels, n_clusters)
     else:
-        w = torch.ones(x.shape[0], dtype=torch.float32, device=x.device)
-    counts = torch.zeros(n_clusters, dtype=torch.float32,
-                         device=x.device).index_add_(0, lab, w)
-    sums = torch.zeros((n_clusters, x.shape[1]), dtype=torch.float32,
-                       device=x.device).index_add_(0, lab, xf)
+        counts = torch.bincount(labels.to(torch.int64),
+                                minlength=n_clusters).to(torch.float32)
+    sums = sum_by_label(xf, labels, n_clusters)
     return sums / torch.clamp_min(counts, 1.0)[:, None], counts
 
 
@@ -276,9 +288,8 @@ def fit(generator, x, n_clusters: int,
 def _fine_tune(generator, x, centers0, n_iters: int, metric: DistanceType):
     n_clusters = centers0.shape[0]
     labels0 = _predict_labels(x, centers0, metric)
-    sizes0 = torch.zeros(n_clusters, dtype=torch.float32,
-                         device=x.device).index_add_(
-        0, labels0.long(), torch.ones(x.shape[0], device=x.device))
+    sizes0 = torch.bincount(labels0.long(),
+                            minlength=n_clusters).to(torch.float32)
     return _balancing_em_loop(generator, x, None, None, centers0, labels0,
                               sizes0, n_iters, _TUNE_PULLBACK,
                               _TUNE_THRESHOLD, metric)
@@ -299,9 +310,7 @@ def _polish_round(generator, x, centers, thr_hi: float, thr_lo: float,
     labels = _predict_labels(x, centers, metric)
     centers_m, sizes = calc_centers_and_sizes(x, labels, n_clusters)
     cv_pre = _size_cv(sizes)
-    xsq = torch.zeros(n_clusters, dtype=torch.float32,
-                      device=x.device).index_add_(0, labels.long(),
-                                                  (x * x).sum(-1))
+    xsq = sum_by_label((x * x).sum(-1), labels, n_clusters)
     msd = xsq / torch.clamp_min(sizes, 1.0) - (centers_m * centers_m).sum(-1)
     order = torch.argsort(sizes, stable=True)
     n_pairs = min(max(n_clusters // 16, 1), 64)

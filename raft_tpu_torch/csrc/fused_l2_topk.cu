@@ -1,41 +1,54 @@
 // Fused squared-L2 distance + top-k for exact (brute-force) search.
 //
 // Replaces raft_tpu/ops/pallas_kernels.py:fused_l2_topk (_fused_topk_kernel):
-// an fp32 (Precision.HIGHEST) x·yᵀ tile, d = max(‖x‖² + ‖y‖² − 2·x·y, 0),
-// merged into a running top-k carry, so the [m, n] distance matrix never
-// exists in device memory. Rows past n are never candidates; ids are global
-// row ids, -1 where fewer than k rows exist.
+// an fp32-accurate (Precision.HIGHEST) x·yᵀ tile, d = max(‖x‖² + ‖y‖² −
+// 2·x·y, 0), merged into a running top-k carry, so the [m, n] distance matrix
+// never exists in device memory. Rows past n are never candidates; ids are
+// global row ids, -1 where fewer than k rows exist; ties resolve by row id.
 //
-// Bound on the H100: fp32 arithmetic. The products run as fp32 FMA (not
-// TF32, to match Precision.HIGHEST): m·n·d FMAs against the card's fp32 rate
-// outside the tensor cores, while the inputs are read once per query tile.
+// Bound on the H100: the product, 2·m·n·d operations. HIGHEST is
+// fp32-accurate; on the TPU it is made of bf16 passes, here of three TF32
+// passes on the tensor cores (the 3×TF32 split): a = a_hi + a_lo with
+// a_hi = rna_tf32(a), a_lo = rna_tf32(a − a_hi), and x·y ≈ x_hi·y_hi +
+// x_hi·y_lo + x_lo·y_hi accumulated in fp32 (error about 2⁻²¹ of Σ|x_i·y_i|,
+// the order of fp32's own; one TF32 pass would be 2⁻¹¹). Three passes at
+// 495 TFLOP/s bound it at 3·2·m·n·d / 495e12 s, against 2·m·n·d / 67e12 s
+// for fp32 FMA outside the tensor cores.
 //
-// Design: a block owns TM query rows and loops over 128-row database tiles
-// (the loop takes the place of the TPU's sequential inner grid axis). Each
-// tile is a register-blocked fp32 product staged through shared memory in
-// 32-wide slices of the feature dimension; its epilogue applies the norms and
-// the clamp and offers each distance to its row's carry (topk_carry.cuh),
-// which only candidates below the row's current k-th value reach. When the
-// query tiles alone cannot fill the card, the database is cut into `splits`
-// ranges scanned by separate blocks, and one select_rows pass merges the
-// per-range results; ties then still resolve by global row id, because the
-// ranges are merged in database order.
+// Design (k <= gpu_kernels.TC_MAX_K, the tensor-core route):
+//   - a split pass writes x and y as hi/lo planes into the wrapper's scratch,
+//     d zero-padded to a multiple of 32 (zeros change no dot product), so
+//     that each 32-float slice is one 128-byte TMA row and four wgmma k-steps;
+//     the database is split in chunks that fit the scratch budget;
+//   - a block owns 128 query rows (64 where k is too large for their carry)
+//     and a range of database rows: one producer warp streams 128 × 32 query
+//     and 128 × 32 database slices (hi and lo) by TMA into a ring of
+//     shared-memory stages (128-byte swizzle, mbarriers); each of two
+//     consumer warpgroups issues three wgmma m64n128k8 per k-step for its 64
+//     rows and holds its 64 × 128 distance tile in registers, so a database
+//     slice read from L2 serves 128 query rows;
+//   - epilogue in registers: norms, clamp, and a comparison with the row's
+//     k-th value before anything touches shared memory; one vote of the warp
+//     skips a tile without candidates. The few survivors are compacted by
+//     warp ballot into a 16-entry buffer per row, merged into the row's
+//     sorted carry when more than 8 are pending and at the end of every tile,
+//     so the next tile's thresholds are exact (topk_carry.cuh: warp_insert
+//     for up to 4, warp_merge for more). A survivor is ordered by (value,
+//     row), so the arrival order never changes the result;
+//   - the planner (gpu_kernels.plan_fused_topk) cuts the database into ranges
+//     so that the (query tile, range) blocks fill whole waves of the card; a
+//     select_rows pass merges the ranges in database order, so ties still
+//     resolve by global row id.
+// Above gpu_kernels.TC_MAX_K (243) even a 64-row carry no longer fits shared
+// memory beside the ring, and a 16-row fp32 FMA tile takes over (the large-k
+// route, fma_topk_kernel).
 #include "topk_carry.cuh"
+
+#include <cuda.h>
 
 namespace {
 
-constexpr int kTN = 128;  // database rows per tile
-constexpr int kDK = 32;   // feature slice staged per step
-constexpr int kThreads = 256;
-
-size_t l2_smem_bytes(int tm, int k) {
-  return static_cast<size_t>(kDK) * (tm + 1) * 4 +   // x slice
-         static_cast<size_t>(kDK) * (kTN + 1) * 4 +  // y slice
-         8 +                                         // keep survivors 8-aligned
-         static_cast<size_t>(tm) * kTN * 8 +         // survivors
-         static_cast<size_t>(tm) * k * 8 +           // carry
-         static_cast<size_t>(tm) * 4;                // survivor counts
-}
+// ------------------------------------------------------------ common
 
 struct TileIds {
   long long base;
@@ -44,24 +57,527 @@ struct TileIds {
   }
 };
 
-// RM query rows per thread: TM = 16·RM rows per block; each thread owns an
-// RM × 8 register tile of the TM × 128 distance tile.
-template <int RM>
-__global__ void __launch_bounds__(kThreads)
-fused_l2_topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
-                     const float* __restrict__ xn, const float* __restrict__ yn,
-                     int m, long long n, int d, int k, long long split_len,
-                     int splits, float* __restrict__ out_v,
-                     int32_t* __restrict__ out_i) {
-  constexpr int TM = 16 * RM;
+__device__ __forceinline__ float l2_dist(float xn, float yn, float dot) {
+  return fmaxf(__fsub_rn(__fadd_rn(xn, yn), __fmul_rn(2.f, dot)), 0.f);
+}
+
+// ------------------------------------------------------------ split pass
+
+__device__ __forceinline__ float tf32_rna(float v) {
+  uint32_t r;
+  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
+  return __uint_as_float(r);
+}
+
+// src [rows, d] → hi, lo [rows, d_pad], zeros past d
+__global__ void split_tf32_kernel(const float* __restrict__ src, long long rows,
+                                  int d, int d_pad, float* __restrict__ hi,
+                                  float* __restrict__ lo) {
+  const long long total = rows * d_pad;
+  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
+                     threadIdx.x;
+       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
+    const long long r = e / d_pad;
+    const int c = static_cast<int>(e - r * d_pad);
+    const float v = c < d ? src[r * d + c] : 0.f;
+    const float h = tf32_rna(v);
+    hi[e] = h;
+    lo[e] = tf32_rna(v - h);
+  }
+}
+
+cudaError_t launch_split(const float* src, long long rows, int d, int d_pad,
+                         float* hi, float* lo, cudaStream_t s) {
+  const long long total = rows * d_pad;
+  long long blocks = (total + 255) / 256;
+  if (blocks > 8192) blocks = 8192;
+  if (blocks < 1) blocks = 1;
+  split_tf32_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
+      src, rows, d, d_pad, hi, lo);
+  return cudaGetLastError();
+}
+
+// ------------------------------------------------- tensor-core route
+
+// WGS consumer warpgroups of 64 query rows each share a block's database
+// tiles: 2 where the 128 rows' carry fits beside the ring, else 1
+constexpr int kBN = 128;   // database rows per tile
+constexpr int kBK = 32;    // floats per k-slice: one 128-byte swizzled row
+constexpr int kSurv = 16;  // survivor slots per row
+constexpr int kSliceB = kBN * kBK * 4;  // bytes of one B plane slice
+__host__ __device__ constexpr int slice_a(int wgs) {
+  return 64 * wgs * kBK * 4;
+}
+__host__ __device__ constexpr int stage_bytes(int wgs) {
+  return 2 * slice_a(wgs) + 2 * kSliceB;
+}
+
+// the formula of gpu_kernels.l2_topk_tc_smem_bytes
+size_t tc_smem_bytes(int k, int stages, int wgs) {
+  const size_t bm = 64 * wgs;
+  return 1024 +                                              // alignment
+         static_cast<size_t>(stages) * stage_bytes(wgs) +    // the ring
+         static_cast<size_t>(stages) * 16 +                  // barriers
+         bm * k * 8 +                                        // carry
+         bm * kSurv * 8 +                                    // survivors
+         bm * 4;                                             // their counts
+}
+
+__device__ __forceinline__ uint32_t smem_u32(const void* p) {
+  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
+}
+
+__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
+  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
+  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
+  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
+                   bar),
+               "r"(bytes)
+               : "memory");
+}
+
+__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
+  uint32_t done = 0;
+  while (!done) {
+    asm volatile(
+        "{\n.reg .pred p;\n"
+        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
+        "selp.u32 %0, 1, 0, p;\n}\n"
+        : "=r"(done)
+        : "r"(bar), "r"(parity)
+        : "memory");
+  }
+}
+
+__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
+                                         int c0, int c1, uint32_t bar) {
+  asm volatile(
+      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
+      "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
+      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
+      : "memory");
+}
+
+// wgmma shared-memory descriptor of a K-major tile with the 128-byte swizzle:
+// 8-row groups 1024 bytes apart (the tiles are 1024-byte aligned)
+__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
+  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
+         (static_cast<uint64_t>(1) << 16) |
+         (static_cast<uint64_t>(1024 >> 4) << 32) |
+         (static_cast<uint64_t>(1) << 62);
+}
+
+__device__ __forceinline__ void wgmma_fence() {
+  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
+}
+__device__ __forceinline__ void wgmma_commit() {
+  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
+}
+// wait until at most N committed groups of this warpgroup are in flight
+template <int N>
+__device__ __forceinline__ void wgmma_wait() {
+  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
+}
+// keeps the compiler from moving accesses of d across the asynchronous mma
+__device__ __forceinline__ void fence_operands(float* d) {
+#pragma unroll
+  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
+}
+
+// d[64] += A·Bᵀ over one k8 step: A [64 × 8] and B [128 × 8] tf32, both
+// K-major in 128-byte-swizzled shared memory, given by their descriptors.
+// d[i] holds row 16·warp + lane/4 + 8·((i/2)%2), column 8·(i/4) + 2·(lane%4)
+// + i%2 of the warpgroup's 64 × 128 tile.
+__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db) {
+  asm volatile(
+      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
+      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
+      "%0, %1, %2, %3, %4, %5, %6, %7,"
+      "%8, %9, %10, %11, %12, %13, %14, %15,"
+      "%16, %17, %18, %19, %20, %21, %22, %23,"
+      "%24, %25, %26, %27, %28, %29, %30, %31,"
+      "%32, %33, %34, %35, %36, %37, %38, %39,"
+      "%40, %41, %42, %43, %44, %45, %46, %47,"
+      "%48, %49, %50, %51, %52, %53, %54, %55,"
+      "%56, %57, %58, %59, %60, %61, %62, %63"
+      "}, %64, %65, p, 1, 1;\n}\n"
+      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
+        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
+        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
+        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
+        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
+        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
+        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
+        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
+        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
+        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
+        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
+        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
+        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
+        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
+        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
+        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
+      : "l"(da), "l"(db));
+}
+
+struct TcArgs {
+  const float* xn;   // [m]
+  const float* yn;   // this chunk's norms, [chunk_rows]
+  int m;
+  long long chunk_rows;
+  long long id_base;    // global id of the chunk's first row
+  long long split_len;  // database rows per block (a multiple of kBN)
+  int q_tiles;
+  int k_slices;         // d_pad / kBK
+  int k;
+  int stages;
+  int parts;            // ranges over the whole database
+  int part_base;        // this chunk's first range
+  float* out_v;         // [m, parts, k]
+  int32_t* out_i;
+};
+
+// Merge the pending survivors of the warp's rows r0 + g (bit 4g of f) and
+// r0 + g + 8 (bit 4g + 1) into their carries. Out of line: the epilogue
+// calls it from every column pair, and a copy in each would crowd the
+// instruction cache.
+__device__ __noinline__ void merge_rows(unsigned f, int r0, uint32_t* cval,
+                                        int32_t* cid, int k,
+                                        unsigned long long* skey, int* scount,
+                                        TileIds ids) {
+  const int lane = threadIdx.x & 31;
+  for (; f; f &= f - 1) {
+    const int bit = __ffs(f) - 1;
+    const int r = r0 + (bit >> 2) + 8 * (bit & 1);
+    const int n = scount[r];
+    if (n <= 4) {  // the common case: a few inserts beat a sort and a merge
+      for (int i = 0; i < n; ++i) {
+        const unsigned long long sk = skey[r * kSurv + i];
+        rtt::warp_insert(cval + r * k, cid + r * k, k,
+                         static_cast<uint32_t>(sk >> 32),
+                         ids(static_cast<uint32_t>(sk)));
+      }
+    } else {
+      rtt::warp_merge(cval + r * k, cid + r * k, k, skey + r * kSurv, n, ids);
+    }
+    __syncwarp();
+    if (lane == 0) scount[r] = 0;
+    __syncwarp();
+  }
+}
+
+template <int WGS>
+__global__ void __launch_bounds__(128 * WGS + 32)
+tc_topk_kernel(const __grid_constant__ CUtensorMap map_xh,
+               const __grid_constant__ CUtensorMap map_xl,
+               const __grid_constant__ CUtensorMap map_yh,
+               const __grid_constant__ CUtensorMap map_yl, const TcArgs a) {
+  constexpr int kBM = 64 * WGS, kSliceA = slice_a(WGS);
+  constexpr int kStageBytes = stage_bytes(WGS);
+  extern __shared__ unsigned char smem_raw[];
+  unsigned char* smem = reinterpret_cast<unsigned char*>(
+      (reinterpret_cast<uintptr_t>(smem_raw) + 1023) & ~uintptr_t(1023));
+  const int stages = a.stages, k = a.k;
+  uint64_t* full = reinterpret_cast<uint64_t*>(smem + stages * kStageBytes);
+  uint64_t* empty = full + stages;
+  uint32_t* cval = reinterpret_cast<uint32_t*>(empty + stages);  // [kBM][k]
+  int32_t* cid = reinterpret_cast<int32_t*>(cval + kBM * k);     // [kBM][k]
+  unsigned long long* skey =
+      reinterpret_cast<unsigned long long*>(cid + kBM * k);      // [kBM][kSurv]
+  int* scount = reinterpret_cast<int*>(skey + kBM * kSurv);      // [kBM]
+
+  const int tid = threadIdx.x, warp = tid >> 5, lane = tid & 31;
+  const int split = blockIdx.x / a.q_tiles;
+  const int row0 = (blockIdx.x % a.q_tiles) * kBM;
+  const long long lo = split * a.split_len;
+  const long long hi =
+      lo + a.split_len < a.chunk_rows ? lo + a.split_len : a.chunk_rows;
+  const int n_tiles = hi > lo ? static_cast<int>((hi - lo + kBN - 1) / kBN) : 0;
+  const int iters = n_tiles * a.k_slices;
+
+  if (tid == 0) {
+    for (int s = 0; s < stages; ++s) {
+      mbar_init(smem_u32(full + s), 1);
+      mbar_init(smem_u32(empty + s), 128 * WGS);
+    }
+    asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
+  }
+  __syncthreads();
+
+  if (warp == 4 * WGS) {  // ---- producer: one thread keeps the ring filled
+    if (lane == 0) {
+      for (int it = 0; it < iters; ++it) {
+        const int s = it % stages;
+        mbar_wait(smem_u32(empty + s), ((it / stages) & 1) ^ 1);
+        const uint32_t bar = smem_u32(full + s);
+        mbar_expect_tx(bar, kStageBytes);
+        const uint32_t st = smem_u32(smem + s * kStageBytes);
+        const int kc = (it % a.k_slices) * kBK;
+        const int col = static_cast<int>(lo + (it / a.k_slices) * kBN);
+        tma_load(st, &map_xh, kc, row0, bar);
+        tma_load(st + kSliceA, &map_xl, kc, row0, bar);
+        tma_load(st + 2 * kSliceA, &map_yh, kc, col, bar);
+        tma_load(st + 2 * kSliceA + kSliceB, &map_yl, kc, col, bar);
+      }
+    }
+    return;
+  }
+
+  // ---- consumers: warpgroup g multiplies local rows 64g..64g+63; warp w
+  // owns local rows 16w..16w+15; a lane holds rows ra = 16w + lane/4 and
+  // ra + 8, columns 8c + 2·(lane%4) + {0, 1}
+  const int ra = 16 * warp + (lane >> 2), rb = ra + 8;
+  for (int i = lane; i < 16 * k; i += 32) {
+    cval[16 * warp * k + i] = rtt::kInfKey;
+    cid[16 * warp * k + i] = -1;
+  }
+  if (lane < 16) scount[16 * warp + lane] = 0;
+  __syncwarp();
+  const bool va = row0 + ra < a.m, vb = row0 + rb < a.m;
+  const float xna = va ? a.xn[row0 + ra] : 0.f;
+  const float xnb = vb ? a.xn[row0 + rb] : 0.f;
+  const int g4 = lane & ~3, q = lane & 3;
+  const unsigned below = (1u << q) - 1u;
+  const TileIds ids{a.id_base};
+  uint32_t thra = 0, thrb = 0;
+  // merge into their carries the rows of this warp with more than `pending`
+  // survivors waiting, then read the lanes' thresholds again
+  auto flush = [&](int pending) {
+    const unsigned fa =
+        __ballot_sync(0xffffffffu, q == 0 && scount[ra] > pending);
+    const unsigned fb =
+        __ballot_sync(0xffffffffu, q == 0 && scount[rb] > pending);
+    if (fa | fb) {
+      merge_rows(fa | (fb << 1), 16 * warp, cval, cid, k, skey, scount, ids);
+      thra = cval[ra * k + k - 1];
+      thrb = cval[rb * k + k - 1];
+    }
+  };
+
+  float acc[64];
+  for (int t = 0; t < n_tiles; ++t) {
+#pragma unroll
+    for (int i = 0; i < 64; ++i) acc[i] = 0.f;
+    fence_operands(acc);
+    // a slice's stage is released once the next slice's products are
+    // issued, so the tensor cores never wait for the release
+    int prev = -1;
+    for (int kc = 0; kc < a.k_slices; ++kc) {
+      const int it = t * a.k_slices + kc;
+      const int s = it % stages;
+      mbar_wait(smem_u32(full + s), (it / stages) & 1);
+      const uint32_t st = smem_u32(smem + s * kStageBytes);
+      wgmma_fence();
+#pragma unroll
+      for (int kk = 0; kk < kBK / 8; ++kk) {  // 8 tf32 = 32 bytes a k-step
+        const uint32_t a0 = st + (warp >> 2) * (64 * kBK * 4) + 32 * kk;
+        const uint64_t ah = sw128_desc(a0);
+        const uint64_t al = sw128_desc(a0 + kSliceA);
+        const uint64_t bh = sw128_desc(st + 2 * kSliceA + 32 * kk);
+        const uint64_t bl = sw128_desc(st + 2 * kSliceA + kSliceB + 32 * kk);
+        wgmma_tf32(acc, ah, bh);
+        wgmma_tf32(acc, ah, bl);
+        wgmma_tf32(acc, al, bh);
+      }
+      wgmma_commit();
+      if (prev >= 0) {
+        wgmma_wait<1>();
+        mbar_arrive(smem_u32(empty + prev));
+      }
+      prev = s;
+    }
+    wgmma_wait<0>();
+    fence_operands(acc);
+    if (prev >= 0) mbar_arrive(smem_u32(empty + prev));
+
+    // epilogue: 16 column pairs, two rows each; survivors of a pair go to
+    // the rows' buffers, a row with more than 8 pending is merged, and every
+    // pending survivor is merged at the end of the tile
+    const long long col0 = lo + static_cast<long long>(t) * kBN;
+    thra = cval[ra * k + k - 1];
+    thrb = cval[rb * k + k - 1];
+    float ynr[kBN / 4];  // the tile's norms, all loads in flight at once
+#pragma unroll
+    for (int c = 0; c < kBN / 8; ++c)
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const long long col = col0 + 8 * c + 2 * q + e;
+        ynr[2 * c + e] = col < hi ? __ldg(a.yn + col) : 0.f;
+      }
+    // the column pairs c where some lane of the warp has a survivor: a
+    // distance below its row's k-th value, compared as floats (they are
+    // clamped at 0 and never NaN, so this is the key comparison); once the
+    // carries are warm this is no pair, and one vote skips the rest
+    unsigned cmask = 0;
+    {
+      const float tfa = rtt::key_float(thra), tfb = rtt::key_float(thrb);
+#pragma unroll
+      for (int c = 0; c < kBN / 8; ++c)
+#pragma unroll
+        for (int e = 0; e < 2; ++e) {
+          const bool ok = col0 + 8 * c + 2 * q + e < hi;
+          if ((ok && va &&
+               l2_dist(xna, ynr[2 * c + e], acc[4 * c + e]) < tfa) ||
+              (ok && vb &&
+               l2_dist(xnb, ynr[2 * c + e], acc[4 * c + 2 + e]) < tfb))
+            cmask |= 1u << c;
+        }
+    }
+    cmask = __reduce_or_sync(0xffffffffu, cmask);
+    // those pairs, in a loop that is not unrolled (a copy of its body per
+    // pair would crowd the instruction cache): the pair's four products are
+    // picked out of the accumulator by compile-time selects
+    for (; cmask; cmask &= cmask - 1) {
+      const int c = __ffs(cmask) - 1;
+      float d4[4];
+#pragma unroll
+      for (int cc = 0; cc < kBN / 8; ++cc)
+        if (cc == c)
+#pragma unroll
+          for (int i = 0; i < 4; ++i) d4[i] = acc[4 * cc + i];
+      const long long col = col0 + 8 * c + 2 * q;
+      bool fa[2], fb[2];
+      uint32_t ka[2], kb[2];
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const bool ok = col + e < hi;
+        const float ynv = ok ? __ldg(a.yn + col + e) : 0.f;
+        ka[e] = rtt::float_key(l2_dist(xna, ynv, d4[e]));
+        kb[e] = rtt::float_key(l2_dist(xnb, ynv, d4[2 + e]));
+        fa[e] = ok && va && ka[e] < thra;
+        fb[e] = ok && vb && kb[e] < thrb;
+      }
+      const unsigned ma0 = __ballot_sync(0xffffffffu, fa[0]);
+      const unsigned ma1 = __ballot_sync(0xffffffffu, fa[1]);
+      const unsigned mb0 = __ballot_sync(0xffffffffu, fb[0]);
+      const unsigned mb1 = __ballot_sync(0xffffffffu, fb[1]);
+      // each row's 4 lanes: slots in (lane, column) order after the pending
+      const unsigned ga0 = (ma0 >> g4) & 15u, ga1 = (ma1 >> g4) & 15u;
+      const unsigned gb0 = (mb0 >> g4) & 15u, gb1 = (mb1 >> g4) & 15u;
+      const int na = scount[ra], nb = scount[rb];
+      int pa = na + __popc(ga0 & below) + __popc(ga1 & below);
+      int pb = nb + __popc(gb0 & below) + __popc(gb1 & below);
+#pragma unroll
+      for (int e = 0; e < 2; ++e) {
+        const uint32_t pos = static_cast<uint32_t>(col + e);
+        if (fa[e]) skey[ra * kSurv + pa++] =
+            (static_cast<unsigned long long>(ka[e]) << 32) | pos;
+        if (fb[e]) skey[rb * kSurv + pb++] =
+            (static_cast<unsigned long long>(kb[e]) << 32) | pos;
+      }
+      __syncwarp();
+      if (q == 0) {
+        scount[ra] = na + __popc(ga0) + __popc(ga1);
+        scount[rb] = nb + __popc(gb0) + __popc(gb1);
+      }
+      __syncwarp();
+      flush(8);  // room for the next pair of columns
+    }
+    flush(0);  // the next tile starts from exact thresholds
+  }
+
+  const int part = a.part_base + split;
+  for (int i = 0; i < 16; ++i) {
+    const int r = 16 * warp + i, row = row0 + r;
+    if (row >= a.m) break;
+    const long long o = (static_cast<long long>(row) * a.parts + part) * k;
+    for (int j = lane; j < k; j += 32) {
+      a.out_v[o + j] = rtt::key_float(cval[r * k + j]);
+      a.out_i[o + j] = cid[r * k + j];
+    }
+  }
+}
+
+typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
+                                void*, const cuuint64_t*, const cuuint64_t*,
+                                const cuuint32_t*, const cuuint32_t*,
+                                CUtensorMapInterleave, CUtensorMapSwizzle,
+                                CUtensorMapL2promotion,
+                                CUtensorMapFloatOOBfill);
+
+// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
+// query, so that the library links without -lcuda
+EncodeTiled encode_tiled() {
+  static EncodeTiled fn = nullptr;
+  if (fn == nullptr) {
+    void* p = nullptr;
+    cudaDriverEntryPointQueryResult q;
+#if CUDART_VERSION >= 12050
+    const cudaError_t err = cudaGetDriverEntryPointByVersion(
+        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
+#else
+    const cudaError_t err = cudaGetDriverEntryPoint(
+        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
+#endif
+    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
+      fn = reinterpret_cast<EncodeTiled>(p);
+  }
+  return fn;
+}
+
+// a [rows, d_pad] float plane read in boxes of box_rows × 32 floats, rows
+// past the end read as zeros
+bool make_map(CUtensorMap* map, const float* base, long long rows, int d_pad,
+              int box_rows) {
+  const EncodeTiled fn = encode_tiled();
+  if (fn == nullptr) return false;
+  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d_pad),
+                              static_cast<cuuint64_t>(rows)};
+  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d_pad) * 4};
+  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
+                             static_cast<cuuint32_t>(box_rows)};
+  const cuuint32_t elem[2] = {1, 1};
+  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
+            const_cast<float*>(base), dims, strides, box, elem,
+            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
+            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
+            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
+}
+
+// ------------------------------------------------------- large-k route
+
+constexpr int kFmaTM = 16;   // query rows per block
+constexpr int kFmaTN = 128;  // database rows per tile
+constexpr int kFmaDK = 32;   // feature slice staged per step
+constexpr int kFmaThreads = 256;
+
+// the formula of gpu_kernels.l2_topk_fma_smem_bytes
+size_t fma_smem_bytes(int k) {
+  return static_cast<size_t>(kFmaDK) * (kFmaTM + 1) * 4 +   // x slice
+         static_cast<size_t>(kFmaDK) * (kFmaTN + 1) * 4 +   // y slice
+         8 +                                                // 8-align
+         static_cast<size_t>(kFmaTM) * kFmaTN * 8 +         // survivors
+         static_cast<size_t>(kFmaTM) * k * 8 +              // carry
+         static_cast<size_t>(kFmaTM) * 4;                   // counts
+}
+
+// 16 query rows a block, a thread one row × 8 columns of the 16 × 128 tile,
+// an fp32 FMA product staged through shared memory in 32-wide slices; every
+// candidate below its row's k-th value is appended to the row's survivor
+// list and the lists are merged into the carry after each tile.
+__global__ void __launch_bounds__(kFmaThreads)
+fma_topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
+                const float* __restrict__ xn, const float* __restrict__ yn,
+                int m, long long n, int d, int k, long long split_len,
+                int splits, float* __restrict__ out_v,
+                int32_t* __restrict__ out_i) {
+  constexpr int TM = kFmaTM, TN = kFmaTN, DK = kFmaDK;
   extern __shared__ __align__(16) unsigned char smem[];
-  float* xs = reinterpret_cast<float*>(smem);  // [kDK][TM + 1]
-  float* ys = xs + kDK * (TM + 1);             // [kDK][kTN + 1]
-  size_t off = (static_cast<size_t>(kDK) * (TM + 1 + kTN + 1) * 4 + 7) & ~size_t(7);
+  float* xs = reinterpret_cast<float*>(smem);  // [DK][TM + 1]
+  float* ys = xs + DK * (TM + 1);              // [DK][TN + 1]
+  size_t off = (static_cast<size_t>(DK) * (TM + 1 + TN + 1) * 4 + 7) & ~size_t(7);
   unsigned long long* skey = reinterpret_cast<unsigned long long*>(smem + off);
-  uint32_t* cval = reinterpret_cast<uint32_t*>(skey + TM * kTN);  // [TM][k]
-  int32_t* cid = reinterpret_cast<int32_t*>(cval + TM * k);       // [TM][k]
-  int* scount = reinterpret_cast<int*>(cid + TM * k);             // [TM]
+  uint32_t* cval = reinterpret_cast<uint32_t*>(skey + TM * TN);  // [TM][k]
+  int32_t* cid = reinterpret_cast<int32_t*>(cval + TM * k);      // [TM][k]
+  int* scount = reinterpret_cast<int*>(cid + TM * k);            // [TM]
 
   const int tid = threadIdx.x;
   const int tx = tid & 15, ty = tid >> 4;
@@ -70,79 +586,57 @@ fused_l2_topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
   const long long lo = static_cast<long long>(blockIdx.y) * split_len;
   const long long hi = lo + split_len < n ? lo + split_len : n;
 
-  for (int i = tid; i < TM * k; i += kThreads) {
+  for (int i = tid; i < TM * k; i += kFmaThreads) {
     cval[i] = rtt::kInfKey;
     cid[i] = -1;
   }
-  for (int i = tid; i < TM; i += kThreads) scount[i] = 0;
-  float xnr[RM];
-#pragma unroll
-  for (int r = 0; r < RM; ++r) {
-    const int row = row0 + ty * RM + r;
-    xnr[r] = row < m ? xn[row] : 0.f;
-  }
+  for (int i = tid; i < TM; i += kFmaThreads) scount[i] = 0;
+  const int row = row0 + ty;
+  const float xnr = row < m ? xn[row] : 0.f;
   __syncthreads();
 
-  for (long long col0 = lo; col0 < hi; col0 += kTN) {
-    float acc[RM][8];
+  for (long long col0 = lo; col0 < hi; col0 += TN) {
+    float acc[8];
 #pragma unroll
-    for (int r = 0; r < RM; ++r)
-#pragma unroll
-      for (int c = 0; c < 8; ++c) acc[r][c] = 0.f;
-
-    for (int k0 = 0; k0 < d; k0 += kDK) {
-      for (int e = tid; e < TM * kDK; e += kThreads) {
-        const int r = e / kDK, c = e % kDK;
-        const int row = row0 + r, dim = k0 + c;
+    for (int c = 0; c < 8; ++c) acc[c] = 0.f;
+    for (int k0 = 0; k0 < d; k0 += DK) {
+      for (int e = tid; e < TM * DK; e += kFmaThreads) {
+        const int r = e / DK, c = e % DK;
+        const int xr = row0 + r, dim = k0 + c;
         xs[c * (TM + 1) + r] =
-            (row < m && dim < d) ? x[static_cast<long long>(row) * d + dim] : 0.f;
+            (xr < m && dim < d) ? x[static_cast<long long>(xr) * d + dim] : 0.f;
       }
-      for (int e = tid; e < kTN * kDK; e += kThreads) {
-        const int r = e / kDK, c = e % kDK;
+      for (int e = tid; e < TN * DK; e += kFmaThreads) {
+        const int r = e / DK, c = e % DK;
         const long long col = col0 + r;
         const int dim = k0 + c;
-        ys[c * (kTN + 1) + r] = (col < hi && dim < d) ? y[col * d + dim] : 0.f;
+        ys[c * (TN + 1) + r] = (col < hi && dim < d) ? y[col * d + dim] : 0.f;
       }
       __syncthreads();
 #pragma unroll 4
-      for (int kk = 0; kk < kDK; ++kk) {
-        float a[RM], b[8];
+      for (int kk = 0; kk < DK; ++kk) {
+        const float av = xs[kk * (TM + 1) + ty];
 #pragma unroll
-        for (int r = 0; r < RM; ++r) a[r] = xs[kk * (TM + 1) + ty * RM + r];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) b[c] = ys[kk * (kTN + 1) + tx + 16 * c];
-#pragma unroll
-        for (int r = 0; r < RM; ++r)
-#pragma unroll
-          for (int c = 0; c < 8; ++c) acc[r][c] = fmaf(a[r], b[c], acc[r][c]);
+        for (int c = 0; c < 8; ++c)
+          acc[c] = fmaf(av, ys[kk * (TN + 1) + tx + 16 * c], acc[c]);
       }
       __syncthreads();
     }
-
-    // epilogue: (‖x‖² + ‖y‖²) − 2·x·y, clamped at 0, offered to the carry
+    if (row < m) {
+      const uint32_t thr = cval[ty * k + k - 1];
 #pragma unroll
-    for (int r = 0; r < RM; ++r) {
-      const int rl = ty * RM + r;
-      if (row0 + rl < m) {
-        const uint32_t thr = cval[rl * k + k - 1];
-#pragma unroll
-        for (int c = 0; c < 8; ++c) {
-          const long long col = col0 + tx + 16 * c;
-          if (col < hi) {
-            const float dist = fmaxf(
-                __fsub_rn(__fadd_rn(xnr[r], yn[col]), __fmul_rn(2.f, acc[r][c])),
-                0.f);
-            rtt::offer(rtt::float_key(dist), tx + 16 * c, thr, skey + rl * kTN,
-                       scount + rl);
-          }
-        }
+      for (int c = 0; c < 8; ++c) {
+        const long long col = col0 + tx + 16 * c;
+        if (col < hi)
+          rtt::offer(rtt::float_key(l2_dist(xnr, yn[col], acc[c])),
+                     tx + 16 * c, thr, skey + ty * TN, scount + ty);
       }
     }
     __syncthreads();
-    for (int rl = warp; rl < TM; rl += kThreads / 32) {
+    for (int rl = warp; rl < TM; rl += kFmaThreads / 32) {
       const int cnt = scount[rl];
       if (cnt > 0) {
-        rtt::warp_merge(cval + rl * k, cid + rl * k, k, skey + rl * kTN, cnt,
+        rtt::warp_merge(cval + rl * k, cid + rl * k, k, skey + rl * TN, cnt,
                         TileIds{col0});
         if (lane == 0) scount[rl] = 0;
       }
@@ -150,54 +644,125 @@ fused_l2_topk_kernel(const float* __restrict__ x, const float* __restrict__ y,
     __syncthreads();
   }
 
-  for (int e = tid; e < TM * k; e += kThreads) {
+  for (int e = tid; e < TM * k; e += kFmaThreads) {
     const int rl = e / k, j = e % k;
-    const int row = row0 + rl;
-    if (row < m) {
-      const long long o = (static_cast<long long>(row) * splits + blockIdx.y) * k + j;
+    const int r = row0 + rl;
+    if (r < m) {
+      const long long o = (static_cast<long long>(r) * splits + blockIdx.y) * k + j;
       out_v[o] = rtt::key_float(cval[e]);
       out_i[o] = cid[e];
     }
   }
 }
 
-template <int RM>
-cudaError_t launch(const float* x, const float* y, const float* xn,
-                   const float* yn, int m, long long n, int d, int k,
-                   long long split_len, int splits, float* out_v,
-                   int32_t* out_i, cudaStream_t stream) {
-  const size_t smem = l2_smem_bytes(16 * RM, k);
+cudaError_t run_fma(const float* x, const float* y, const float* xn,
+                    const float* yn, int m, long long n, int d, int k,
+                    long long split_len, int splits, float* pv, int32_t* pi,
+                    cudaStream_t s) {
+  const size_t smem = fma_smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
-      fused_l2_topk_kernel<RM>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      fma_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
   if (err != cudaSuccess) return err;
-  dim3 grid((m + 16 * RM - 1) / (16 * RM), splits);
-  fused_l2_topk_kernel<RM><<<grid, kThreads, smem, stream>>>(
-      x, y, xn, yn, m, n, d, k, split_len, splits, out_v, out_i);
+  dim3 grid((m + kFmaTM - 1) / kFmaTM, splits);
+  fma_topk_kernel<<<grid, kFmaThreads, smem, s>>>(x, y, xn, yn, m, n, d, k,
+                                                  split_len, splits, pv, pi);
   return cudaGetLastError();
+}
+
+template <int WGS>
+cudaError_t run_tc(const float* x, const float* y, const float* xn,
+                   const float* yn, int m, long long n, int d, int d_pad,
+                   int k, int stages, long long split_len, int splits,
+                   int chunk_splits, float* scratch, float* pv, int32_t* pi,
+                   cudaStream_t s) {
+  constexpr int kBM = 64 * WGS;
+  const size_t smem = tc_smem_bytes(k, stages, WGS);
+  cudaError_t err = cudaFuncSetAttribute(
+      tc_topk_kernel<WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
+      static_cast<int>(smem));
+  if (err != cudaSuccess) return err;
+  float* xh = scratch;
+  float* xl = xh + static_cast<long long>(m) * d_pad;
+  const long long chunk_len = split_len * chunk_splits;
+  float* yh = xl + static_cast<long long>(m) * d_pad;
+  float* yl = yh + (chunk_len < n ? chunk_len : n) * d_pad;
+  err = launch_split(x, m, d, d_pad, xh, xl, s);
+  if (err != cudaSuccess) return err;
+  CUtensorMap mxh, mxl, myh, myl;
+  if (!make_map(&mxh, xh, m, d_pad, kBM) || !make_map(&mxl, xl, m, d_pad, kBM))
+    return cudaErrorInvalidValue;
+  TcArgs a;
+  a.xn = xn;
+  a.m = m;
+  a.split_len = split_len;
+  a.q_tiles = (m + kBM - 1) / kBM;
+  a.k_slices = d_pad / kBK;
+  a.k = k;
+  a.stages = stages;
+  a.parts = splits;
+  a.out_v = pv;
+  a.out_i = pi;
+  for (int p0 = 0; p0 < splits; p0 += chunk_splits) {
+    const long long c0 = static_cast<long long>(p0) * split_len;
+    const long long rows = n - c0 < chunk_len ? n - c0 : chunk_len;
+    const int parts_here =
+        static_cast<int>((rows + split_len - 1) / split_len);
+    err = launch_split(y + c0 * d, rows, d, d_pad, yh, yl, s);
+    if (err != cudaSuccess) return err;
+    if (!make_map(&myh, yh, rows, d_pad, kBN) ||
+        !make_map(&myl, yl, rows, d_pad, kBN))
+      return cudaErrorInvalidValue;
+    a.yn = yn + c0;
+    a.chunk_rows = rows;
+    a.id_base = c0;
+    a.part_base = p0;
+    const long long blocks = static_cast<long long>(a.q_tiles) * parts_here;
+    tc_topk_kernel<WGS><<<static_cast<unsigned>(blocks), 128 * WGS + 32, smem,
+                          s>>>(mxh, mxl, myh, myl, a);
+    err = cudaGetLastError();
+    if (err != cudaSuccess) return err;
+  }
+  return cudaSuccess;
 }
 
 }  // namespace
 
-// tm is 64 or 16 query rows per block. With splits > 1 the per-range results
-// go to part_v/part_i [m, splits, k] and are merged into out_v/out_i [m, k].
+// route 0: the tensor-core route with `wgs` consumer warpgroups, with `scratch` [2·m + 2·min(split_len·
+// chunk_splits, n), d_pad] floats (the hi/lo planes of x and of one database
+// chunk) and `stages` ring stages; route 1: the large-k FMA route (no
+// scratch). The database is cut into `splits` ranges of split_len rows (a
+// multiple of 128); with splits > 1 the per-range results go to
+// part_v/part_i [m, splits, k] and are merged into out_v/out_i [m, k].
 extern "C" int fused_l2_topk(const void* x, const void* y, const void* xn,
                              const void* yn, int m, long long n, int d, int k,
-                             int tm, int splits, void* part_v, void* part_i,
+                             int route, int wgs, int d_pad, int stages,
+                             long long split_len, int splits, int chunk_splits,
+                             void* scratch, void* part_v, void* part_i,
                              void* out_v, void* out_i, void* stream) {
   const cudaStream_t s = static_cast<cudaStream_t>(stream);
-  if (tm != 64 && tm != 16) return static_cast<int>(cudaErrorInvalidValue);
-  long long split_len = (n + splits - 1) / splits;
-  split_len = (split_len + kTN - 1) / kTN * kTN;
+  if (m < 1 || k < 1 || splits < 1 || split_len < 1 || split_len % 128 != 0 ||
+      (splits - 1) * split_len >= (n > 0 ? n : 1))
+    return static_cast<int>(cudaErrorInvalidValue);
   float* pv = static_cast<float*>(splits > 1 ? part_v : out_v);
   int32_t* pi = static_cast<int32_t*>(splits > 1 ? part_i : out_i);
   const float* xf = static_cast<const float*>(x);
   const float* yf = static_cast<const float*>(y);
   const float* xnf = static_cast<const float*>(xn);
   const float* ynf = static_cast<const float*>(yn);
-  cudaError_t err = tm == 64
-      ? launch<4>(xf, yf, xnf, ynf, m, n, d, k, split_len, splits, pv, pi, s)
-      : launch<1>(xf, yf, xnf, ynf, m, n, d, k, split_len, splits, pv, pi, s);
+  cudaError_t err;
+  if (route == 0) {
+    if (n < 1 || d_pad < d || d_pad % kBK != 0 || stages < 2 ||
+        chunk_splits < 1 || scratch == nullptr || (wgs != 1 && wgs != 2))
+      return static_cast<int>(cudaErrorInvalidValue);
+    float* sc = static_cast<float*>(scratch);
+    err = wgs == 2 ? run_tc<2>(xf, yf, xnf, ynf, m, n, d, d_pad, k, stages,
+                               split_len, splits, chunk_splits, sc, pv, pi, s)
+                   : run_tc<1>(xf, yf, xnf, ynf, m, n, d, d_pad, k, stages,
+                               split_len, splits, chunk_splits, sc, pv, pi, s);
+  } else {
+    err = run_fma(xf, yf, xnf, ynf, m, n, d, k, split_len, splits, pv, pi, s);
+  }
   if (err != cudaSuccess || splits == 1) return static_cast<int>(err);
   return static_cast<int>(rtt::launch_select_rows(
       pv, pi, m, static_cast<long long>(splits) * k, k, 0,

@@ -124,6 +124,51 @@ __device__ void warp_merge(uint32_t* cval, int32_t* cid, int k,
   }
 }
 
+// Insert one candidate (key, id) into the carry (cval/cid, k entries,
+// ascending by (key, id)), dropping its last entry; a candidate not below
+// the k-th entry changes nothing. Called by all 32 lanes of one warp with
+// the same arguments. As the order is by (key, id), inserting candidates in
+// any order gives the carry warp_merge gives. An empty slot is
+// (kInfKey, -1), after every real entry.
+__device__ __forceinline__ void warp_insert(uint32_t* cval, int32_t* cid,
+                                            int k, uint32_t key, int32_t id) {
+  const int lane = threadIdx.x & 31;
+  const unsigned long long nv =
+      (static_cast<unsigned long long>(key) << 32) | static_cast<uint32_t>(id);
+  int pos = 0;
+  for (int t = 0; t < k; t += 32) {
+    const int j = t + lane;
+    const bool less =
+        j < k && ((static_cast<unsigned long long>(cval[j]) << 32) |
+                  static_cast<uint32_t>(cid[j])) < nv;
+    pos += __popc(__ballot_sync(0xffffffffu, less));
+  }
+  if (pos >= k) return;  // uniform over the warp
+  // entries [pos, k - 1) move up one slot, the top 32 first, so that each
+  // step reads slots that the steps above it have not written
+  for (int t = (k - 1) / 32 * 32; t >= pos / 32 * 32; t -= 32) {
+    const int j = t + lane;
+    const bool move = j > pos && j < k;
+    uint32_t v = 0;
+    int32_t i = 0;
+    if (move) {
+      v = cval[j - 1];
+      i = cid[j - 1];
+    }
+    __syncwarp();
+    if (move) {
+      cval[j] = v;
+      cid[j] = i;
+    }
+    __syncwarp();
+  }
+  if (lane == 0) {
+    cval[pos] = key;
+    cid[pos] = id;
+  }
+  __syncwarp();
+}
+
 // ids of a streamed row: `ids[pos]` when given, else base + pos
 struct RowIds {
   const int32_t* ids;

@@ -355,8 +355,9 @@ def _train_codebooks(generator: torch.Generator, subvecs: torch.Tensor,
     lockstep, G_tile at a time and each E-step in row tiles, so that the
     [G_tile, row_tile, book] distance block fits the workspace budget (the
     JAX package maps one group at a time); the random draws are made up
-    front, so the tiles do not change them. The M-step sums with
-    ``index_add_``, whose atomics on the card reorder the sums run to run."""
+    front, so the tiles do not change them. The M-step sums each code's rows
+    in row order (``kmeans_balanced.sum_by_label``), so two runs from the
+    same generator give the same codebooks on the card too."""
     n_groups, n, l = subvecs.shape
     dev = subvecs.device
     g_tile, r_tile = solve_joint_tiles(workspace_limit_bytes, book_size * 8,
@@ -390,10 +391,9 @@ def _train_codebooks(generator: torch.Generator, subvecs: torch.Tensor,
                     "grl,gcl->grc", sv[:, r0:r0 + r_tile], centers)
                 labels[:, r0:r0 + r_tile] = torch.argmin(d, dim=2)
             flat = (labels + flat_base).reshape(-1)
-            sums = torch.zeros((g * book_size, l), dtype=torch.float32,
-                               device=dev).index_add_(0, flat, wx)
-            counts = torch.zeros(g * book_size, dtype=torch.float32,
-                                 device=dev).index_add_(0, flat, w.reshape(-1))
+            sums = kmeans_balanced.sum_by_label(wx, flat, g * book_size)
+            counts = kmeans_balanced.sum_by_label(w.reshape(-1), flat,
+                                                  g * book_size)
             new = (sums / torch.clamp_min(counts, 1.0)[:, None]).reshape(
                 g, book_size, l)
             donor = seeds[rows_g, donor_draws[it, g0:g0 + g]]

@@ -29,6 +29,7 @@ nothing and writes every probed slot; ``ring_shift`` copies bytes.
 from __future__ import annotations
 
 import ctypes
+import dataclasses
 import hashlib
 import os
 import shutil
@@ -44,7 +45,7 @@ from raft_tpu_torch.ops.distance import dot_fp32, einsum_fp32, row_norms_sq
 CSRC = Path(__file__).resolve().parents[1] / "csrc"
 BUILD_DIR = Path(__file__).resolve().parents[2] / "build" / "raft_tpu_torch"
 NVCC_FLAGS = ("-gencode", "arch=compute_90a,code=sm_90a", "-std=c++17", "-O3",
-              "-shared", "-Xcompiler", "-fPIC")
+              "-shared", "-Xcompiler", "-fPIC", "-Xptxas", "-v")
 
 #: kernel name → source file
 SOURCES = {
@@ -69,8 +70,8 @@ _libs: Dict[str, ctypes.CDLL] = {}
 _lib_lock = threading.Lock()
 _VP, _I, _LL = ctypes.c_void_p, ctypes.c_int, ctypes.c_longlong
 _ARGTYPES = {
-    "fused_l2_topk": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I,
-                      _VP, _VP, _VP, _VP, _VP],
+    "fused_l2_topk": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I, _I,
+                      _LL, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "fused_ivf_topk": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
                        _I, _I, _VP, _VP, _VP],
     "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
@@ -79,12 +80,14 @@ _ARGTYPES = {
     "fused_cagra_topk": [_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _I, _VP, _VP, _VP],
     "fused_l2_argmin": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _VP, _VP, _VP],
-    "ivf_scan": [_VP, _VP, _VP, _I, _VP, _LL, _I, _I, _I, _VP, _VP],
+    "ivf_scan": [_VP, _VP, _VP, _I, _VP, _VP, _LL, _I, _I, _I, _I, _VP, _VP],
+    "ivf_scan_group": [_VP, _LL, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "ring_shift_copy": [_VP, _VP, _LL, _I, _VP],
     "ring_shift_enable_peer": [_I, _I],
 }
 #: the C functions of each library (default: the kernel's own name)
 _FUNCTIONS = {"select_k": ["select_k_rows"],
+              "ivf_scan": ["ivf_scan", "ivf_scan_group"],
               "ring_shift": ["ring_shift_copy", "ring_shift_enable_peer"]}
 
 
@@ -118,7 +121,9 @@ def library_path(name: str) -> Path:
 def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     """Build the kernels' libraries that are not built yet, one ``nvcc`` per
     source, all started together. Returns name → library path; raises with
-    the compiler's output if a build fails."""
+    the compiler's output if a build fails. The compiler's output (with
+    ptxas's registers, shared memory and spills of each kernel) is kept
+    beside the library, in ``library_path(name).with_suffix(".log")``."""
     names = list(SOURCES if names is None else names)
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
@@ -137,6 +142,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
         if proc.returncode != 0:
             failures.append(f"{name}: nvcc exited {proc.returncode}\n{out}")
             continue
+        paths[name].with_suffix(".log").write_text(out)
         os.replace(tmp, paths[name])
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
@@ -219,26 +225,122 @@ def _row_chunk(n_cols: int, bytes_per_col: int = 4,
 # ------------------------------------------------------ fused_l2_topk
 
 
-def l2_topk_smem_bytes(tm: int, k: int) -> int:
-    """Dynamic shared memory of one fused_l2_topk block (the formula of
-    ``l2_smem_bytes`` in fused_l2_topk.cu)."""
-    return 32 * (tm + 1) * 4 + 32 * 129 * 4 + 8 + tm * 128 * 8 + tm * k * 8 \
-        + tm * 4
+#: fused_l2_topk's tensor-core route: query rows per consumer warpgroup,
+#: database rows per tile, floats per k-slice, survivor slots per row
+TC_BM, TC_BN, TC_BK, TC_SURV = 64, 128, 32, 16
+#: device memory the tensor-core route may take for its hi/lo planes; a
+#: larger problem is cut into query and database chunks
+L2_TOPK_SCRATCH_BUDGET = 1 << 30
 
 
-def plan_fused_topk(m: int, n: int, k: int, n_sm: int) -> Tuple[int, int]:
-    """(query rows per block, database splits) for ``fused_l2_topk``.
+def l2_topk_tc_smem_bytes(k: int, stages: int, wgs: int = 1) -> int:
+    """Dynamic shared memory of one block of fused_l2_topk's tensor-core
+    route with ``wgs`` consumer warpgroups (``tc_smem_bytes`` in
+    fused_l2_topk.cu): alignment slack, the ring (each stage the hi/lo
+    planes of a 64·wgs × 32 query and a 128 × 32 database slice), its
+    barriers, the carry, the survivor buffers and their counts."""
+    bm = TC_BM * wgs
+    stage = 2 * bm * TC_BK * 4 + 2 * TC_BN * TC_BK * 4
+    return (1024 + stages * stage + stages * 16 + bm * k * 8
+            + bm * TC_SURV * 8 + bm * 4)
 
-    64 query rows per block where the per-row carry leaves room in shared
-    memory (k <= 256), else 16. When the query tiles alone give fewer than
-    four blocks per SM, the database is cut into ranges scanned by separate
-    blocks (at least 8 tiles of 128 rows each) and merged by one more
-    pass."""
-    tm = 64 if l2_topk_smem_bytes(64, k) <= SMEM_LIMIT else 16
-    q_blocks = -(-max(m, 1) // tm)
-    want = -(-4 * n_sm // q_blocks)
-    splits = max(1, min(want, n // (8 * 128)))
-    return tm, splits
+
+def l2_topk_fma_smem_bytes(k: int) -> int:
+    """Dynamic shared memory of one block of the large-k FMA route
+    (``fma_smem_bytes`` in fused_l2_topk.cu): 16 query rows."""
+    return 32 * 17 * 4 + 32 * 129 * 4 + 8 + 16 * 128 * 8 + 16 * k * 8 + 16 * 4
+
+
+#: the largest k of the tensor-core route: its 64-row carry beside a
+#: two-stage ring fills a block's shared memory at 243; above, the FMA route
+TC_MAX_K = max(k for k in range(1, MAX_K + 1)
+               if l2_topk_tc_smem_bytes(k, 2) <= SMEM_LIMIT)
+#: the largest k at which a block holds two consumer warpgroups (81)
+TC_WGS2_MAX_K = max(k for k in range(1, MAX_K + 1)
+                    if l2_topk_tc_smem_bytes(k, 2, 2) <= SMEM_LIMIT)
+
+
+@dataclasses.dataclass(frozen=True)
+class L2TopkPlan:
+    """How ``fused_l2_topk`` runs: ``route`` "tc" (3×TF32 on the tensor
+    cores) or "fma" (large k); ``wgs`` consumer warpgroups of 64 query rows
+    a block; ``d_pad`` the feature width of the hi/lo planes; ``stages`` of
+    the ring; the database cut into ``splits`` ranges of ``split_len`` rows
+    (merged by one more pass when > 1), ``chunk_splits`` ranges per
+    database chunk and ``q_chunk`` query rows per call, so that
+    ``scratch_bytes`` stays within ``L2_TOPK_SCRATCH_BUDGET``; ``smem``
+    bytes a block."""
+
+    route: str
+    wgs: int
+    d_pad: int
+    stages: int
+    split_len: int
+    splits: int
+    chunk_splits: int
+    q_chunk: int
+    smem: int
+    scratch_bytes: int
+
+
+def _wave_splits(q_tiles: int, slots: int, lo: int, hi: int) -> int:
+    """The fewest database ranges in [lo, hi] whose q_tiles·s blocks fill
+    90% of their last wave of ``slots`` resident blocks, else the best
+    fill (the fewest ranges among equals)."""
+    best, best_fill = lo, -1.0
+    for s in range(lo, max(lo, hi) + 1):
+        blocks = q_tiles * s
+        fill = blocks / (-(-blocks // slots) * slots)
+        if fill >= 0.9:
+            return s
+        if fill > best_fill + 1e-12:
+            best, best_fill = s, fill
+    return best
+
+
+def plan_fused_topk(m: int, n: int, d: int, k: int, n_sm: int) -> L2TopkPlan:
+    """The plan of ``fused_l2_topk`` for x [m, d], y [n, d] on ``n_sm`` SMs.
+
+    The tensor-core route for k <= ``TC_MAX_K``: 128 query rows a block
+    (two consumer warpgroups sharing each database slice) where their carry
+    fits beside a two-stage ring (k <= ``TC_WGS2_MAX_K``), else 64; as many
+    ring stages (up to 4) as fit, which leaves room for one block an SM.
+    The database is cut into ranges (each at least 8 tiles) so that the
+    (query tile, range) blocks fill whole waves of the SMs, and into chunks
+    whose hi/lo planes fit the scratch budget; the queries into chunks of
+    at most half of it. Above ``TC_MAX_K`` (or with no rows or no features)
+    the large-k FMA route: 16 query rows a block, the database cut until
+    the query tiles give four blocks an SM."""
+    q_rows = max(m, 1)
+    if k > TC_MAX_K or n < 1 or d < 1:
+        q_blocks = -(-q_rows // 16)
+        splits = max(1, min(-(-4 * n_sm // q_blocks), n // (8 * 128)))
+        split_len = -(-max(-(-n // splits), 1) // 128) * 128
+        return L2TopkPlan("fma", 0, d, 0, split_len,
+                          -(-max(n, 1) // split_len), 1, q_rows,
+                          l2_topk_fma_smem_bytes(k), 0)
+    d_pad = -(-d // TC_BK) * TC_BK
+    wgs = 2 if k <= TC_WGS2_MAX_K else 1
+    bm = TC_BM * wgs
+    stages = max(s for s in (2, 3, 4)
+                 if l2_topk_tc_smem_bytes(k, s, wgs) <= SMEM_LIMIT)
+    row_bytes = 2 * d_pad * 4  # a row's hi and lo planes
+    q_chunk = max(bm, (L2_TOPK_SCRATCH_BUDGET // 2 // row_bytes) // bm * bm)
+    q_chunk = min(q_chunk, q_rows)
+    y_rows = max(TC_BN, (L2_TOPK_SCRATCH_BUDGET - q_chunk * row_bytes)
+                 // row_bytes // TC_BN * TC_BN)
+    q_tiles = -(-q_chunk // bm)
+    s_min = -(-n // y_rows)
+    s_max = max(1, min(64, n // (8 * TC_BN)))
+    s = _wave_splits(q_tiles, n_sm, s_min, s_max)
+    split_len = -(-(-(-n // s)) // TC_BN) * TC_BN
+    splits = -(-n // split_len)
+    chunk_splits = min(splits, max(1, y_rows // split_len))
+    chunk_rows = min(split_len * chunk_splits, n)
+    return L2TopkPlan("tc", wgs, d_pad, stages, split_len, splits,
+                      chunk_splits, q_chunk,
+                      l2_topk_tc_smem_bytes(k, stages, wgs),
+                      (2 * q_chunk + 2 * chunk_rows) * d_pad * 4)
 
 
 def fused_l2_topk_plain(x, y, k: int, x_norms=None, y_norms=None):
@@ -286,20 +388,33 @@ def fused_l2_topk(x, y, k: int, x_norms=None, y_norms=None):
     if m == 0:
         return out_v, out_i
     n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
-    tm, splits = plan_fused_topk(m, n, k, n_sm)
-    part_v = part_i = out_v
-    if splits > 1:
-        part_v = torch.empty((m, splits, k), dtype=torch.float32, device=dev)
-        part_i = torch.empty((m, splits, k), dtype=torch.int32, device=dev)
+    plan = plan_fused_topk(m, n, d, k, n_sm)
+    scratch = (torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                           device=dev) if plan.scratch_bytes else None)
     lib = _lib("fused_l2_topk")
-    with torch.cuda.device(dev):
-        rc = lib.fused_l2_topk(
-            x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, d,
-            k, tm, splits, part_v.data_ptr(), part_i.data_ptr(),
-            out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
-    _check_rc("fused_l2_topk", rc)
-    LAUNCHES["fused_l2_topk"] += 1
+    for r0 in range(0, m, plan.q_chunk):
+        r1 = min(r0 + plan.q_chunk, m)
+        part_v = part_i = None
+        if plan.splits > 1:
+            part_v = torch.empty((r1 - r0, plan.splits, k),
+                                 dtype=torch.float32, device=dev)
+            part_i = torch.empty((r1 - r0, plan.splits, k),
+                                 dtype=torch.int32, device=dev)
+        with torch.cuda.device(dev):
+            rc = lib.fused_l2_topk(
+                x[r0:r1].data_ptr(), y.data_ptr(), xn[r0:r1].data_ptr(),
+                yn.data_ptr(), r1 - r0, n, d, k, int(plan.route == "fma"),
+                plan.wgs, plan.d_pad, plan.stages, plan.split_len, plan.splits,
+                plan.chunk_splits, _ptr(scratch), _ptr(part_v), _ptr(part_i),
+                out_v[r0:r1].data_ptr(), out_i[r0:r1].data_ptr(),
+                _stream(dev))
+        _check_rc("fused_l2_topk", rc)
+        LAUNCHES["fused_l2_topk"] += 1
     return out_v, out_i
+
+
+def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
+    return None if t is None else t.data_ptr()
 
 
 # ------------------------------------------------------ fused_ivf_topk
@@ -917,6 +1032,60 @@ def ivf_scan_plain(probes, qres, list_data, row_norms):
     return torch.cat(out)
 
 
+#: ivf_scan's work item: up to this many of one list's (query, probe) pairs
+#: (kG in ivf_scan.cu)
+IVF_SCAN_GROUP = 32
+IVF_SCAN_SLOTS = 64  # slots of a chunk (kS)
+IVF_SCAN_CHUNKS_PER_BLOCK = 8  # chunks a block scans with one group
+
+
+def ivf_scan_groups(probes: torch.Tensor, n_lists: int):
+    """The grouping of ``ivf_scan``'s (query, probe) pairs, on the probes'
+    device and without a read back to the host: ``(order, list_start,
+    list_count, group_end)``, all int32. ``order`` [nq·P] is the pairs
+    (row-major) sorted by list, stable, so that a list's pairs stay in
+    (query, probe) order; a probe outside [0, n_lists) counts as list
+    n_lists. For each of the n_lists + 1 lists: the start and count of its
+    pairs in ``order``, and ``group_end`` the running count of its groups
+    of ``IVF_SCAN_GROUP`` pairs. The groups number at most
+    ⌈nq·P / IVF_SCAN_GROUP⌉ + n_lists + 1 (``ivf_scan_grid``). On the card
+    it is ivf_scan.cu's one-block grouping pass, which ``ivf_scan`` runs
+    before its scan; on the CPU a stable sort, its plain version."""
+    if probes.device.type == "cuda":
+        _check("probes", probes, torch.int32, 2, probes.device)
+        n_pairs = probes.numel()
+        buf = torch.empty(n_pairs + 4 * (n_lists + 1), dtype=torch.int32,
+                          device=probes.device)
+        parts = torch.split(buf, [n_pairs] + [n_lists + 1] * 4)
+        with torch.cuda.device(probes.device):
+            rc = _lib("ivf_scan").ivf_scan_group(
+                probes.data_ptr(), n_pairs, n_lists,
+                *(t.data_ptr() for t in parts), _stream(probes.device))
+        _check_rc("ivf_scan", rc)
+        return parts[:4]
+    key = probes.reshape(-1)
+    key = torch.where((key >= 0) & (key < n_lists), key, n_lists)
+    sorted_key, order = torch.sort(key, stable=True)
+    # each list's first position among the sorted keys (no count is read
+    # back to the host, as torch.bincount would)
+    bounds = torch.searchsorted(
+        sorted_key, torch.arange(n_lists + 2, dtype=key.dtype,
+                                 device=key.device)).to(torch.int32)
+    start, count = bounds[:-1], bounds[1:] - bounds[:-1]
+    group_end = torch.cumsum(-(-count // IVF_SCAN_GROUP), 0,
+                             dtype=torch.int32)
+    return order.to(torch.int32), start, count, group_end
+
+
+def ivf_scan_grid(n_pairs: int, n_lists: int, pad: int) -> Tuple[int, int]:
+    """ivf_scan's grid: the host's bound on the groups (blocks past the last
+    group exit at once) × the runs of ``IVF_SCAN_CHUNKS_PER_BLOCK`` slot
+    chunks."""
+    chunks = -(-pad // IVF_SCAN_SLOTS)
+    return (-(-n_pairs // IVF_SCAN_GROUP) + n_lists + 1,
+            -(-chunks // IVF_SCAN_CHUNKS_PER_BLOCK))
+
+
 def ivf_scan(probes, qres, list_data, row_norms):
     """Partial distances of every probed slot, the scan of the IVF requests
     the fused kernels decline: ``out [nq, P, pad] f32`` with
@@ -925,7 +1094,10 @@ def ivf_scan(probes, qres, list_data, row_norms):
     int32; qres [nq, P, rot] f32 (the query replicated per probe, or its
     residual); list_data [n_lists, pad, rot] f32 or bf16 (fp32
     accumulation); row_norms [n_lists, pad] f32. Every slot is written; the
-    caller adds the query's norm and masks unfilled slots."""
+    caller adds the query's norm and masks unfilled slots. On the card the
+    pairs are grouped by list first (``ivf_scan_groups``, into int32
+    scratch of nq·P + 4·(n_lists + 1)), so that each probed slab is read
+    once per group of the queries that probe it."""
     tensors = (probes, qres, list_data, row_norms)
     if _on_cpu(*tensors):
         return ivf_scan_plain(*tensors)
@@ -941,21 +1113,26 @@ def ivf_scan(probes, qres, list_data, row_norms):
     if (tuple(qres.shape) != (nq, n_probes, rot)
             or tuple(row_norms.shape) != (n_lists, pad)):
         raise ValueError("ivf_scan: shapes disagree")
-    if rot < 1 or rot * 4 > SMEM_LIMIT:
-        raise ValueError(f"ivf_scan: rot={rot} outside [1, {SMEM_LIMIT // 4}]")
+    if rot < 1:
+        raise ValueError(f"ivf_scan: rot={rot} < 1")
     out = torch.empty((nq, n_probes, pad), dtype=torch.float32, device=dev)
     n_pairs = nq * n_probes
     if n_pairs == 0 or pad == 0:
         return out
-    if n_pairs > 2**31 - 1:
-        raise ValueError(f"ivf_scan: {n_pairs} (query, probe) pairs exceed "
-                         "one launch's grid")
+    blocks, chunks = ivf_scan_grid(n_pairs, n_lists, pad)
+    if n_pairs > 2**31 - 1 or blocks > 2**31 - 1 or chunks > 65535:
+        raise ValueError(f"ivf_scan: {n_pairs} (query, probe) pairs over "
+                         f"{n_lists} lists of {pad} slots exceed one "
+                         "launch's grid")
+    groups = torch.empty(n_pairs + 4 * (n_lists + 1), dtype=torch.int32,
+                         device=dev)
     lib = _lib("ivf_scan")
     with torch.cuda.device(dev):
         rc = lib.ivf_scan(
             probes.data_ptr(), qres.data_ptr(), list_data.data_ptr(),
             int(list_data.dtype == torch.bfloat16), row_norms.data_ptr(),
-            n_pairs, n_lists, pad, rot, out.data_ptr(), _stream(dev))
+            groups.data_ptr(), n_pairs, n_lists, pad, rot,
+            IVF_SCAN_CHUNKS_PER_BLOCK, out.data_ptr(), _stream(dev))
     _check_rc("ivf_scan", rc)
     LAUNCHES["ivf_scan"] += 1
     return out

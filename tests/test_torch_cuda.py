@@ -18,11 +18,16 @@ fused_l2_argmin: values rtol 1e-5 and atol 1e-4·max‖x‖², ids equal where
 the nearest distinct y vector beats the next by more than twice that (in
 float64), and equal everywhere for exact copies of a row (whose distances
 the kernel computes bitwise alike), including copies in different ranges
-of a split y. ivf_scan: rtol 1e-5 and atol 1e-4·max‖row‖². k-means on the
-card against the CPU: one update from the same centres, and a whole fit
-from centres that leave every row far from a tie: labels and n_iter
-equal, centres and inertia rtol 1e-5 (index_add_ atomics sum in another
-order). ring_shift: bitwise against its plain version and its input, on
+of a split y. fused_l2_topk's precision: the largest error of the
+returned distances against float64 at the returned ids is at most 4x the
+plain version's plus 1e-7·max‖x‖² (one TF32 pass fails this; the 3xTF32
+split meets it). ivf_scan: rtol 1e-5 and atol 1e-4·max‖row‖², its
+grouping pass equal to the CPU's stable sort. Both kernels, and two
+IVF-Flat and IVF-PQ builds from one seed, bitwise equal run to run.
+k-means on the card against the CPU: one update from the same centres,
+and a whole fit from centres that leave every row far from a tie: labels
+and n_iter equal, centres and inertia rtol 1e-5 (the card and the CPU sum
+in another order). ring_shift: bitwise against its plain version and its input, on
 random bytes of every dtype. The sharded searches on the card: the three
 merge engines bitwise equal, and against the CPU as the searches above.
 Sharded k-means on the card against the CPU from the same initial rows:
@@ -79,6 +84,61 @@ def test_fused_l2_topk_kernel_ties_resolve_by_row_id(dev):
                                                                device=dev)
     assert torch.equal(got[1], want.to(torch.int32))
 
+
+
+def _bitwise_equal(a, b) -> bool:
+    return all(torch.equal(u.view(torch.int32) if u.is_floating_point() else u,
+                           v.view(torch.int32) if v.is_floating_point() else v)
+               for u, v in zip(a, b))
+
+
+# m not a multiple of the 128- or 64-row query tile, n not a multiple of the
+# 128-row database tile, several database ranges, the change from two
+# consumer warpgroups to one (k 81 / 82), and the route change at
+# gk.TC_MAX_K (243: tensor cores; 244: the FMA route)
+@pytest.mark.parametrize("m,n,d,k,wgs", [
+    (70, 1000, 40, 10, 2), (1, 4099, 33, 7, 2), (200, 70000, 24, 10, 2),
+    (65, 129, 8, 3, 2), (130, 1000, 40, 81, 2), (130, 1000, 40, 82, 1),
+    (70, 1000, 40, 243, 1), (70, 1000, 40, 244, 0)])
+def test_fused_l2_topk_kernel_more_shapes_and_repeatable(dev, m, n, d, k, wgs):
+    x, y = _randn(dev, m, d, seed=40), _randn(dev, n, d, seed=41)
+    plan = gk.plan_fused_topk(m, n, d, k, torch.cuda.get_device_properties(
+        dev).multi_processor_count)
+    assert plan.route == ("tc" if k <= gk.TC_MAX_K else "fma")
+    assert plan.wgs == wgs
+    got = gk.fused_l2_topk(x, y, k)
+    again = gk.fused_l2_topk(x, y, k)
+    torch.cuda.synchronize()
+    assert _bitwise_equal(got, again)
+    assert_topk_close(got, gk.fused_l2_topk_plain(x, y, k),
+                      1e-4 * float((y * y).sum(1).max()), 1e-5)
+    if n >= k:
+        assert bool((got[1] >= 0).all())
+
+
+def _f64_err(x, y, vals, ids):
+    """The largest |returned distance − float64 distance at the returned id|."""
+    yy = y.double()[ids.long()]  # [m, k, d]
+    ref = ((x.double()[:, None, :] - yy) ** 2).sum(-1)
+    return float((vals.double() - ref).abs().max())
+
+
+@pytest.mark.parametrize("k", [10, 82, 243, 244])
+def test_fused_l2_topk_kernel_is_fp32_accurate(dev, k):
+    # rows far from the origin and close to each other: the norms are about
+    # 50x the distances, so the product's error shows. One TF32 pass
+    # (about 2^-11 of the norms) fails this bound; 3xTF32 meets it.
+    g = torch.Generator(device=dev).manual_seed(42)
+    base = 10.0 + torch.randn(1, 128, generator=g, device=dev)
+    y = base + torch.randn(6000, 128, generator=g, device=dev)
+    x = base + torch.randn(300, 128, generator=g, device=dev)
+    got = gk.fused_l2_topk(x, y, k)
+    want = gk.fused_l2_topk_plain(x, y, k)
+    torch.cuda.synchronize()
+    scale = float((x * x).sum(1).max())
+    err, plain_err = _f64_err(x, y, *got), _f64_err(x, y, *want)
+    assert err <= 4 * plain_err + 1e-7 * scale, (err, plain_err, scale)
+    assert_topk_close(got, want, 1e-4 * scale, 1e-5)
 
 @pytest.mark.parametrize("L,pad,rot,nq,P,dtype,clamp,k", [
     (50, 600, 128, 64, 8, torch.float32, True, 10),
@@ -451,6 +511,49 @@ def test_ivf_scan_kernel_probe_out_of_range(dev):
                                rtol=1e-5, atol=1e-4 * float(norms.max()))
 
 
+
+def _scan_case(dev, case, dtype, rot, L=7, pad=301, nq=40, P=5):
+    g = torch.Generator(device=dev).manual_seed(50)
+    if case == "one_list":      # every query probes list 3
+        probes = torch.full((nq, P), 3, dtype=torch.int32, device=dev)
+    elif case == "repeats":     # lists repeated within a query
+        probes = torch.randint(0, 2, (nq, P), generator=g, device=dev,
+                               dtype=torch.int32)
+    else:                        # out-of-range probes among valid ones
+        probes = torch.randint(-2, L + 2, (nq, P), generator=g, device=dev,
+                               dtype=torch.int32)
+    data = _randn(dev, L, pad, rot, seed=51).to(dtype)
+    norms = (data.float() ** 2).sum(-1)
+    return probes, _randn(dev, nq, P, rot, seed=52), data, norms
+
+
+@pytest.mark.parametrize("case", ["one_list", "repeats", "out_of_range"])
+@pytest.mark.parametrize("dtype,rot", [(torch.float32, 128),
+                                       (torch.bfloat16, 100),
+                                       (torch.bfloat16, 1),
+                                       (torch.float32, 300)])
+def test_ivf_scan_kernel_skewed_probes_and_repeatable(dev, case, dtype, rot):
+    args = _scan_case(dev, case, dtype, rot)
+    got = gk.ivf_scan(*args)
+    again = gk.ivf_scan(*args)
+    torch.cuda.synchronize()
+    assert torch.equal(got.view(torch.int32), again.view(torch.int32))
+    want = gk.ivf_scan_plain(*args)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    torch.testing.assert_close(got, want, rtol=1e-5,
+                               atol=1e-4 * float(args[3].max()))
+
+
+@pytest.mark.parametrize("case", ["one_list", "repeats", "out_of_range"])
+def test_ivf_scan_grouping_on_the_card_is_the_stable_sort(dev, case):
+    # more pairs than the grouping pass places at once (1024)
+    probes = _scan_case(dev, case, torch.float32, 4, nq=700, P=9)[0]
+    got = gk.ivf_scan_groups(probes, 7)
+    want = gk.ivf_scan_groups(probes.cpu(), 7)
+    torch.cuda.synchronize()
+    for g, w in zip(got, want):
+        assert torch.equal(g.cpu(), w)
+
 def test_ivf_scan_checks_its_inputs(dev):
     data = _randn(dev, 3, 8, 16)
     norms = (data ** 2).sum(-1)
@@ -760,3 +863,34 @@ def test_sharded_kmeans_on_the_card_matches_the_cpu(dev, balance,
     assert torch.equal(got[0], again[0]) and torch.equal(got[1], again[1])
     assert torch.equal(got[1].cpu(), want[1])
     torch.testing.assert_close(got[0].cpu(), want[0], rtol=1e-5, atol=1e-5)
+
+
+# ------------------------------------- reproducible IVF builds on the card
+
+
+def test_ivf_flat_builds_on_the_card_are_bitwise_equal(dev):
+    db = _randn(dev, 20000, 32, seed=60)
+    builds = [ivf_flat.build(db, ivf_flat.IndexParams(n_lists=64),
+                             res=Resources(device=dev, seed=7))
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    a, b = builds
+    for name in ("centers", "list_data", "list_indices", "list_sizes",
+                 "overflow_data", "overflow_indices"):
+        u, v = getattr(a, name), getattr(b, name)
+        assert u.shape == v.shape and torch.equal(u, v), name
+
+
+def test_ivf_pq_builds_on_the_card_are_bitwise_equal(dev):
+    db = _randn(dev, 20000, 32, seed=61)
+    params = ivf_pq.IndexParams(n_lists=64, pq_dim=16, pq_bits=8,
+                                kmeans_n_iters=10)
+    builds = [ivf_pq.build(db, params, res=Resources(device=dev, seed=8))
+              for _ in range(2)]
+    torch.cuda.synchronize()
+    a, b = builds
+    for name in ("centers", "rotation", "codebooks", "list_codes",
+                 "list_indices", "list_sizes", "overflow_codes",
+                 "overflow_indices"):
+        u, v = getattr(a, name), getattr(b, name)
+        assert u.shape == v.shape and torch.equal(u, v), name

@@ -80,10 +80,11 @@ def test_fused_kernels_reject_k_out_of_range(k):
 @pytest.mark.parametrize("m,n,k", [(10000, 1_000_000, 10), (1000, 1_000_000, 10),
                                    (64, 5000, 1024), (3, 100, 300)])
 def test_plan_fused_topk_fits_shared_memory(m, n, k):
-    tm, splits = gk.plan_fused_topk(m, n, k, 132)
-    assert tm in (16, 64)
-    assert gk.l2_topk_smem_bytes(tm, k) <= gk.SMEM_LIMIT
-    assert 1 <= splits and (splits == 1 or n // splits >= 8 * 128)
+    plan = gk.plan_fused_topk(m, n, 128, k, 132)
+    assert plan.route == ("tc" if k <= gk.TC_MAX_K else "fma")
+    assert plan.smem <= gk.SMEM_LIMIT
+    assert 1 <= plan.splits and (plan.splits == 1
+                                 or plan.split_len >= 8 * 128)
 
 
 def test_gpu_wrappers_never_take_the_plain_version_off_the_cpu():
