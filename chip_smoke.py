@@ -10,7 +10,8 @@ seed, 10,000 queries, k=10, L2) it
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (timed), and
    prints ptxas's registers, spills and static shared memory of the
-   kernels of ``fused_l2_topk`` and ``ivf_scan``;
+   kernels of ``fused_l2_topk``, ``fused_ivf_topk``, ``fused_l2_argmin``
+   and ``ivf_scan``;
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
@@ -64,12 +65,15 @@ seed, 10,000 queries, k=10, L2) it
 6. holds each kernel against its plain PyTorch version on the card, at the
    shapes the main path gave it, and times kernel, plain version and, where
    one PyTorch call computes the same function, that call
-   (``fused_l2_topk`` also over one 250,000-row shard of phase 5e, with its
-   fp32 bound and the 3xTF32 tensor-core bound; ``ivf_scan`` also bitwise
-   equal over two runs). With ``--parent TREE`` (a source tree, such as the
-   parent commit unpacked under ``build/``) it saves the inputs of those
-   ``fused_l2_topk`` and ``ivf_scan`` calls and times that tree's kernels
-   and this tree's on them in turns (parent, this, this, parent, one
+   (``fused_l2_topk`` also over one 250,000-row shard of phase 5e;
+   ``fused_l2_topk`` and ``fused_l2_argmin`` with their fp32 bound and the
+   3xTF32 tensor-core bound; ``fused_ivf_topk`` and ``ivf_scan`` also
+   bitwise equal over two runs; the rows of the planned kernels carry the
+   route and plan that ran). With ``--parent TREE`` (a source tree, such as
+   the parent commit unpacked under ``build/``) it saves the inputs of the
+   ``fused_l2_topk``, ``fused_ivf_topk``, ``fused_l2_argmin`` and
+   ``ivf_scan`` calls and times that tree's kernels and this tree's on them
+   in turns (parent, this, this, parent, one
    ``raft_tpu_torch/bench/kernel_ab.py`` process each): the rows get
    ``parent_ms`` and ``ab_ms``, null without the option;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
@@ -84,6 +88,7 @@ without the package beside it, it exits non-zero and prints no result.
 from __future__ import annotations
 
 import argparse
+import dataclasses
 import json
 import os
 import re
@@ -237,8 +242,9 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", default=None,
                         help="a source tree (the parent commit, unpacked) "
-                        "whose fused_l2_topk and ivf_scan are timed on the "
-                        "same inputs, in turns with this tree's")
+                        "whose fused_l2_topk, fused_ivf_topk, fused_l2_argmin "
+                        "and ivf_scan are timed on the same inputs, in turns "
+                        "with this tree's")
     opts = parser.parse_args()
 
     import torch
@@ -285,7 +291,8 @@ def main() -> int:
     emit({"phase": "build", "seconds": build_kernels_s,
           "libraries": {k: str(v.name) for k, v in paths.items()}})
     emit({"phase": "ptxas", **{name: ptxas_figures(paths[name])
-                               for name in ("fused_l2_topk", "ivf_scan")}})
+                               for name in ("fused_l2_topk", "fused_ivf_topk",
+                                            "fused_l2_argmin", "ivf_scan")}})
 
     # data at SIFT-1M's shape, from the seed (set-up, not timed)
     rng = np.random.default_rng(opts.seed)
@@ -920,9 +927,12 @@ def main() -> int:
                     bound_3xtf32_ms=1e3 * max(tc, n_bytes / PEAK_BYTES_PER_S),
                     bound_3xtf32_by=("operations (3xTF32)"
                                      if tc > n_bytes / PEAK_BYTES_PER_S
-                                     else "bytes"))
+                                     else "bytes"),
+                    plan=dataclasses.asdict(gk.plan_fused_topk(
+                        m, n, DIM, K, n_sm)))
 
     kernels, ab_cases = [], {}
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     x = queries
     xn, yn = row_norms_sq(x), bf.norms
     scale = float(torch.maximum(xn.max(), yn.max()))
@@ -940,6 +950,53 @@ def main() -> int:
           gk.fused_l2_topk_plain, args, 1e-4 * scale, 1e-5, 5)
     ab_cases["fused_l2_topk_shard"] = ("fused_l2_topk", args, 5)
 
+    ivf_model = {}
+
+    def check_ivf(label, shape, args, sizes, atol, launches):
+        """fused_ivf_topk against its plain version (values within atol +
+        1e-5·|v|, ids equal away from near-ties), bitwise equal over two
+        runs, with the plan that ran. The bound counts the probes, queries
+        and norms once, each probed slab with its norms and ids once, the
+        result once, and 2·rot operations a filled slot scanned. The design's
+        slab traffic goes to the read model: each group of 32 pairs reads
+        its list's filled chunks (rows, norms, ids) and the run's ids,
+        each pair its query once, and the partials are written and read
+        once, against every probed row once per (query, probe) for the
+        per-query design."""
+        pr, qr, qn_, data_, norms_, ids_, k_ = args[:7]
+        got = gk.fused_ivf_topk(*args)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, gk.fused_ivf_topk(*args))):
+            raise AssertionError(f"fused_ivf_topk ({label}): two runs differ")
+        nq_, n_pr = pr.shape
+        n_lists_, pad_, rot_ = data_.shape
+        elem = data_.element_size()
+        plan = gk.plan_fused_ivf(nq_, n_pr, n_lists_, pad_, rot_, k_, elem,
+                                 n_sm)
+        rows_scanned = int(sizes[pr.long()].sum())
+        n_probed = torch.unique(pr.long()).numel()
+        per_list = torch.bincount(pr.long().flatten(), minlength=n_lists_)
+        row_bytes = rot_ * elem + 4 + 4
+        filled = -(-sizes.long() // gk.IVF_SCAN_SLOTS) * gk.IVF_SCAN_SLOTS
+        groups = -(-per_list // gk.IVF_SCAN_GROUP)
+        ivf_model[label] = {
+            "grouped_bytes": int((groups * (filled * row_bytes + pad_ * 4))
+                                 .sum()) + nq_ * n_pr * rot_ * 4
+            + 2 * nq_ * n_pr * plan.runs * k_ * 8,
+            "per_query_bytes": rows_scanned * rot_ * elem,
+            "groups": int(groups.sum())}
+        ab_cases[f"fused_ivf_topk_{label}"] = ("fused_ivf_topk", args, 5)
+        check(dict(name="fused_ivf_topk", route="cuda",
+                   source="raft_tpu_torch/csrc/fused_ivf_topk.cu",
+                   replaces="raft_tpu/ops/pallas_kernels.py:798",
+                   shape=shape, launches=launches, library_ms=None,
+                   rows_scanned=rows_scanned, bitwise_repeatable=True,
+                   kernel_route=plan.route, plan=dataclasses.asdict(plan),
+                   **bound(4 * (pr.numel() + qr.numel() + qn_.numel())
+                           + n_probed * pad_ * row_bytes + 8 * nq_ * k_,
+                           2 * rot_ * rows_scanned)),
+              gk.fused_ivf_topk, gk.fused_ivf_topk_plain, args, atol, 1e-5, 5)
+
     # the IVF kernel's inputs, as the fused IVF-Flat search builds them
     qf = queries.to(torch.float32)
     scores, _ = ivf_flat._coarse_scores(qf, index.centers, index.metric)
@@ -948,21 +1005,12 @@ def main() -> int:
     qv = qf[:, None, :].expand(N_QUERIES, n_probes, DIM).contiguous()
     qn = row_norms_sq(qf)[:, None].expand(N_QUERIES, n_probes).contiguous()
     pad = index.list_data.shape[1]
-    rows_scanned = int(index.list_sizes.long()[probes.long()].sum())
-    n_probed = torch.unique(probes.long()).numel()
-    check(dict(name="fused_ivf_topk", route="cuda",
-               source="raft_tpu_torch/csrc/fused_ivf_topk.cu",
-               replaces="raft_tpu/ops/pallas_kernels.py:798",
-               shape=f"ivf_flat: {N_QUERIES} queries x {n_probes} probes, "
-                     f"pad {pad}, rot {DIM}, f32, clamp",
-               launches=ivf_launches["fused_ivf_topk"], library_ms=None,
-               rows_scanned=rows_scanned,
-               **bound(4 * (probes.numel() + qv.numel() + qn.numel())
-                       + n_probed * pad * (DIM * 4 + 4 + 4)
-                       + 8 * N_QUERIES * K, 2 * DIM * rows_scanned)),
-          gk.fused_ivf_topk, gk.fused_ivf_topk_plain,
-          (probes, qv, qn, index.list_data, index.ensure_row_norms(),
-           index.safe_ids(), K), 1e-4 * scale, 1e-5, 5)
+    check_ivf("ivf_flat", f"ivf_flat: {N_QUERIES} queries x {n_probes} "
+              f"probes, pad {pad}, rot {DIM}, f32, clamp",
+              (probes, qv, qn, index.list_data, index.ensure_row_norms(),
+               index.safe_ids(), K), index.list_sizes, 1e-4 * scale,
+              ivf_launches["fused_ivf_topk"])
+    del qv, qn
 
     # the IVF-PQ cache regime's kernel inputs, as _search_fused_cache_core
     # builds them
@@ -974,20 +1022,11 @@ def main() -> int:
     qr_n = (qr_res * qr_res).sum(-1).contiguous()
     args = (pq_pr, qr_res, qr_n, pq_cache[0], pq_cache[1],
             pq_index.safe_ids(), K, False)
-    rows_scanned = int(pq_sizes[pq_pr.long()].sum())
-    n_probed = torch.unique(pq_pr.long()).numel()
-    check(dict(name="fused_ivf_topk", route="cuda",
-               source="raft_tpu_torch/csrc/fused_ivf_topk.cu",
-               replaces="raft_tpu/ops/pallas_kernels.py:798",
-               shape=f"ivf_pq cache: {N_QUERIES} queries x {pq_probes} probes,"
-                     f" pad {pq_pad}, rot {rot}, bf16, no clamp",
-               launches=pq_cache_launches["fused_ivf_topk"], library_ms=None,
-               rows_scanned=rows_scanned,
-               **bound(4 * (pq_pr.numel() + qr_res.numel() + qr_n.numel())
-                       + n_probed * pq_pad * (rot * 2 + 4 + 4)
-                       + 8 * N_QUERIES * K, 2 * rot * rows_scanned)),
-          gk.fused_ivf_topk, gk.fused_ivf_topk_plain, args,
-          1e-4 * adc_scale(gk.fused_ivf_topk_plain, args), 1e-5, 5)
+    check_ivf("ivf_pq_cache", f"ivf_pq cache: {N_QUERIES} queries x "
+              f"{pq_probes} probes, pad {pq_pad}, rot {rot}, bf16, no clamp",
+              args, pq_index.list_sizes,
+              1e-4 * adc_scale(gk.fused_ivf_topk_plain, args),
+              pq_cache_launches["fused_ivf_topk"])
     del pq_cache, args, qr_res
 
     # the LUT regime's kernel inputs, as _search_fused_lut_core builds them
@@ -1061,6 +1100,11 @@ def main() -> int:
     c_n = row_norms_sq(km_centers)
     args = (dataset, km_centers, x_n, c_n, True)
     got_v, got_i = gk.fused_l2_argmin(*args)
+    again = gk.fused_l2_argmin(*args)
+    if not (torch.equal(got_v.view(torch.int32), again[0].view(torch.int32))
+            and torch.equal(got_i, again[1])):
+        raise AssertionError("fused_l2_argmin: two runs differ")
+    del again
     want_v, want_i = gk.fused_l2_argmin_plain(*args)
     top2_v, _ = gk.fused_l2_topk(dataset, km_centers, 2, x_n, c_n)
     clear = (top2_v[:, 1] - top2_v[:, 0]) > 2 * km_tol
@@ -1073,18 +1117,26 @@ def main() -> int:
                              "version")
     torch.cuda.synchronize()
     m, n = N_ROWS, KM_CLUSTERS
+    n_bytes = 4 * (m * DIM + n * DIM + m + n) + 8 * m
+    tc = 3 * 2 * m * n * DIM / PEAK_TF32_FLOPS
+    plan = gk.plan_fused_argmin(m, n, DIM)
+    ab_cases["fused_l2_argmin"] = ("fused_l2_argmin", args, 5)
     entry = dict(
         name="fused_l2_argmin", route="cuda",
         source="raft_tpu_torch/csrc/fused_l2_argmin.cu",
         replaces="raft_tpu/ops/pallas_kernels.py:88",
         shape=f"k-means E-step: {m} x {n} x {DIM}, clamp",
         launches=km_launches["fused_l2_argmin"], library_ms=None,
-        agrees_with_plain=True, max_abs_err=err,
+        agrees_with_plain=True, max_abs_err=err, bitwise_repeatable=True,
         id_agreement=float((got_i == want_i).float().mean()),
         ids_clear_of_ties=int(clear.sum()),
+        kernel_route=plan.route, plan=dataclasses.asdict(plan),
         ms=cuda_ms(lambda: gk.fused_l2_argmin(*args), 5),
         plain_ms=cuda_ms(lambda: gk.fused_l2_argmin_plain(*args), 1, False),
-        **bound(4 * (m * DIM + n * DIM + m + n) + 8 * m, 2 * m * n * DIM))
+        **bound(n_bytes, 2 * m * n * DIM),
+        bound_3xtf32_ms=1e3 * max(tc, n_bytes / PEAK_BYTES_PER_S),
+        bound_3xtf32_by=("operations (3xTF32)"
+                         if tc > n_bytes / PEAK_BYTES_PER_S else "bytes"))
     kernels.append(entry)
     emit({"phase": "kernel_check", **entry})
     del got_v, got_i, want_v, want_i, top2_v, clear, x_n, args
@@ -1223,14 +1275,14 @@ def main() -> int:
     del got, want, copies
 
     # a model, not a measurement: the bytes the one-block-per-query designs
-    # would read if nothing were reused between blocks (every probed row
-    # once per query; the LUT kernel's codebooks and their norms once per
-    # (query, probe); the beam walk's rows once per visit and its graph rows
-    # once per hop); nothing in the run measures it
+    # would read if nothing were reused between blocks (the LUT kernel's
+    # codebooks and their norms once per (query, probe); the beam walk's
+    # rows once per visit and its graph rows once per hop), and the grouped
+    # kernels' slab traffic (check_ivf, check_scan); nothing in the run
+    # measures it
     rows = [k["rows_scanned"] for k in kernels if "rows_scanned" in k]
     emit({"phase": "read_model", "measured": False,
-          "fused_ivf_topk_ivf_flat_bytes": rows[0] * DIM * 4,
-          "fused_ivf_topk_ivf_pq_cache_bytes": rows[1] * rot * 2,
+          "fused_ivf_topk": ivf_model,
           "fused_pq_topk_code_and_id_bytes": rows[2] * PQ_DIM
           + n_luts * pq_pad * 4,
           "fused_pq_topk_codebook_bytes": n_luts * PQ_DIM * 256
@@ -1239,8 +1291,9 @@ def main() -> int:
           + cg_hops * CAGRA_DEGREE * 4,
           "ivf_scan": scan_model})
 
-    # the parent tree's fused_l2_topk and ivf_scan on the same inputs, in
-    # turns with this tree's (parent, this, this, parent), one process each
+    # the parent tree's fused_l2_topk, fused_ivf_topk, fused_l2_argmin and
+    # ivf_scan on the same inputs, in turns with this tree's (parent, this,
+    # this, parent), one process each
     if opts.parent:
         ab_path = gk.BUILD_DIR / "ab_inputs.pt"
         ab_path.parent.mkdir(parents=True, exist_ok=True)
@@ -1253,6 +1306,9 @@ def main() -> int:
               "order": ["parent", "this", "this", "parent"],
               "runs": [r["ms"] for r in runs]})
     names = {"fused_l2_topk": iter(("fused_l2_topk", "fused_l2_topk_shard")),
+             "fused_ivf_topk": iter(("fused_ivf_topk_ivf_flat",
+                                     "fused_ivf_topk_ivf_pq_cache")),
+             "fused_l2_argmin": iter(("fused_l2_argmin",)),
              "ivf_scan": iter(("ivf_scan_ivf_flat_filtered",
                                "ivf_scan_ivf_flat_inner_product",
                                "ivf_scan_ivf_pq_filtered"))}

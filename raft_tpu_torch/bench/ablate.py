@@ -1,24 +1,32 @@
-"""Where the time of ``fused_l2_topk`` and ``ivf_scan`` goes: other plans,
-and parts taken out.
+"""Where the time of the redesigned kernels goes: other plans, and parts
+taken out.
 
     python3 -m raft_tpu_torch.bench.ablate [--seed N]
 
 On the card, at ``fused_l2_topk``'s main shape (SIFT-1M's from the seed:
-1,000,000 × 128 rows, 10,000 queries, k=10) and on an ``ivf_scan`` tile of
+1,000,000 × 128 rows, 10,000 queries, k=10), on an ``ivf_scan`` tile of
 440 queries × 32 random probes over 1024 lists of 1456 slots (rot 128,
-f32), it times, as mean milliseconds a call:
+f32), ``fused_ivf_topk`` on 10,000 queries × 32 random probes of the same
+lists (each list filled to a random size in [500, 1456), k=10) and
+``fused_l2_argmin`` at the k-means E-step's shape (the 1M rows against
+1024 of them, clamped), it times, as mean milliseconds a call:
 
-- each kernel as it is, and ``ivf_scan``'s grouping pass alone;
+- each kernel as it is, ``fused_ivf_topk`` also at k = 1, 16, 17 and 32
+  (carries in registers up to 16, in shared memory above), and the
+  grouping pass alone at both kernels' sizes;
 - ``fused_l2_topk`` under other plans than the planner's (database
-  ranges, ring stages, consumer warpgroups), each result held bitwise to
-  the planner's;
-- copies of the two sources with one part taken out (built into
+  ranges, ring stages, consumer warpgroups), ``fused_ivf_topk`` with
+  other runs, ``fused_l2_argmin`` with other ring stages, each
+  result held bitwise to the planner's;
+- copies of the sources with one part taken out (built into
   ``build/raft_tpu_torch/ablate/`` and loaded in place of the kernel's
   library): ``fused_l2_topk`` without its epilogue (the product alone) and
   without the survivors' merges (the epilogue's first pass and vote
   alone); ``ivf_scan`` without the staging of the slab rows and without
-  the product. An ablated kernel computes a wrong result; only its time is
-  read.
+  the product. An ablated kernel computes a wrong result; only its time
+  is read. (A part whose result nothing reads is dropped by the compiler
+  with the work that feeds it, so ``fused_ivf_topk``'s selection, which
+  alone reads its products, is measured by its time at other k instead.)
 
 Prints one JSON line. Needs a CUDA card and ``nvcc``.
 """
@@ -44,11 +52,11 @@ ABLATIONS = {
         "fused_l2_topk", "    for (; cmask; cmask &= cmask - 1) {",
         "    for (cmask = 0; cmask; cmask &= cmask - 1) {"),
     "ivf_scan/no_slab_staging": (
-        "ivf_scan", "    copy_slab<T, V>(bufs + (st & 1) * kS * kRS,",
-        "    if (false) copy_slab<T, V>(bufs + (st & 1) * kS * kRS,"),
+        "ivf_scan", "    ivfg::copy_slab<T, V, kThreads>(",
+        "    if (false) ivfg::copy_slab<T, V, kThreads>("),
     "ivf_scan/no_product": (
-        "ivf_scan", "    for (; busy && j + 4 <= rc; j += 4) {",
-        "    for (; false && busy && j + 4 <= rc; j += 4) {"),
+        "ivf_scan", "    if (busy) ivfg::tile_product(acc, xs, qs, tx, ty, rc);",
+        "    if (false) ivfg::tile_product(acc, xs, qs, tx, ty, rc);"),
 }
 
 
@@ -90,6 +98,25 @@ def _load(gk, kernel: str, path) -> ctypes.CDLL:
     return lib
 
 
+def _time_variants(gk, plan_fn: str, kernel: str, variants, want, calls,
+                   times) -> None:
+    """Time ``kernel`` under each plan of ``variants`` (``plan_fn`` of
+    gpu_kernels replaced), its result held bitwise to ``want``."""
+    planned = getattr(gk, plan_fn)
+    try:
+        for name, plan in variants.items():
+            setattr(gk, plan_fn, lambda *a, _p=plan: _p)
+            got = calls[kernel][0]()
+            if not (torch.equal(got[0].view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{kernel} under {name} differs")
+            times[f"{kernel}/{name}"] = _ms(calls[kernel][0],
+                                           calls[kernel][1])
+    finally:
+        setattr(gk, plan_fn, planned)
+
+
 def main() -> int:
     parser = argparse.ArgumentParser(description=__doc__.split("\n")[0])
     parser.add_argument("--seed", type=int, default=0)
@@ -102,6 +129,7 @@ def main() -> int:
     from raft_tpu_torch.ops.distance import row_norms_sq
 
     dev = torch.device("cuda", 0)
+    n_sm = torch.cuda.get_device_properties(dev).multi_processor_count
     rows = low_rank_clusters(np.random.default_rng(opts.seed), 1_010_000, 128)
     y = torch.from_numpy(rows[:1_000_000]).to(dev)
     x = torch.from_numpy(rows[1_000_000:]).to(dev)
@@ -112,14 +140,35 @@ def main() -> int:
     data = torch.randn(1024, 1456, 128, generator=g, device=dev)
     norms = row_norms_sq(data)
     qres = torch.randn(440, 32, 128, generator=g, device=dev)
+    # fused_ivf_topk: 10,000 queries × 32 probes of the same lists, each
+    # filled to a random size
+    ivf_probes = torch.randint(0, 1024, (10000, 32), generator=g, device=dev,
+                               dtype=torch.int32)
+    sizes = torch.randint(500, 1456, (1024, 1), generator=g, device=dev)
+    ids = torch.arange(1024 * 1456, device=dev, dtype=torch.int32).reshape(
+        1024, 1456)
+    ids = torch.where(torch.arange(1456, device=dev) < sizes, ids, -1)
+    ivf_q = torch.randn(10000, 1, 128, generator=g, device=dev).expand(
+        10000, 32, 128).contiguous()
+    ivf_args = (ivf_probes, ivf_q, (ivf_q * ivf_q).sum(-1), data, norms, ids,
+                10)
+    centres = y[torch.randperm(y.shape[0], generator=g, device=dev)[:1024]]
+    argmin_args = (y, centres, yn, row_norms_sq(centres), True)
     calls = {"fused_l2_topk": (lambda: gk.fused_l2_topk(x, y, 10, xn, yn), 3),
-             "ivf_scan": (lambda: gk.ivf_scan(probes, qres, data, norms), 20)}
+             "ivf_scan": (lambda: gk.ivf_scan(probes, qres, data, norms), 20),
+             "fused_ivf_topk": (lambda: gk.fused_ivf_topk(*ivf_args), 5),
+             "fused_l2_argmin": (lambda: gk.fused_l2_argmin(*argmin_args), 5)}
     times = {kernel: _ms(fn, reps) for kernel, (fn, reps) in calls.items()}
     times["ivf_scan_groups"] = _ms(lambda: gk.ivf_scan_groups(probes, 1024),
                                    20)
+    ivf_plan = gk.plan_fused_ivf(10000, 32, 1024, 1456, 128, 10, 4, n_sm)
+    times["fused_ivf_topk_groups"] = _ms(
+        lambda: gk.ivf_scan_groups(ivf_probes, 1024), 5)
+    for k in (1, 16, 17, 32):  # how the selection's cost grows with k
+        times[f"fused_ivf_topk/k={k}"] = _ms(
+            lambda: gk.fused_ivf_topk(*ivf_args[:6], k), 5)
     want = gk.fused_l2_topk(x, y, 10, xn, yn)
-    base = gk.plan_fused_topk(x.shape[0], y.shape[0], 128, 10, torch.cuda
-                              .get_device_properties(dev).multi_processor_count)
+    base = gk.plan_fused_topk(x.shape[0], y.shape[0], 128, 10, n_sm)
     variants = {}
     for s in (1, 3, 10):
         split_len = -(-(-(-y.shape[0] // s)) // 128) * 128
@@ -130,18 +179,17 @@ def main() -> int:
         base, stages=2, smem=gk.l2_topk_tc_smem_bytes(10, 2, base.wgs))
     variants["wgs=1"] = dataclasses.replace(
         base, wgs=1, smem=gk.l2_topk_tc_smem_bytes(10, base.stages, 1))
-    plan_of = gk.plan_fused_topk
-    try:
-        for name, plan in variants.items():
-            gk.plan_fused_topk = lambda *a, _p=plan: _p
-            got = gk.fused_l2_topk(x, y, 10, xn, yn)
-            if not (torch.equal(got[0].view(torch.int32),
-                                want[0].view(torch.int32))
-                    and torch.equal(got[1], want[1])):
-                raise AssertionError(f"fused_l2_topk under {name} differs")
-            times[f"fused_l2_topk/{name}"] = _ms(calls["fused_l2_topk"][0], 3)
-    finally:
-        gk.plan_fused_topk = plan_of
+    _time_variants(gk, "plan_fused_topk", "fused_l2_topk", variants, want,
+                   calls, times)
+    variants = {"chunks_per_run=8": dataclasses.replace(
+        ivf_plan, chunks_per_run=8, runs=3)}
+    _time_variants(gk, "plan_fused_ivf", "fused_ivf_topk", variants,
+                   gk.fused_ivf_topk(*ivf_args), calls, times)
+    am_plan = gk.plan_fused_argmin(y.shape[0], 1024, 128)
+    variants = {"stages=2": dataclasses.replace(
+        am_plan, stages=2, smem=gk.l2_argmin_smem_bytes("resident", 128, 2))}
+    _time_variants(gk, "plan_fused_argmin", "fused_l2_argmin", variants,
+                   gk.fused_l2_argmin(*argmin_args), calls, times)
     built = {name: _build(gk, name, *spec) for name, spec in ABLATIONS.items()}
     for name, path in built.items():
         kernel = ABLATIONS[name][0]
@@ -151,9 +199,15 @@ def main() -> int:
             times[name] = _ms(*calls[kernel])
         finally:
             gk._libs[kernel] = kept
+        print(f"ablate: {name} {times[name]:.4f} ms", file=sys.stderr,
+              flush=True)
     print(json.dumps({"device": torch.cuda.get_device_name(0),
-                      "planner": dataclasses.asdict(base), "ms": times}),
-          flush=True)
+                      "planner": {"fused_l2_topk": dataclasses.asdict(base),
+                                  "fused_ivf_topk": dataclasses.asdict(
+                                      ivf_plan),
+                                  "fused_l2_argmin": dataclasses.asdict(
+                                      am_plan)},
+                      "ms": times}), flush=True)
     return 0
 
 

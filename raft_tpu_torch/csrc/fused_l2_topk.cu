@@ -15,7 +15,9 @@
 // 495 TFLOP/s bound it at 3·2·m·n·d / 495e12 s, against 2·m·n·d / 67e12 s
 // for fp32 FMA outside the tensor cores.
 //
-// Design (k <= gpu_kernels.TC_MAX_K, the tensor-core route):
+// Design (k <= gpu_kernels.TC_MAX_K, the tensor-core route; the split, the
+// tensor maps, the ring and the three passes are tc_tile.cuh's, shared with
+// fused_l2_argmin):
 //   - a split pass writes x and y as hi/lo planes into the wrapper's scratch,
 //     d zero-padded to a multiple of 32 (zeros change no dot product), so
 //     that each 32-float slice is one 128-byte TMA row and four wgmma k-steps;
@@ -42,9 +44,8 @@
 // Above gpu_kernels.TC_MAX_K (243) even a 64-row carry no longer fits shared
 // memory beside the ring, and a 16-row fp32 FMA tile takes over (the large-k
 // route, fma_topk_kernel).
+#include "tc_tile.cuh"
 #include "topk_carry.cuh"
-
-#include <cuda.h>
 
 namespace {
 
@@ -61,50 +62,16 @@ __device__ __forceinline__ float l2_dist(float xn, float yn, float dot) {
   return fmaxf(__fsub_rn(__fadd_rn(xn, yn), __fmul_rn(2.f, dot)), 0.f);
 }
 
-// ------------------------------------------------------------ split pass
-
-__device__ __forceinline__ float tf32_rna(float v) {
-  uint32_t r;
-  asm("cvt.rna.tf32.f32 %0, %1;" : "=r"(r) : "f"(v));
-  return __uint_as_float(r);
-}
-
-// src [rows, d] → hi, lo [rows, d_pad], zeros past d
-__global__ void split_tf32_kernel(const float* __restrict__ src, long long rows,
-                                  int d, int d_pad, float* __restrict__ hi,
-                                  float* __restrict__ lo) {
-  const long long total = rows * d_pad;
-  for (long long e = blockIdx.x * static_cast<long long>(blockDim.x) +
-                     threadIdx.x;
-       e < total; e += static_cast<long long>(gridDim.x) * blockDim.x) {
-    const long long r = e / d_pad;
-    const int c = static_cast<int>(e - r * d_pad);
-    const float v = c < d ? src[r * d + c] : 0.f;
-    const float h = tf32_rna(v);
-    hi[e] = h;
-    lo[e] = tf32_rna(v - h);
-  }
-}
-
-cudaError_t launch_split(const float* src, long long rows, int d, int d_pad,
-                         float* hi, float* lo, cudaStream_t s) {
-  const long long total = rows * d_pad;
-  long long blocks = (total + 255) / 256;
-  if (blocks > 8192) blocks = 8192;
-  if (blocks < 1) blocks = 1;
-  split_tf32_kernel<<<static_cast<unsigned>(blocks), 256, 0, s>>>(
-      src, rows, d, d_pad, hi, lo);
-  return cudaGetLastError();
-}
-
 // ------------------------------------------------- tensor-core route
+
+using tct::kBK;
+using tct::kBN;
+using tct::kSliceB;
+using tct::smem_u32;
 
 // WGS consumer warpgroups of 64 query rows each share a block's database
 // tiles: 2 where the 128 rows' carry fits beside the ring, else 1
-constexpr int kBN = 128;   // database rows per tile
-constexpr int kBK = 32;    // floats per k-slice: one 128-byte swizzled row
 constexpr int kSurv = 16;  // survivor slots per row
-constexpr int kSliceB = kBN * kBK * 4;  // bytes of one B plane slice
 __host__ __device__ constexpr int slice_a(int wgs) {
   return 64 * wgs * kBK * 4;
 }
@@ -121,111 +88,6 @@ size_t tc_smem_bytes(int k, int stages, int wgs) {
          bm * k * 8 +                                        // carry
          bm * kSurv * 8 +                                    // survivors
          bm * 4;                                             // their counts
-}
-
-__device__ __forceinline__ uint32_t smem_u32(const void* p) {
-  return static_cast<uint32_t>(__cvta_generic_to_shared(p));
-}
-
-__device__ __forceinline__ void mbar_init(uint32_t bar, uint32_t count) {
-  asm volatile("mbarrier.init.shared::cta.b64 [%0], %1;" ::"r"(bar), "r"(count)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_arrive(uint32_t bar) {
-  asm volatile("mbarrier.arrive.shared::cta.b64 _, [%0];" ::"r"(bar)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_expect_tx(uint32_t bar, uint32_t bytes) {
-  asm volatile("mbarrier.arrive.expect_tx.shared::cta.b64 _, [%0], %1;" ::"r"(
-                   bar),
-               "r"(bytes)
-               : "memory");
-}
-
-__device__ __forceinline__ void mbar_wait(uint32_t bar, uint32_t parity) {
-  uint32_t done = 0;
-  while (!done) {
-    asm volatile(
-        "{\n.reg .pred p;\n"
-        "mbarrier.try_wait.parity.shared::cta.b64 p, [%1], %2;\n"
-        "selp.u32 %0, 1, 0, p;\n}\n"
-        : "=r"(done)
-        : "r"(bar), "r"(parity)
-        : "memory");
-  }
-}
-
-__device__ __forceinline__ void tma_load(uint32_t dst, const CUtensorMap* map,
-                                         int c0, int c1, uint32_t bar) {
-  asm volatile(
-      "cp.async.bulk.tensor.2d.shared::cluster.global.mbarrier::complete_tx::"
-      "bytes [%0], [%1, {%2, %3}], [%4];" ::"r"(dst),
-      "l"(reinterpret_cast<uint64_t>(map)), "r"(c0), "r"(c1), "r"(bar)
-      : "memory");
-}
-
-// wgmma shared-memory descriptor of a K-major tile with the 128-byte swizzle:
-// 8-row groups 1024 bytes apart (the tiles are 1024-byte aligned)
-__device__ __forceinline__ uint64_t sw128_desc(uint32_t addr) {
-  return static_cast<uint64_t>((addr & 0x3FFFF) >> 4) |
-         (static_cast<uint64_t>(1) << 16) |
-         (static_cast<uint64_t>(1024 >> 4) << 32) |
-         (static_cast<uint64_t>(1) << 62);
-}
-
-__device__ __forceinline__ void wgmma_fence() {
-  asm volatile("wgmma.fence.sync.aligned;" ::: "memory");
-}
-__device__ __forceinline__ void wgmma_commit() {
-  asm volatile("wgmma.commit_group.sync.aligned;" ::: "memory");
-}
-// wait until at most N committed groups of this warpgroup are in flight
-template <int N>
-__device__ __forceinline__ void wgmma_wait() {
-  asm volatile("wgmma.wait_group.sync.aligned %0;" ::"n"(N) : "memory");
-}
-// keeps the compiler from moving accesses of d across the asynchronous mma
-__device__ __forceinline__ void fence_operands(float* d) {
-#pragma unroll
-  for (int i = 0; i < 64; ++i) asm volatile("" : "+f"(d[i])::"memory");
-}
-
-// d[64] += A·Bᵀ over one k8 step: A [64 × 8] and B [128 × 8] tf32, both
-// K-major in 128-byte-swizzled shared memory, given by their descriptors.
-// d[i] holds row 16·warp + lane/4 + 8·((i/2)%2), column 8·(i/4) + 2·(lane%4)
-// + i%2 of the warpgroup's 64 × 128 tile.
-__device__ __forceinline__ void wgmma_tf32(float* d, uint64_t da, uint64_t db) {
-  asm volatile(
-      "{\n.reg .pred p;\nsetp.ne.b32 p, 1, 0;\n"
-      "wgmma.mma_async.sync.aligned.m64n128k8.f32.tf32.tf32 {"
-      "%0, %1, %2, %3, %4, %5, %6, %7,"
-      "%8, %9, %10, %11, %12, %13, %14, %15,"
-      "%16, %17, %18, %19, %20, %21, %22, %23,"
-      "%24, %25, %26, %27, %28, %29, %30, %31,"
-      "%32, %33, %34, %35, %36, %37, %38, %39,"
-      "%40, %41, %42, %43, %44, %45, %46, %47,"
-      "%48, %49, %50, %51, %52, %53, %54, %55,"
-      "%56, %57, %58, %59, %60, %61, %62, %63"
-      "}, %64, %65, p, 1, 1;\n}\n"
-      : "+f"(d[0]), "+f"(d[1]), "+f"(d[2]), "+f"(d[3]),
-        "+f"(d[4]), "+f"(d[5]), "+f"(d[6]), "+f"(d[7]),
-        "+f"(d[8]), "+f"(d[9]), "+f"(d[10]), "+f"(d[11]),
-        "+f"(d[12]), "+f"(d[13]), "+f"(d[14]), "+f"(d[15]),
-        "+f"(d[16]), "+f"(d[17]), "+f"(d[18]), "+f"(d[19]),
-        "+f"(d[20]), "+f"(d[21]), "+f"(d[22]), "+f"(d[23]),
-        "+f"(d[24]), "+f"(d[25]), "+f"(d[26]), "+f"(d[27]),
-        "+f"(d[28]), "+f"(d[29]), "+f"(d[30]), "+f"(d[31]),
-        "+f"(d[32]), "+f"(d[33]), "+f"(d[34]), "+f"(d[35]),
-        "+f"(d[36]), "+f"(d[37]), "+f"(d[38]), "+f"(d[39]),
-        "+f"(d[40]), "+f"(d[41]), "+f"(d[42]), "+f"(d[43]),
-        "+f"(d[44]), "+f"(d[45]), "+f"(d[46]), "+f"(d[47]),
-        "+f"(d[48]), "+f"(d[49]), "+f"(d[50]), "+f"(d[51]),
-        "+f"(d[52]), "+f"(d[53]), "+f"(d[54]), "+f"(d[55]),
-        "+f"(d[56]), "+f"(d[57]), "+f"(d[58]), "+f"(d[59]),
-        "+f"(d[60]), "+f"(d[61]), "+f"(d[62]), "+f"(d[63])
-      : "l"(da), "l"(db));
 }
 
 struct TcArgs {
@@ -305,8 +167,8 @@ tc_topk_kernel(const __grid_constant__ CUtensorMap map_xh,
 
   if (tid == 0) {
     for (int s = 0; s < stages; ++s) {
-      mbar_init(smem_u32(full + s), 1);
-      mbar_init(smem_u32(empty + s), 128 * WGS);
+      tct::mbar_init(smem_u32(full + s), 1);
+      tct::mbar_init(smem_u32(empty + s), 128 * WGS);
     }
     asm volatile("fence.mbarrier_init.release.cluster;" ::: "memory");
   }
@@ -316,16 +178,16 @@ tc_topk_kernel(const __grid_constant__ CUtensorMap map_xh,
     if (lane == 0) {
       for (int it = 0; it < iters; ++it) {
         const int s = it % stages;
-        mbar_wait(smem_u32(empty + s), ((it / stages) & 1) ^ 1);
+        tct::mbar_wait(smem_u32(empty + s), ((it / stages) & 1) ^ 1);
         const uint32_t bar = smem_u32(full + s);
-        mbar_expect_tx(bar, kStageBytes);
+        tct::mbar_expect_tx(bar, kStageBytes);
         const uint32_t st = smem_u32(smem + s * kStageBytes);
         const int kc = (it % a.k_slices) * kBK;
         const int col = static_cast<int>(lo + (it / a.k_slices) * kBN);
-        tma_load(st, &map_xh, kc, row0, bar);
-        tma_load(st + kSliceA, &map_xl, kc, row0, bar);
-        tma_load(st + 2 * kSliceA, &map_yh, kc, col, bar);
-        tma_load(st + 2 * kSliceA + kSliceB, &map_yl, kc, col, bar);
+        tct::tma_load(st, &map_xh, kc, row0, bar);
+        tct::tma_load(st + kSliceA, &map_xl, kc, row0, bar);
+        tct::tma_load(st + 2 * kSliceA, &map_yh, kc, col, bar);
+        tct::tma_load(st + 2 * kSliceA + kSliceB, &map_yl, kc, col, bar);
       }
     }
     return;
@@ -366,37 +228,12 @@ tc_topk_kernel(const __grid_constant__ CUtensorMap map_xh,
   for (int t = 0; t < n_tiles; ++t) {
 #pragma unroll
     for (int i = 0; i < 64; ++i) acc[i] = 0.f;
-    fence_operands(acc);
-    // a slice's stage is released once the next slice's products are
-    // issued, so the tensor cores never wait for the release
-    int prev = -1;
-    for (int kc = 0; kc < a.k_slices; ++kc) {
-      const int it = t * a.k_slices + kc;
-      const int s = it % stages;
-      mbar_wait(smem_u32(full + s), (it / stages) & 1);
-      const uint32_t st = smem_u32(smem + s * kStageBytes);
-      wgmma_fence();
-#pragma unroll
-      for (int kk = 0; kk < kBK / 8; ++kk) {  // 8 tf32 = 32 bytes a k-step
-        const uint32_t a0 = st + (warp >> 2) * (64 * kBK * 4) + 32 * kk;
-        const uint64_t ah = sw128_desc(a0);
-        const uint64_t al = sw128_desc(a0 + kSliceA);
-        const uint64_t bh = sw128_desc(st + 2 * kSliceA + 32 * kk);
-        const uint64_t bl = sw128_desc(st + 2 * kSliceA + kSliceB + 32 * kk);
-        wgmma_tf32(acc, ah, bh);
-        wgmma_tf32(acc, ah, bl);
-        wgmma_tf32(acc, al, bh);
-      }
-      wgmma_commit();
-      if (prev >= 0) {
-        wgmma_wait<1>();
-        mbar_arrive(smem_u32(empty + prev));
-      }
-      prev = s;
-    }
-    wgmma_wait<0>();
-    fence_operands(acc);
-    if (prev >= 0) mbar_arrive(smem_u32(empty + prev));
+    tct::fence_operands(acc);
+    tct::ring_tile(acc, t * a.k_slices, a.k_slices, stages, smem, kStageBytes,
+                   2 * kSliceA, kSliceA, full, empty,
+                   [warp](uint32_t st, int) {
+                     return st + (warp >> 2) * (64 * kBK * 4);
+                   });
 
     // epilogue: 16 column pairs, two rows each; survivors of a pair go to
     // the rows' buffers, a row with more than 8 pending is merged, and every
@@ -494,52 +331,6 @@ tc_topk_kernel(const __grid_constant__ CUtensorMap map_xh,
       a.out_i[o + j] = cid[r * k + j];
     }
   }
-}
-
-typedef CUresult (*EncodeTiled)(CUtensorMap*, CUtensorMapDataType, cuuint32_t,
-                                void*, const cuuint64_t*, const cuuint64_t*,
-                                const cuuint32_t*, const cuuint32_t*,
-                                CUtensorMapInterleave, CUtensorMapSwizzle,
-                                CUtensorMapL2promotion,
-                                CUtensorMapFloatOOBfill);
-
-// cuTensorMapEncodeTiled, looked up through the CUDA runtime's entry-point
-// query, so that the library links without -lcuda
-EncodeTiled encode_tiled() {
-  static EncodeTiled fn = nullptr;
-  if (fn == nullptr) {
-    void* p = nullptr;
-    cudaDriverEntryPointQueryResult q;
-#if CUDART_VERSION >= 12050
-    const cudaError_t err = cudaGetDriverEntryPointByVersion(
-        "cuTensorMapEncodeTiled", &p, 12000, cudaEnableDefault, &q);
-#else
-    const cudaError_t err = cudaGetDriverEntryPoint(
-        "cuTensorMapEncodeTiled", &p, cudaEnableDefault, &q);
-#endif
-    if (err == cudaSuccess && q == cudaDriverEntryPointSuccess)
-      fn = reinterpret_cast<EncodeTiled>(p);
-  }
-  return fn;
-}
-
-// a [rows, d_pad] float plane read in boxes of box_rows × 32 floats, rows
-// past the end read as zeros
-bool make_map(CUtensorMap* map, const float* base, long long rows, int d_pad,
-              int box_rows) {
-  const EncodeTiled fn = encode_tiled();
-  if (fn == nullptr) return false;
-  const cuuint64_t dims[2] = {static_cast<cuuint64_t>(d_pad),
-                              static_cast<cuuint64_t>(rows)};
-  const cuuint64_t strides[1] = {static_cast<cuuint64_t>(d_pad) * 4};
-  const cuuint32_t box[2] = {static_cast<cuuint32_t>(kBK),
-                             static_cast<cuuint32_t>(box_rows)};
-  const cuuint32_t elem[2] = {1, 1};
-  return fn(map, CU_TENSOR_MAP_DATA_TYPE_FLOAT32, 2,
-            const_cast<float*>(base), dims, strides, box, elem,
-            CU_TENSOR_MAP_INTERLEAVE_NONE, CU_TENSOR_MAP_SWIZZLE_128B,
-            CU_TENSOR_MAP_L2_PROMOTION_L2_256B,
-            CU_TENSOR_MAP_FLOAT_OOB_FILL_NONE) == CUDA_SUCCESS;
 }
 
 // ------------------------------------------------------- large-k route
@@ -687,10 +478,11 @@ cudaError_t run_tc(const float* x, const float* y, const float* xn,
   const long long chunk_len = split_len * chunk_splits;
   float* yh = xl + static_cast<long long>(m) * d_pad;
   float* yl = yh + (chunk_len < n ? chunk_len : n) * d_pad;
-  err = launch_split(x, m, d, d_pad, xh, xl, s);
+  err = tct::launch_split(x, m, d, d_pad, xh, xl, s);
   if (err != cudaSuccess) return err;
   CUtensorMap mxh, mxl, myh, myl;
-  if (!make_map(&mxh, xh, m, d_pad, kBM) || !make_map(&mxl, xl, m, d_pad, kBM))
+  if (!tct::make_map(&mxh, xh, m, d_pad, kBM) ||
+      !tct::make_map(&mxl, xl, m, d_pad, kBM))
     return cudaErrorInvalidValue;
   TcArgs a;
   a.xn = xn;
@@ -708,10 +500,10 @@ cudaError_t run_tc(const float* x, const float* y, const float* xn,
     const long long rows = n - c0 < chunk_len ? n - c0 : chunk_len;
     const int parts_here =
         static_cast<int>((rows + split_len - 1) / split_len);
-    err = launch_split(y + c0 * d, rows, d, d_pad, yh, yl, s);
+    err = tct::launch_split(y + c0 * d, rows, d, d_pad, yh, yl, s);
     if (err != cudaSuccess) return err;
-    if (!make_map(&myh, yh, rows, d_pad, kBN) ||
-        !make_map(&myl, yl, rows, d_pad, kBN))
+    if (!tct::make_map(&myh, yh, rows, d_pad, kBN) ||
+        !tct::make_map(&myl, yl, rows, d_pad, kBN))
       return cudaErrorInvalidValue;
     a.yn = yn + c0;
     a.chunk_rows = rows;

@@ -73,15 +73,16 @@ _ARGTYPES = {
     "fused_l2_topk": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I, _I,
                       _LL, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "fused_ivf_topk": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
-                       _I, _I, _VP, _VP, _VP],
+                       _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
     "fused_pq_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                       _I, _I, _I, _VP, _VP, _VP],
     "fused_cagra_topk": [_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
                          _I, _I, _I, _VP, _VP, _VP],
-    "fused_l2_argmin": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _VP, _VP, _VP],
+    "fused_l2_argmin": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I, _I,
+                        _VP, _VP, _VP, _VP],
     "ivf_scan": [_VP, _VP, _VP, _I, _VP, _VP, _LL, _I, _I, _I, _I, _VP, _VP],
-    "ivf_scan_group": [_VP, _LL, _I, _VP, _VP, _VP, _VP, _VP, _VP],
+    "ivf_scan_group": [_VP, _LL, _I, _VP, _VP],
     "ring_shift_copy": [_VP, _VP, _LL, _I, _VP],
     "ring_shift_enable_peer": [_I, _I],
 }
@@ -452,6 +453,106 @@ def fused_ivf_topk_plain(probes, qres, qres_norms, list_data, row_norms,
     return torch.cat(out_v), torch.cat(out_i)
 
 
+#: the IVF scans' work item (ivf_scan's and fused_ivf_topk's grouped
+#: route): up to this many of one list's (query, probe) pairs (kGroupPairs
+#: in ivf_group.cuh)
+IVF_SCAN_GROUP = 32
+#: the IVF scans' slots per chunk and the elements a staged slab or query
+#: row takes (kS and kRS in ivf_group.cuh)
+IVF_SCAN_SLOTS, IVF_STAGE_ROW = 64, 132
+#: device memory the grouped route's partials may take; a larger batch is
+#: cut into query chunks
+IVF_TOPK_SCRATCH_BUDGET = 1 << 28
+
+
+#: up to this k the grouped route keeps each pair's carry in the registers
+#: of its 16 lanes (kRegMaxK in fused_ivf_topk.cu), above it in shared
+#: memory
+IVF_TOPK_REG_MAX_K = 16
+
+
+def ivf_topk_smem_bytes(k: int, elem_bytes: int) -> int:
+    """Shared memory of one block of ``fused_ivf_topk``'s grouped route over
+    list rows of ``elem_bytes`` (``grouped_smem_bytes`` in
+    fused_ivf_topk.cu, plus its static arrays): two slab buffers of 64
+    staged rows, the group's 32 query vectors, and above
+    ``IVF_TOPK_REG_MAX_K`` a chunk's 64 survivors of each pair, their counts
+    and each pair's carry of k (value, slot)."""
+    g = IVF_SCAN_GROUP
+    smem = (2 * IVF_SCAN_SLOTS * IVF_STAGE_ROW * elem_bytes
+            + g * IVF_STAGE_ROW * 4 + 4 * g + 16)
+    if k > IVF_TOPK_REG_MAX_K:
+        smem += g * IVF_SCAN_SLOTS * 8 + g * 4 + g * k * 8
+    return smem
+
+
+def ivf_topk_per_query_smem_bytes(rot: int, k: int) -> int:
+    """Shared memory of one block of the per-query route (``ivf_smem_bytes``
+    in fused_ivf_topk.cu): a 256-row chunk's survivors, the carry, the
+    survivor count, the probe's query vector."""
+    return 256 * 8 + k * 8 + 16 + rot * 4
+
+
+#: the largest k of the grouped route: a 32-pair block over f32 rows keeps
+#: every pair's carry beside its slab buffers up to 512; above, the
+#: per-query route
+IVF_TOPK_GROUPED_MAX_K = max(k for k in range(1, MAX_K + 1)
+                             if ivf_topk_smem_bytes(k, 4) <= SMEM_LIMIT)
+
+
+@dataclasses.dataclass(frozen=True)
+class IvfTopkPlan:
+    """How ``fused_ivf_topk`` runs: ``route`` "grouped" (pairs grouped by
+    list, a partial top-k per pair and run of slots, then a merge per query)
+    or "per_query" (large k); runs of ``chunks_per_run`` 64-slot chunks,
+    ``runs`` of them; ``q_chunk`` queries a launch, so that the partials
+    stay within ``IVF_TOPK_SCRATCH_BUDGET``; ``scratch_bytes`` of the
+    partials and the grouping; ``smem`` bytes a block."""
+
+    route: str
+    chunks_per_run: int
+    runs: int
+    q_chunk: int
+    smem: int
+    scratch_bytes: int
+
+
+def plan_fused_ivf(nq: int, n_probes: int, n_lists: int, pad: int, rot: int,
+                   k: int, elem_bytes: int, n_sm: int) -> IvfTopkPlan:
+    """The plan of ``fused_ivf_topk`` for nq queries × n_probes probes over
+    n_lists lists of pad slots, rot features of ``elem_bytes`` each, on
+    ``n_sm`` SMs.
+
+    The grouped route up to ``IVF_TOPK_GROUPED_MAX_K``: the slots of a list
+    cut into as few runs as give at least four blocks an SM, since each run
+    of a pair adds k partials and a carry's warm-up; the queries cut into
+    chunks whose partials fit the budget. Above it the per-query route."""
+    q_rows = max(nq, 1)
+    if k > IVF_TOPK_GROUPED_MAX_K:
+        return IvfTopkPlan("per_query", 0, 0, q_rows,
+                           ivf_topk_per_query_smem_bytes(rot, k), 0)
+    chunks = -(-max(pad, 1) // IVF_SCAN_SLOTS)
+
+    def runs_for(q: int) -> Tuple[int, int]:
+        groups = -(-q * n_probes // IVF_SCAN_GROUP)
+        cpr = -(-chunks // min(chunks, -(-4 * n_sm // groups)))
+        return cpr, -(-chunks // cpr)
+
+    def fit(runs: int) -> int:
+        return min(q_rows, max(1, IVF_TOPK_SCRATCH_BUDGET
+                               // (n_probes * runs * k * 8)))
+
+    cpr, runs = runs_for(q_rows)
+    q_chunk = fit(runs)
+    if q_chunk < q_rows:
+        cpr, runs = runs_for(q_chunk)
+        q_chunk = fit(runs)
+    scratch = (q_chunk * n_probes * runs * k * 8
+               + 4 * ivf_group_scratch(q_chunk * n_probes, n_lists))
+    return IvfTopkPlan("grouped", cpr, runs, q_chunk,
+                       ivf_topk_smem_bytes(k, elem_bytes), scratch)
+
+
 def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
                    list_indices, k: int, clamp: bool = True):
     """Fused probe gather + scan + top-k for the IVF families.
@@ -460,7 +561,9 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
     per probe); qres_norms [nq, P] f32; list_data [L, pad, rot] f32 or bf16
     (fp32 accumulation); row_norms [L, pad] f32; list_indices [L, pad] int32
     with -1 at unfilled slots. Returns ``(distances [nq, k], ids [nq, k])``
-    ascending; ``clamp`` applies max(d, 0)."""
+    ascending; ``clamp`` applies max(d, 0). On the card the route and its
+    sizes come from ``plan_fused_ivf``; the grouped route takes int32 and
+    float scratch of ``plan.scratch_bytes``, one launch per query chunk."""
     _check_k("fused_ivf_topk", k)
     tensors = (probes, qres, qres_norms, list_data, row_norms, list_indices)
     if _on_cpu(*tensors):
@@ -485,16 +588,44 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_i
+    if n_probes == 0 or n_lists == 0 or pad == 0:  # no candidate
+        return out_v.fill_(torch.inf), out_i.fill_(-1)
+    if rot < 1:
+        raise ValueError(f"fused_ivf_topk: rot={rot} < 1")
+    plan = plan_fused_ivf(nq, n_probes, n_lists, pad, rot, k,
+                          list_data.element_size(), torch.cuda
+                          .get_device_properties(dev).multi_processor_count)
+    grouped = plan.route == "grouped"
+    groups = part_v = part_i = None
+    if grouped:
+        n_pairs = plan.q_chunk * n_probes
+        if (n_pairs > 2**31 - 1
+                or -(-n_pairs // IVF_SCAN_GROUP) + n_lists + 1 > 2**31 - 1
+                or plan.runs > 65535):
+            raise ValueError(f"fused_ivf_topk: {n_pairs} (query, probe) "
+                             f"pairs over {n_lists} lists of {pad} slots "
+                             "exceed one launch's grid")
+        groups = torch.empty(ivf_group_scratch(n_pairs, n_lists),
+                             dtype=torch.int32, device=dev)
+        part_v = torch.empty(n_pairs * plan.runs * k, dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty(n_pairs * plan.runs * k, dtype=torch.int32,
+                             device=dev)
     lib = _lib("fused_ivf_topk")
-    with torch.cuda.device(dev):
-        rc = lib.fused_ivf_topk(
-            probes.data_ptr(), qres.data_ptr(), qres_norms.data_ptr(),
-            list_data.data_ptr(), int(list_data.dtype == torch.bfloat16),
-            row_norms.data_ptr(), list_indices.data_ptr(), nq, n_probes,
-            n_lists, pad, rot, k, int(bool(clamp)), out_v.data_ptr(),
-            out_i.data_ptr(), _stream(dev))
-    _check_rc("fused_ivf_topk", rc)
-    LAUNCHES["fused_ivf_topk"] += 1
+    for r0 in range(0, nq, plan.q_chunk):
+        r1 = min(r0 + plan.q_chunk, nq)
+        with torch.cuda.device(dev):
+            rc = lib.fused_ivf_topk(
+                probes[r0:r1].data_ptr(), qres[r0:r1].data_ptr(),
+                qres_norms[r0:r1].data_ptr(), list_data.data_ptr(),
+                int(list_data.dtype == torch.bfloat16), row_norms.data_ptr(),
+                list_indices.data_ptr(), r1 - r0, n_probes, n_lists, pad, rot,
+                k, int(bool(clamp)), int(not grouped), plan.chunks_per_run,
+                _ptr(groups), _ptr(part_v),
+                _ptr(part_i), out_v[r0:r1].data_ptr(),
+                out_i[r0:r1].data_ptr(), _stream(dev))
+        _check_rc("fused_ivf_topk", rc)
+        LAUNCHES["fused_ivf_topk"] += 1
     return out_v, out_i
 
 
@@ -970,6 +1101,58 @@ def fused_l2_argmin_plain(x, y, x_norms=None, y_norms=None,
     return torch.cat(out_v), torch.cat(out_i)
 
 
+def l2_argmin_smem_bytes(route: str, d_pad: int, stages: int) -> int:
+    """Dynamic shared memory of one block of ``fused_l2_argmin`` (the
+    formula of ``argmin_smem_bytes`` in fused_l2_argmin.cu): alignment
+    slack; the ring, each stage the hi/lo planes of a 128 × 32 slice of y
+    (and of x in the "scratch" route); the block's 128 x rows as hi/lo
+    planes of d_pad features in the "resident" route; the barriers."""
+    slice_bytes = 128 * TC_BK * 4
+    resident = route == "resident"
+    stage = 2 * slice_bytes + (0 if resident else 2 * slice_bytes)
+    x_planes = d_pad // TC_BK * 2 * slice_bytes if resident else 0
+    return 1024 + stages * stage + x_planes + stages * 16
+
+
+@dataclasses.dataclass(frozen=True)
+class L2ArgminPlan:
+    """How ``fused_l2_argmin`` runs on the tensor cores (3×TF32, 128 x rows
+    a block): ``route`` "resident" (the block's x rows split into shared
+    memory once) or "scratch" (x split into device-memory planes, in chunks
+    of ``x_chunk`` rows, streamed with y); ``d_pad`` the planes' width;
+    ``stages`` of the ring; ``smem`` bytes a block; ``scratch_bytes`` of
+    the hi/lo planes (y's, and an x chunk's in the "scratch" route)."""
+
+    route: str
+    d_pad: int
+    stages: int
+    x_chunk: int
+    smem: int
+    scratch_bytes: int
+
+
+def plan_fused_argmin(m: int, n: int, d: int) -> L2ArgminPlan:
+    """The plan of ``fused_l2_argmin`` for x [m, d], y [n, d]: the
+    "resident" route where the block's 128 rows, as hi/lo planes of d
+    padded to a multiple of 32, fit beside a two-stage ring (d <= 160),
+    else "scratch" with x chunks whose planes take at most half of
+    ``L2_TOPK_SCRATCH_BUDGET``; as many ring stages (up to 4) as fit."""
+    d_pad = -(-max(d, 1) // TC_BK) * TC_BK
+    route = ("resident" if l2_argmin_smem_bytes("resident", d_pad, 2)
+             <= SMEM_LIMIT else "scratch")
+    stages = max(s for s in (2, 3, 4)
+                 if l2_argmin_smem_bytes(route, d_pad, s) <= SMEM_LIMIT)
+    row_bytes = 2 * d_pad * 4  # a row's hi and lo planes
+    x_chunk = max(m, 1)
+    if route == "scratch":
+        x_chunk = min(x_chunk, max(128, L2_TOPK_SCRATCH_BUDGET // 2
+                                   // row_bytes // 128 * 128))
+    x_planes = x_chunk * row_bytes if route == "scratch" else 0
+    return L2ArgminPlan(route, d_pad, stages, x_chunk,
+                        l2_argmin_smem_bytes(route, d_pad, stages),
+                        max(n, 1) * row_bytes + x_planes)
+
+
 def fused_l2_argmin(x, y, x_norms=None, y_norms=None, clamp: bool = False,
                     tile: Optional[int] = None):
     """Squared-L2 1-NN of every x row among the y rows: ``(min distance [m]
@@ -977,7 +1160,8 @@ def fused_l2_argmin(x, y, x_norms=None, y_norms=None, clamp: bool = False,
     [n, d] float32, n >= 1; norms [m], [n] (computed when not given).
     ``clamp`` applies max(d, 0) before the comparison (the k-means E-step's
     form). ``tile`` is the plain version's row chunk on the CPU; the kernel
-    walks x in its own blocks."""
+    walks x in its own blocks, by the plan of ``plan_fused_argmin``, with
+    float scratch of ``plan.scratch_bytes`` for the hi/lo planes."""
     xn = row_norms_sq(x) if x_norms is None else x_norms
     yn = row_norms_sq(y) if y_norms is None else y_norms
     if y.shape[0] < 1:
@@ -995,15 +1179,23 @@ def fused_l2_argmin(x, y, x_norms=None, y_norms=None, clamp: bool = False,
     _check("y_norms", yn, torch.float32, 1, dev)
     if y.shape[1] != d or xn.shape[0] != m or yn.shape[0] != n:
         raise ValueError("fused_l2_argmin: shapes disagree")
+    if d < 1 or n > 2**31 - 1:
+        raise ValueError(f"fused_l2_argmin: d={d}, n={n} (need d >= 1 and "
+                         "n < 2**31)")
     out_v = torch.empty((m,), dtype=torch.float32, device=dev)
     out_i = torch.empty((m,), dtype=torch.int32, device=dev)
     if m == 0:
         return out_v, out_i
+    plan = plan_fused_argmin(m, n, d)
+    scratch = torch.empty(plan.scratch_bytes // 4, dtype=torch.float32,
+                          device=dev)
     lib = _lib("fused_l2_argmin")
     with torch.cuda.device(dev):
         rc = lib.fused_l2_argmin(
             x.data_ptr(), y.data_ptr(), xn.data_ptr(), yn.data_ptr(), m, n, d,
-            int(bool(clamp)), out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
+            int(bool(clamp)), int(plan.route == "resident"), plan.d_pad,
+            plan.stages, plan.x_chunk, scratch.data_ptr(), out_v.data_ptr(),
+            out_i.data_ptr(), _stream(dev))
     _check_rc("fused_l2_argmin", rc)
     LAUNCHES["fused_l2_argmin"] += 1
     return out_v, out_i
@@ -1032,15 +1224,22 @@ def ivf_scan_plain(probes, qres, list_data, row_norms):
     return torch.cat(out)
 
 
-#: ivf_scan's work item: up to this many of one list's (query, probe) pairs
-#: (kG in ivf_scan.cu)
-IVF_SCAN_GROUP = 32
-IVF_SCAN_SLOTS = 64  # slots of a chunk (kS)
+#: pairs a block of the grouping passes counts and places (kGroupSegment in
+#: ivf_group.cuh)
+IVF_GROUP_SEGMENT = 4096
 IVF_SCAN_CHUNKS_PER_BLOCK = 8  # chunks a block scans with one group
 
 
+def ivf_group_scratch(n_pairs: int, n_lists: int) -> int:
+    """int32 elements of the grouping's scratch (``group_scratch`` in
+    ivf_group.cuh): the order of the pairs, each list's start, count and
+    running group count, and each segment's count of every list."""
+    segments = -(-n_pairs // IVF_GROUP_SEGMENT)
+    return n_pairs + (3 + segments) * (n_lists + 1)
+
+
 def ivf_scan_groups(probes: torch.Tensor, n_lists: int):
-    """The grouping of ``ivf_scan``'s (query, probe) pairs, on the probes'
+    """The grouping of the IVF scans' (query, probe) pairs, on the probes'
     device and without a read back to the host: ``(order, list_start,
     list_count, group_end)``, all int32. ``order`` [nq·P] is the pairs
     (row-major) sorted by list, stable, so that a list's pairs stay in
@@ -1049,20 +1248,22 @@ def ivf_scan_groups(probes: torch.Tensor, n_lists: int):
     pairs in ``order``, and ``group_end`` the running count of its groups
     of ``IVF_SCAN_GROUP`` pairs. The groups number at most
     ⌈nq·P / IVF_SCAN_GROUP⌉ + n_lists + 1 (``ivf_scan_grid``). On the card
-    it is ivf_scan.cu's one-block grouping pass, which ``ivf_scan`` runs
-    before its scan; on the CPU a stable sort, its plain version."""
+    it is ivf_group.cuh's grouping (a stable counting sort in three passes
+    over segments of ``IVF_GROUP_SEGMENT`` pairs), which ``ivf_scan`` and
+    ``fused_ivf_topk`` run before their scans; on the CPU a stable sort,
+    its plain version."""
     if probes.device.type == "cuda":
         _check("probes", probes, torch.int32, 2, probes.device)
         n_pairs = probes.numel()
-        buf = torch.empty(n_pairs + 4 * (n_lists + 1), dtype=torch.int32,
-                          device=probes.device)
-        parts = torch.split(buf, [n_pairs] + [n_lists + 1] * 4)
+        buf = torch.empty(ivf_group_scratch(n_pairs, n_lists),
+                          dtype=torch.int32, device=probes.device)
         with torch.cuda.device(probes.device):
             rc = _lib("ivf_scan").ivf_scan_group(
-                probes.data_ptr(), n_pairs, n_lists,
-                *(t.data_ptr() for t in parts), _stream(probes.device))
+                probes.data_ptr(), n_pairs, n_lists, buf.data_ptr(),
+                _stream(probes.device))
         _check_rc("ivf_scan", rc)
-        return parts[:4]
+        return torch.split(buf[:n_pairs + 3 * (n_lists + 1)],
+                           [n_pairs] + [n_lists + 1] * 3)
     key = probes.reshape(-1)
     key = torch.where((key >= 0) & (key < n_lists), key, n_lists)
     sorted_key, order = torch.sort(key, stable=True)
@@ -1096,8 +1297,8 @@ def ivf_scan(probes, qres, list_data, row_norms):
     accumulation); row_norms [n_lists, pad] f32. Every slot is written; the
     caller adds the query's norm and masks unfilled slots. On the card the
     pairs are grouped by list first (``ivf_scan_groups``, into int32
-    scratch of nq·P + 4·(n_lists + 1)), so that each probed slab is read
-    once per group of the queries that probe it."""
+    scratch of ``ivf_group_scratch(nq·P, n_lists)``), so that each probed
+    slab is read once per group of the queries that probe it."""
     tensors = (probes, qres, list_data, row_norms)
     if _on_cpu(*tensors):
         return ivf_scan_plain(*tensors)
@@ -1124,8 +1325,8 @@ def ivf_scan(probes, qres, list_data, row_norms):
         raise ValueError(f"ivf_scan: {n_pairs} (query, probe) pairs over "
                          f"{n_lists} lists of {pad} slots exceed one "
                          "launch's grid")
-    groups = torch.empty(n_pairs + 4 * (n_lists + 1), dtype=torch.int32,
-                         device=dev)
+    groups = torch.empty(ivf_group_scratch(n_pairs, n_lists),
+                         dtype=torch.int32, device=dev)
     lib = _lib("ivf_scan")
     with torch.cuda.device(dev):
         rc = lib.ivf_scan(

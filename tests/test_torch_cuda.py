@@ -164,6 +164,102 @@ def test_fused_ivf_topk_kernel_matches_plain(dev, L, pad, rot, nq, P, dtype,
                       1e-4 * float(norms.max()), 1e-5)
 
 
+def _ivf_inputs(dev, L, pad, rot, nq, P, dtype, probes=None, seed=60):
+    data = _randn(dev, L, pad, rot, seed=seed).to(dtype)
+    ids = torch.arange(L * pad, device=dev, dtype=torch.int32).reshape(L, pad)
+    ids[:, -5:] = -1  # unfilled slots
+    if probes is None:
+        g = torch.Generator(device=dev).manual_seed(seed + 1)
+        probes = torch.randint(0, L, (nq, P), generator=g, device=dev,
+                               dtype=torch.int32)
+    qres = _randn(dev, nq, P, rot, seed=seed + 2)
+    return (probes, qres, (qres ** 2).sum(-1), data, (data.float() ** 2).sum(-1),
+            ids)
+
+
+def _ivf_route(args, k):
+    probes, _, _, data = args[:4]
+    return gk.plan_fused_ivf(*probes.shape, *data.shape, k,
+                             data.element_size(), torch.cuda
+                             .get_device_properties(probes.device)
+                             .multi_processor_count).route
+
+
+# the grouped route's last k with carries in registers and the first in
+# shared memory, its last k (a pair's carry beside the slab buffers) and
+# the per-query route just above it; a skewed probe set (every query probes
+# list 3), out-of-range probes among valid ones, rot 20, 100 and 200 (no
+# 16-byte rows; two feature steps a chunk), bf16 rows, pads that end
+# mid-chunk, a batch of 16,000 pairs (four grouping segments)
+@pytest.mark.parametrize("case,k,route", [
+    ("random", gk.IVF_TOPK_REG_MAX_K, "grouped"),
+    ("random", gk.IVF_TOPK_REG_MAX_K + 1, "grouped"),
+    ("random", gk.IVF_TOPK_GROUPED_MAX_K, "grouped"),
+    ("random", gk.IVF_TOPK_GROUPED_MAX_K + 1, "per_query"),
+    ("one_list", 10, "grouped"), ("one_list", 64, "grouped"),
+    ("out_of_range", 10, "grouped"), ("rot20", 64, "grouped"),
+    ("bf16_rot100", 10, "grouped"), ("rot200", 10, "grouped"),
+    ("main_like", 10, "grouped")])
+def test_fused_ivf_topk_kernel_routes_skew_and_repeatable(dev, case, k, route):
+    L, pad, rot, nq, P, dtype = 7, 1301, 128, 40, 5, torch.float32
+    probes = None
+    if case == "one_list":
+        probes = torch.full((300, 9), 3, dtype=torch.int32, device=dev)
+        nq, P = 300, 9
+    elif case == "out_of_range":
+        g = torch.Generator(device=dev).manual_seed(61)
+        probes = torch.randint(-2, L + 2, (nq, P), generator=g, device=dev,
+                               dtype=torch.int32)
+    elif case == "rot20":
+        rot = 20
+    elif case == "bf16_rot100":
+        rot, dtype = 100, torch.bfloat16
+    elif case == "rot200":
+        rot = 200
+    elif case == "main_like":
+        L, pad, nq, P = 16, 301, 2000, 8
+    args = _ivf_inputs(dev, L, pad, rot, nq, P, dtype, probes)
+    assert _ivf_route(args, k) == route
+    before = gk.LAUNCHES["fused_ivf_topk"]
+    got = gk.fused_ivf_topk(*args, k)
+    again = gk.fused_ivf_topk(*args, k)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_ivf_topk"] == before + 2
+    assert _bitwise_equal(got, again)
+    want = gk.fused_ivf_topk_plain(*args, k)
+    assert torch.equal(torch.isinf(got[0]), torch.isinf(want[0]))
+    assert_topk_close(got, want, 1e-4 * float(args[4].max()), 1e-5)
+
+
+@pytest.mark.parametrize("k,route", [(2, "grouped"), (10, "grouped"),
+                                     (40, "grouped"), (513, "per_query")])
+def test_fused_ivf_topk_kernel_ties_go_by_probe_then_slot(dev, k, route):
+    # list 1 holds list 0's rows moved one chunk on (slot s → s + 64): a
+    # query equal to row s of list 0 ties at the same distance with its copy;
+    # the copy in the earlier probe comes first, whatever the slots or runs
+    L, pad, rot, nq = 4, 600, 32, 64
+    data = _randn(dev, L, pad, rot, seed=62)
+    data[1] = torch.roll(data[0], 64, dims=0)
+    ids = torch.arange(L * pad, device=dev, dtype=torch.int32).reshape(L, pad)
+    slots = torch.arange(nq, device=dev) * 7
+    flip = torch.arange(nq, device=dev) % 2 == 1
+    probes = torch.stack([flip.int(), 1 - flip.int(), torch.full_like(
+        slots, 2, dtype=torch.int32), torch.full_like(slots, 3,
+                                                      dtype=torch.int32)], 1)
+    probes = probes.to(torch.int32).contiguous()
+    qres = data[0][slots][:, None, :].expand(nq, 4, rot).contiguous()
+    args = (probes, qres, (qres ** 2).sum(-1), data, (data ** 2).sum(-1), ids)
+    assert _ivf_route(args, k) == route
+    got = gk.fused_ivf_topk(*args, k)
+    torch.cuda.synchronize()
+    first = torch.where(flip, ids[1][(slots + 64) % pad], ids[0][slots])
+    second = torch.where(flip, ids[0][slots], ids[1][(slots + 64) % pad])
+    assert torch.equal(got[0][:, 0].view(torch.int32),
+                       got[0][:, 1].view(torch.int32))
+    assert torch.equal(got[1][:, 0], first) and torch.equal(got[1][:, 1],
+                                                             second)
+
+
 @pytest.mark.parametrize("b,n,k,select_min", [(1000, 1024, 32, True),
                                               (333, 5000, 1024, False),
                                               (7, 50, 5, True),
@@ -429,6 +525,42 @@ def test_fused_l2_argmin_kernel_matches_plain(dev, m, n, d, clamp):
     ok = _nn_far_from_ties(x, y, tol)
     assert torch.equal(got[1][ok], want[1][ok])
     assert got[1].dtype == torch.int32 and int(got[1].min()) >= 0
+
+
+# both routes of the plan (x resident in shared memory up to d = 160, split
+# into scratch planes above), m and n not multiples of the 128-row tiles
+@pytest.mark.parametrize("m,n,d,route", [
+    (333, 257, 1, "resident"), (1000, 1030, 33, "resident"),
+    (4099, 1024, 128, "resident"), (129, 130, 160, "resident"),
+    (333, 257, 200, "scratch"), (70, 1, 200, "scratch")])
+def test_fused_l2_argmin_kernel_routes_and_repeatable(dev, m, n, d, route):
+    assert gk.plan_fused_argmin(m, n, d).route == route
+    x, y = _randn(dev, m, d, seed=63), _randn(dev, n, d, seed=64)
+    got, want = _argmin_both(x, y, True)
+    again = gk.fused_l2_argmin(x, y, clamp=True)
+    torch.cuda.synchronize()
+    assert _bitwise_equal(got, again)
+    tol = 1e-4 * float(max((x * x).sum(1).max(), (y * y).sum(1).max()))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=tol)
+    ok = _nn_far_from_ties(x, y, tol)
+    assert torch.equal(got[1][ok], want[1][ok])
+
+
+@pytest.mark.parametrize("d", [24, 128, 200])
+def test_fused_l2_argmin_kernel_is_fp32_accurate(dev, d):
+    # rows far from the origin and close to each other, as in
+    # test_fused_l2_topk_kernel_is_fp32_accurate: one TF32 pass fails this
+    # bound, 3xTF32 meets it
+    g = torch.Generator(device=dev).manual_seed(65)
+    base = 10.0 + torch.randn(1, d, generator=g, device=dev)
+    y = base + torch.randn(1024, d, generator=g, device=dev)
+    x = base + torch.randn(3000, d, generator=g, device=dev)
+    got, want = _argmin_both(x, y, True)
+    scale = float((x * x).sum(1).max())
+    err = _f64_err(x, y, got[0][:, None], got[1][:, None])
+    plain_err = _f64_err(x, y, want[0][:, None], want[1][:, None])
+    assert err <= 4 * plain_err + 1e-7 * scale, (err, plain_err, scale)
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-4 * scale)
 
 
 @pytest.mark.parametrize("m,copies", [(5, 300), (700, 3)])
