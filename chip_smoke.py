@@ -10,8 +10,8 @@ seed, 10,000 queries, k=10, L2) it
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (timed), and
    prints ptxas's registers, spills and static shared memory of the
-   kernels of ``fused_l2_topk``, ``fused_ivf_topk``, ``fused_l2_argmin``
-   and ``ivf_scan``;
+   kernels of ``fused_l2_topk``, ``fused_ivf_topk``, ``fused_pq_topk``,
+   ``fused_cagra_topk``, ``fused_l2_argmin`` and ``ivf_scan``;
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
@@ -67,18 +67,22 @@ seed, 10,000 queries, k=10, L2) it
    one PyTorch call computes the same function, that call
    (``fused_l2_topk`` also over one 250,000-row shard of phase 5e;
    ``fused_l2_topk`` and ``fused_l2_argmin`` with their fp32 bound and the
-   3xTF32 tensor-core bound; ``fused_ivf_topk`` and ``ivf_scan`` also
-   bitwise equal over two runs; the rows of the planned kernels carry the
-   route and plan that ran). With ``--parent TREE`` (a source tree, such as
-   the parent commit unpacked under ``build/``) it saves the inputs of the
-   ``fused_l2_topk``, ``fused_ivf_topk``, ``fused_l2_argmin`` and
-   ``ivf_scan`` calls and times that tree's kernels and this tree's on them
-   in turns (parent, this, this, parent, one
-   ``raft_tpu_torch/bench/kernel_ab.py`` process each): the rows get
+   3xTF32 tensor-core bound; ``fused_pq_topk`` at the LUT phase's probes
+   and at refine's (64 probes, k·2), with the design figure
+   ``bound_smem_ms``, its lookups at 32 shared-memory reads a clock an SM;
+   ``fused_cagra_topk`` bitwise, with the design figure ``gather_ms``, the
+   scored rows at 3.35 TB/s; ``fused_ivf_topk``, ``fused_pq_topk`` and
+   ``ivf_scan`` also bitwise equal over two runs; the rows of the planned
+   kernels carry the route and plan that ran). With ``--parent TREE`` (a
+   source tree, such as the parent commit unpacked under ``build/``) it
+   saves the inputs of the planned kernels' calls and times that tree's
+   kernels and this tree's on them in turns (parent, this, this, parent,
+   one ``raft_tpu_torch/bench/kernel_ab.py`` process each): the rows get
    ``parent_ms`` and ``ab_ms``, null without the option;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
-   ``fused_l2_topk`` and ``fused_ivf_topk`` at two shapes, ``ivf_scan`` at
-   three), then, as the last line, ``{"ok": true, "device": {...}}``.
+   ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
+   shapes, ``ivf_scan`` at three), then, as the last line, ``{"ok": true,
+   "device": {...}}``.
 
 Every phase prints one JSON line. Any failed check raises, and the script
 then exits non-zero without the last line. Without a CUDA device, or
@@ -242,9 +246,10 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", default=None,
                         help="a source tree (the parent commit, unpacked) "
-                        "whose fused_l2_topk, fused_ivf_topk, fused_l2_argmin "
-                        "and ivf_scan are timed on the same inputs, in turns "
-                        "with this tree's")
+                        "whose planned kernels (fused_l2_topk, "
+                        "fused_ivf_topk, fused_pq_topk, fused_cagra_topk, "
+                        "fused_l2_argmin, ivf_scan) are timed on the same "
+                        "inputs, in turns with this tree's")
     opts = parser.parse_args()
 
     import torch
@@ -279,9 +284,13 @@ def main() -> int:
          "--format=csv,noheader"], capture_output=True, text=True,
         check=True).stdout.strip().splitlines()[0]
     print(smi, flush=True)
+    sm_clock_hz = 1e6 * float(subprocess.run(
+        ["nvidia-smi", "--query-gpu=clocks.max.sm", "--format=csv,noheader"],
+        capture_output=True, text=True, check=True).stdout.split()[0])
     torch.backends.cuda.matmul.allow_tf32 = False
     dev = torch.device("cuda", 0)
     emit({"phase": "card", "nvidia_smi": smi,
+          "clocks_max_sm_hz": sm_clock_hz,
           "device": torch.cuda.get_device_name(0),
           "python": sys.version.split()[0], "torch": torch.__version__,
           "cuda": torch.version.cuda})
@@ -292,6 +301,8 @@ def main() -> int:
           "libraries": {k: str(v.name) for k, v in paths.items()}})
     emit({"phase": "ptxas", **{name: ptxas_figures(paths[name])
                                for name in ("fused_l2_topk", "fused_ivf_topk",
+                                            "fused_pq_topk",
+                                            "fused_cagra_topk",
                                             "fused_l2_argmin", "ivf_scan")}})
 
     # data at SIFT-1M's shape, from the seed (set-up, not timed)
@@ -1029,32 +1040,77 @@ def main() -> int:
               pq_cache_launches["fused_ivf_topk"])
     del pq_cache, args, qr_res
 
-    # the LUT regime's kernel inputs, as _search_fused_lut_core builds them
-    q_rot, centers_rot, lut_pr = ivf_pq._coarse_probes_rot(queries, pq_index,
-                                                          lut_probes)
+    # the LUT regime's kernel inputs, as _search_fused_lut_core builds them,
+    # at the LUT phase's probes (k) and at refine's (2k candidates)
     codebooks = pq_index.codebooks.contiguous()
     cb_norms = (codebooks * codebooks).sum(-1).contiguous()
-    args = (lut_pr, q_rot, centers_rot, codebooks, cb_norms,
-            pq_index.list_codes, pq_index.safe_ids(), K)
-    rows_scanned = int(pq_sizes[lut_pr.long()].sum())
-    n_probed = torch.unique(lut_pr.long()).numel()
-    n_luts = lut_pr.numel()
     pq_len = pq_index.pq_len
-    check(dict(name="fused_pq_topk", route="cuda",
-               source="raft_tpu_torch/csrc/fused_pq_topk.cu",
-               replaces="raft_tpu/ops/pallas_kernels.py:989",
-               shape=f"ivf_pq lut: {N_QUERIES} queries x {lut_probes} probes,"
-                     f" pad {pq_pad}, pq_dim {PQ_DIM}, pq_len {pq_len}",
-               launches=pq_lut_launches["fused_pq_topk"], library_ms=None,
-               rows_scanned=rows_scanned, luts=n_luts,
-               **bound(4 * (lut_pr.numel() + q_rot.numel()
-                            + centers_rot.numel() + codebooks.numel()
-                            + cb_norms.numel())
-                       + n_probed * pq_pad * (PQ_DIM + 4) + 8 * N_QUERIES * K,
-                       n_luts * PQ_DIM * 256 * (2 * pq_len + 2)
-                       + rows_scanned * PQ_DIM)),
-          gk.fused_pq_topk, gk.fused_pq_topk_plain, args,
-          1e-4 * adc_scale(gk.fused_pq_topk_plain, args), 1e-5, 3)
+    pq_model = {}
+
+    def check_pq(label, probes_n, k_, launches):
+        """fused_pq_topk against its plain version (values within
+        1e-4·the largest ADC distance + 1e-5·|v|, ids as assert_topk_close
+        holds them), bitwise equal over two runs, with the plan that ran.
+        The bound counts the probes, queries, centres, codebooks and norms
+        once, each probed list's codes and ids once, the result once, and
+        the operations: each LUT's entries (2·pq_len + 2 each) and one add a
+        (row, subspace) scanned; the design figure ``bound_smem_ms`` counts
+        the lookups, one shared-memory read a (row, pair, subspace), at 32
+        a clock on each SM at the card's largest SM clock."""
+        q_rot, centers_rot, pr = ivf_pq._coarse_probes_rot(queries, pq_index,
+                                                           probes_n)
+        args = (pr, q_rot, centers_rot, codebooks, cb_norms,
+                pq_index.list_codes, pq_index.safe_ids(), k_)
+        got = gk.fused_pq_topk(*args)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got, gk.fused_pq_topk(*args))):
+            raise AssertionError(f"fused_pq_topk ({label}): two runs differ")
+        del got
+        rows_scanned = int(pq_sizes[pr.long()].sum())
+        n_probed = torch.unique(pr.long()).numel()
+        n_luts = pr.numel()
+        plan = gk.plan_fused_pq(N_QUERIES, probes_n, N_LISTS, pq_pad, PQ_DIM,
+                                pq_len, k_)
+        per_list = torch.bincount(pr.long().flatten(), minlength=N_LISTS)
+        groups = -(-per_list // gk.IVF_SCAN_GROUP)
+        run_rows = gk.PQ_ROWS_PER_WARP * plan.warps
+        filled_runs = -(-pq_sizes // run_rows)  # runs with a filled slot
+        pq_model[label] = {
+            "codes_and_ids_bytes_grouped": int((groups * pq_sizes).sum())
+            * (PQ_DIM + 4),
+            "codes_and_ids_bytes_per_pair": rows_scanned * (PQ_DIM + 4),
+            "codebook_bytes_grouped": int((groups * filled_runs).sum())
+            * PQ_DIM * 256 * (pq_len + 1) * 4,
+            "codebook_bytes_per_pair": n_luts * PQ_DIM * 256
+            * (pq_len + 1) * 4,
+            "groups": int(groups.sum()),
+            "lut_builds": int((groups * filled_runs).sum())}
+        ab_cases[f"fused_pq_topk_{label}"] = ("fused_pq_topk", args, 3)
+        lookups = rows_scanned * PQ_DIM
+        check(dict(name="fused_pq_topk", route="cuda",
+                   source="raft_tpu_torch/csrc/fused_pq_topk.cu",
+                   replaces="raft_tpu/ops/pallas_kernels.py:989",
+                   shape=f"{label}: {N_QUERIES} queries x {probes_n} probes,"
+                         f" pad {pq_pad}, pq_dim {PQ_DIM}, pq_len {pq_len}, "
+                         f"k={k_}",
+                   launches=launches, library_ms=None,
+                   rows_scanned=rows_scanned, luts=n_luts,
+                   bitwise_repeatable=True, kernel_route=plan.route,
+                   plan=dataclasses.asdict(plan),
+                   bound_smem_ms=1e3 * lookups / (32 * n_sm * sm_clock_hz),
+                   **bound(4 * (pr.numel() + q_rot.numel()
+                                + centers_rot.numel() + codebooks.numel()
+                                + cb_norms.numel())
+                           + n_probed * pq_pad * (PQ_DIM + 4)
+                           + 8 * N_QUERIES * k_,
+                           n_luts * PQ_DIM * 256 * (2 * pq_len + 2)
+                           + lookups)),
+              gk.fused_pq_topk, gk.fused_pq_topk_plain, args,
+              1e-4 * adc_scale(gk.fused_pq_topk_plain, args), 1e-5, 3)
+
+    check_pq("ivf_pq_lut", lut_probes, K, pq_lut_launches["fused_pq_topk"])
+    check_pq("ivf_pq_refine", refine_probes, 2 * K,
+             refine_launches["fused_pq_topk"])
 
     res = assert_topk_close(gk.streaming_select_k(scores, n_probes),
                             gk.streaming_select_k_plain(scores, n_probes),
@@ -1076,6 +1132,15 @@ def main() -> int:
     # the beam walk: each row it touches read once, each node's graph row
     # once; a dot product per (query, row) scored and one norm per row
     n_seeds = cg_plan.plan["n_seeds"]
+    cg_kplan = gk.plan_fused_cagra(itopk, DIM, 1, CAGRA_DEGREE)
+    got = gk.fused_cagra_topk(*cg_args, K, itopk, 1, cg_max_iter)
+    want = gk.fused_cagra_topk_plain(*cg_args, K, itopk, 1, cg_max_iter)
+    if not (torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+            and torch.equal(got[1], want[1])):
+        raise AssertionError("fused_cagra_topk differs from its plain version")
+    del got, want
+    ab_cases["fused_cagra_topk"] = (
+        "fused_cagra_topk", (*cg_args, K, itopk, 1, cg_max_iter), 3)
     check(dict(name="fused_cagra_topk", route="cuda",
                source="raft_tpu_torch/csrc/fused_cagra_topk.cu",
                replaces="raft_tpu/ops/pallas_kernels.py:1368",
@@ -1084,7 +1149,10 @@ def main() -> int:
                      f"max_iter {cg_max_iter}",
                launches=cagra_launches["fused_cagra_topk"], library_ms=None,
                hops=cg_hops, rows_scored=cg_rows, rows_touched=cg_touched,
-               nodes_expanded=cg_expanded,
+               nodes_expanded=cg_expanded, bitwise=True,
+               gather_ms=1e3 * cg_rows * DIM * 4 / PEAK_BYTES_PER_S,
+               kernel_route=cg_kplan.route,
+               plan=dataclasses.asdict(cg_kplan),
                **bound(cg_touched * DIM * 4 + cg_expanded * CAGRA_DEGREE * 4
                        + 4 * N_QUERIES * (DIM + 1 + n_seeds)
                        + 8 * N_QUERIES * K,
@@ -1274,26 +1342,20 @@ def main() -> int:
     emit({"phase": "kernel_check", **entry})
     del got, want, copies
 
-    # a model, not a measurement: the bytes the one-block-per-query designs
-    # would read if nothing were reused between blocks (the LUT kernel's
-    # codebooks and their norms once per (query, probe); the beam walk's
-    # rows once per visit and its graph rows once per hop), and the grouped
-    # kernels' slab traffic (check_ivf, check_scan); nothing in the run
-    # measures it
-    rows = [k["rows_scanned"] for k in kernels if "rows_scanned" in k]
+    # a model, not a measurement: the grouped kernels' traffic against the
+    # per-pair designs they replace (check_ivf, check_pq, check_scan: the
+    # LUT kernel's codes and ids once per group of pairs against once per
+    # pair, its codebooks and their norms once per LUT build against once
+    # per (query, probe)), and the beam walk's rows once per visit and its
+    # graph rows once per hop; nothing in the run measures it
     emit({"phase": "read_model", "measured": False,
-          "fused_ivf_topk": ivf_model,
-          "fused_pq_topk_code_and_id_bytes": rows[2] * PQ_DIM
-          + n_luts * pq_pad * 4,
-          "fused_pq_topk_codebook_bytes": n_luts * PQ_DIM * 256
-          * (pq_len + 1) * 4,
+          "fused_ivf_topk": ivf_model, "fused_pq_topk": pq_model,
           "fused_cagra_topk_visit_bytes": cg_rows * DIM * 4
           + cg_hops * CAGRA_DEGREE * 4,
           "ivf_scan": scan_model})
 
-    # the parent tree's fused_l2_topk, fused_ivf_topk, fused_l2_argmin and
-    # ivf_scan on the same inputs, in turns with this tree's (parent, this,
-    # this, parent), one process each
+    # the parent tree's planned kernels on the same inputs, in turns with
+    # this tree's (parent, this, this, parent), one process each
     if opts.parent:
         ab_path = gk.BUILD_DIR / "ab_inputs.pt"
         ab_path.parent.mkdir(parents=True, exist_ok=True)
@@ -1308,6 +1370,9 @@ def main() -> int:
     names = {"fused_l2_topk": iter(("fused_l2_topk", "fused_l2_topk_shard")),
              "fused_ivf_topk": iter(("fused_ivf_topk_ivf_flat",
                                      "fused_ivf_topk_ivf_pq_cache")),
+             "fused_pq_topk": iter(("fused_pq_topk_ivf_pq_lut",
+                                    "fused_pq_topk_ivf_pq_refine")),
+             "fused_cagra_topk": iter(("fused_cagra_topk",)),
              "fused_l2_argmin": iter(("fused_l2_argmin",)),
              "ivf_scan": iter(("ivf_scan_ivf_flat_filtered",
                                "ivf_scan_ivf_flat_inner_product",

@@ -7,26 +7,38 @@ On the card, at ``fused_l2_topk``'s main shape (SIFT-1M's from the seed:
 1,000,000 × 128 rows, 10,000 queries, k=10), on an ``ivf_scan`` tile of
 440 queries × 32 random probes over 1024 lists of 1456 slots (rot 128,
 f32), ``fused_ivf_topk`` on 10,000 queries × 32 random probes of the same
-lists (each list filled to a random size in [500, 1456), k=10) and
+lists (each list filled to a random size in [500, 1456), k=10),
 ``fused_l2_argmin`` at the k-means E-step's shape (the 1M rows against
-1024 of them, clamped), it times, as mean milliseconds a call:
+1024 of them, clamped), ``fused_pq_topk`` on 10,000 queries × 32 random
+probes of 1024 lists of 1456 random codes (pq_dim 64, pq_len 2, filled as
+above, k=10; and 64 probes at k=20, refine's shape) and
+``fused_cagra_topk`` over the 1M rows with a random graph of degree 32
+(10,000 queries, 64 random seeds, itopk 64, width 1), it times, as mean
+milliseconds a call:
 
 - each kernel as it is, ``fused_ivf_topk`` also at k = 1, 16, 17 and 32
-  (carries in registers up to 16, in shared memory above), and the
-  grouping pass alone at both kernels' sizes;
+  (carries in registers up to 16, in shared memory above),
+  ``fused_pq_topk`` at k = 1, 20, 32 and 33 (the per-query route above
+  32), and the grouping pass alone at both IVF kernels' sizes;
 - ``fused_l2_topk`` under other plans than the planner's (database
   ranges, ring stages, consumer warpgroups), ``fused_ivf_topk`` with
-  other runs, ``fused_l2_argmin`` with other ring stages, each
-  result held bitwise to the planner's;
+  other runs, ``fused_l2_argmin`` with other ring stages,
+  ``fused_pq_topk`` with fewer warps (shorter runs), ``fused_cagra_topk``
+  with other warps a block and on its block route, each result held
+  bitwise to the planner's;
 - copies of the sources with one part taken out (built into
   ``build/raft_tpu_torch/ablate/`` and loaded in place of the kernel's
   library): ``fused_l2_topk`` without its epilogue (the product alone) and
   without the survivors' merges (the epilogue's first pass and vote
   alone); ``ivf_scan`` without the staging of the slab rows and without
-  the product. An ablated kernel computes a wrong result; only its time
-  is read. (A part whose result nothing reads is dropped by the compiler
-  with the work that feeds it, so ``fused_ivf_topk``'s selection, which
-  alone reads its products, is measured by its time at other k instead.)
+  the product; ``fused_pq_topk`` without the per-query merge, with its
+  LUT taken as built (no LUT build) and without the staging of the codes;
+  ``fused_cagra_topk`` without the dedup and without the candidates'
+  sort. An ablated kernel computes a wrong result (and an ablated beam
+  walk takes another path); only its time is read. (A part whose result
+  nothing reads is dropped by the compiler with the work that feeds it,
+  so ``fused_ivf_topk``'s selection, which alone reads its products, is
+  measured by its time at other k instead.)
 
 Prints one JSON line. Needs a CUDA card and ``nvcc``.
 """
@@ -43,20 +55,38 @@ import sys
 import numpy as np
 import torch
 
-#: name → (kernel, text to replace, replacement)
+#: name → (kernel, [(text to replace, replacement), ...])
 ABLATIONS = {
-    "fused_l2_topk/no_epilogue": (
-        "fused_l2_topk", "    // epilogue: 16 column pairs",
-        "    continue;\n    // epilogue: 16 column pairs"),
-    "fused_l2_topk/no_survivor_merges": (
-        "fused_l2_topk", "    for (; cmask; cmask &= cmask - 1) {",
-        "    for (cmask = 0; cmask; cmask &= cmask - 1) {"),
-    "ivf_scan/no_slab_staging": (
-        "ivf_scan", "    ivfg::copy_slab<T, V, kThreads>(",
-        "    if (false) ivfg::copy_slab<T, V, kThreads>("),
-    "ivf_scan/no_product": (
-        "ivf_scan", "    if (busy) ivfg::tile_product(acc, xs, qs, tx, ty, rc);",
-        "    if (false) ivfg::tile_product(acc, xs, qs, tx, ty, rc);"),
+    "fused_l2_topk/no_epilogue": ("fused_l2_topk", [(
+        "    // epilogue: 16 column pairs",
+        "    continue;\n    // epilogue: 16 column pairs")]),
+    "fused_l2_topk/no_survivor_merges": ("fused_l2_topk", [(
+        "    for (; cmask; cmask &= cmask - 1) {",
+        "    for (cmask = 0; cmask; cmask &= cmask - 1) {")]),
+    "ivf_scan/no_slab_staging": ("ivf_scan", [(
+        "    ivfg::copy_slab<T, V, kThreads>(",
+        "    if (false) ivfg::copy_slab<T, V, kThreads>(")]),
+    "ivf_scan/no_product": ("ivf_scan", [(
+        "    if (busy) ivfg::tile_product(acc, xs, qs, tx, ty, rc);",
+        "    if (false) ivfg::tile_product(acc, xs, qs, tx, ty, rc);")]),
+    "fused_pq_topk/no_merge": ("fused_pq_topk", [(
+        "  return rtt::launch_select_rows(\n      a.part_v,",
+        "  if (nq > 0) return cudaSuccess;\n"
+        "  return rtt::launch_select_rows(\n      a.part_v,")]),
+    "fused_pq_topk/prebuilt_lut": ("fused_pq_topk", [(
+        "const CbEntry<PL>& cb2) {\n",
+        "const CbEntry<PL>& cb2) {\n  if (u >= 0) return;\n")]),
+    "fused_pq_topk/no_code_staging": ("fused_pq_topk", [(
+        "    for (int e = tid; e < n_run * words; e += nt) {",
+        "    for (int e = tid; e < 0; e += nt) {")]),
+    "fused_cagra_topk/no_dedup": ("fused_cagra_topk", [
+        ("  int i = 0;\n  for (; i + 4 <= c.itopk; i += 4) {",
+         "  int i = c.itopk;\n  for (; i + 4 <= c.itopk; i += 4) {"),
+        ("    drop[u] = drop[u] || (same & below) != 0u;",
+         "    drop[u] = drop[u] || (same & below & 0u) != 0u;")]),
+    "fused_cagra_topk/no_sort": ("fused_cagra_topk", [(
+        "  sort_keys<CPL>(key);",
+        "  if (false) sort_keys<CPL>(key);")]),
 }
 
 
@@ -73,15 +103,18 @@ def _ms(fn, reps: int) -> float:
     return start.elapsed_time(end) / reps
 
 
-def _build(gk, name: str, kernel: str, old: str, new: str):
-    """The kernel's library built from its source with ``old`` replaced."""
+def _build(gk, name: str, kernel: str, edits):
+    """The kernel's library built from its source with each ``(old, new)``
+    of ``edits`` replaced."""
     src = (gk.CSRC / gk.SOURCES[kernel]).read_text()
-    if src.count(old) != 1:
-        raise RuntimeError(f"{name}: the source no longer has {old!r}")
+    for old, new in edits:
+        if src.count(old) != 1:
+            raise RuntimeError(f"{name}: the source no longer has {old!r}")
+        src = src.replace(old, new)
     out = gk.BUILD_DIR / "ablate"
     out.mkdir(parents=True, exist_ok=True)
     cu = out / (name.replace("/", "-") + ".cu")
-    cu.write_text(src.replace(old, new))
+    cu.write_text(src)
     lib = cu.with_suffix(".so")
     subprocess.run([gk._nvcc(), *gk.NVCC_FLAGS, "-I", str(gk.CSRC), "-o",
                     str(lib), str(cu)], check=True, capture_output=True)
@@ -154,10 +187,28 @@ def main() -> int:
                 10)
     centres = y[torch.randperm(y.shape[0], generator=g, device=dev)[:1024]]
     argmin_args = (y, centres, yn, row_norms_sq(centres), True)
+    # fused_pq_topk: random codes of the same lists' sizes
+    codes = torch.randint(0, 256, (1024, 1456, 64), generator=g, device=dev,
+                          dtype=torch.uint8)
+    cb = torch.randn(64, 256, 2, generator=g, device=dev)
+    pq_base = (ivf_probes, torch.randn(10000, 128, generator=g, device=dev),
+               torch.randn(1024, 128, generator=g, device=dev), cb,
+               (cb * cb).sum(-1), codes, ids)
+    pq_refine = (torch.randint(0, 1024, (10000, 64), generator=g, device=dev,
+                               dtype=torch.int32), *pq_base[1:])
+    # fused_cagra_topk: a random graph of degree 32 over the 1M rows
+    graph = torch.randint(0, y.shape[0], (y.shape[0], 32), generator=g,
+                          device=dev, dtype=torch.int32)
+    seeds = torch.randint(0, y.shape[0], (10000, 64), generator=g, device=dev,
+                          dtype=torch.int32)
+    cagra_args = (x, y, graph, seeds, gk.beam_norms(x), 10, 64, 1, 0)
     calls = {"fused_l2_topk": (lambda: gk.fused_l2_topk(x, y, 10, xn, yn), 3),
              "ivf_scan": (lambda: gk.ivf_scan(probes, qres, data, norms), 20),
              "fused_ivf_topk": (lambda: gk.fused_ivf_topk(*ivf_args), 5),
-             "fused_l2_argmin": (lambda: gk.fused_l2_argmin(*argmin_args), 5)}
+             "fused_l2_argmin": (lambda: gk.fused_l2_argmin(*argmin_args), 5),
+             "fused_pq_topk": (lambda: gk.fused_pq_topk(*pq_base, 10), 3),
+             "fused_cagra_topk": (lambda: gk.fused_cagra_topk(*cagra_args),
+                                  3)}
     times = {kernel: _ms(fn, reps) for kernel, (fn, reps) in calls.items()}
     times["ivf_scan_groups"] = _ms(lambda: gk.ivf_scan_groups(probes, 1024),
                                    20)
@@ -167,6 +218,11 @@ def main() -> int:
     for k in (1, 16, 17, 32):  # how the selection's cost grows with k
         times[f"fused_ivf_topk/k={k}"] = _ms(
             lambda: gk.fused_ivf_topk(*ivf_args[:6], k), 5)
+    for k in (1, 20, 32, 33):  # 33: the per-query route
+        times[f"fused_pq_topk/k={k}"] = _ms(
+            lambda: gk.fused_pq_topk(*pq_base, k), 3)
+    times["fused_pq_topk/refine_shape"] = _ms(
+        lambda: gk.fused_pq_topk(*pq_refine, 20), 3)
     want = gk.fused_l2_topk(x, y, 10, xn, yn)
     base = gk.plan_fused_topk(x.shape[0], y.shape[0], 128, 10, n_sm)
     variants = {}
@@ -190,6 +246,20 @@ def main() -> int:
         am_plan, stages=2, smem=gk.l2_argmin_smem_bytes("resident", 128, 2))}
     _time_variants(gk, "plan_fused_argmin", "fused_l2_argmin", variants,
                    gk.fused_l2_argmin(*argmin_args), calls, times)
+    pq_plan = gk.plan_fused_pq(10000, 32, 1024, 1456, 64, 2, 10)
+    variants = {f"warps={w}": dataclasses.replace(
+        pq_plan, warps=w, runs=-(-1456 // (gk.PQ_ROWS_PER_WARP * w)),
+        smem=gk.pq_grouped_smem_bytes(64, 2, w)) for w in (8, 12)}
+    _time_variants(gk, "plan_fused_pq", "fused_pq_topk", variants,
+                   gk.fused_pq_topk(*pq_base, 10), calls, times)
+    cg_plan = gk.plan_fused_cagra(64, 128, 1, 32)
+    slice_ = gk.cagra_warp_smem_bytes(64, 128, 1, 32)
+    variants = {f"warps={w}": gk.CagraTopkPlan("warp", w, w * slice_)
+                for w in (1, 2)}
+    variants["block_route"] = gk.CagraTopkPlan(
+        "block", 0, gk.cagra_topk_smem_bytes(64, 128, 1, 32))
+    _time_variants(gk, "plan_fused_cagra", "fused_cagra_topk", variants,
+                   gk.fused_cagra_topk(*cagra_args), calls, times)
     built = {name: _build(gk, name, *spec) for name, spec in ABLATIONS.items()}
     for name, path in built.items():
         kernel = ABLATIONS[name][0]
@@ -206,7 +276,10 @@ def main() -> int:
                                   "fused_ivf_topk": dataclasses.asdict(
                                       ivf_plan),
                                   "fused_l2_argmin": dataclasses.asdict(
-                                      am_plan)},
+                                      am_plan),
+                                  "fused_pq_topk": dataclasses.asdict(pq_plan),
+                                  "fused_cagra_topk": dataclasses.asdict(
+                                      cg_plan)},
                       "ms": times}), flush=True)
     return 0
 

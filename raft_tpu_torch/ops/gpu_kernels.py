@@ -9,7 +9,10 @@ slice. Each kernel has
   and flags) and loaded with ``ctypes``;
 - a wrapper that checks device, dtype, shape and contiguity, allocates the
   outputs, launches on PyTorch's current stream, raises if the launch
-  failed, and adds one to its count in ``LAUNCHES``;
+  failed, and adds one to its count in ``LAUNCHES`` (``fused_l2_topk``
+  over several database ranges and the grouped routes of
+  ``fused_ivf_topk`` and ``fused_pq_topk`` end in a launch of select_k's
+  kernel, their per-query merge, counted under ``select_k``);
 - a plain PyTorch version of the same function, which the wrapper runs for
   tensors on the CPU and which the CPU tests and ``chip_smoke.py`` hold the
   kernel against.
@@ -76,9 +79,9 @@ _ARGTYPES = {
                        _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
     "fused_pq_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
-                      _I, _I, _I, _VP, _VP, _VP],
+                      _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "fused_cagra_topk": [_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
-                         _I, _I, _I, _VP, _VP, _VP],
+                         _I, _I, _I, _I, _I, _VP, _VP, _VP],
     "fused_l2_argmin": [_VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I, _I,
                         _VP, _VP, _VP, _VP],
     "ivf_scan": [_VP, _VP, _VP, _I, _VP, _VP, _LL, _I, _I, _I, _I, _VP, _VP],
@@ -411,6 +414,7 @@ def fused_l2_topk(x, y, k: int, x_norms=None, y_norms=None):
                 _stream(dev))
         _check_rc("fused_l2_topk", rc)
         LAUNCHES["fused_l2_topk"] += 1
+        LAUNCHES["select_k"] += int(plan.splits > 1)  # the ranges' merge
     return out_v, out_i
 
 
@@ -626,6 +630,7 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
                 out_i[r0:r1].data_ptr(), _stream(dev))
         _check_rc("fused_ivf_topk", rc)
         LAUNCHES["fused_ivf_topk"] += 1
+        LAUNCHES["select_k"] += int(grouped)  # the per-query merge
     return out_v, out_i
 
 
@@ -681,8 +686,117 @@ def pq_topk_smem_bytes(pq_dim: int, pq_len: int, k: int) -> int:
 
 def fused_pq_fits(pq_dim: int, pq_len: int, k: int) -> bool:
     """True when one probe's LUT, with the carry, fits a block's shared
-    memory on Hopper (pq_dim up to about 200 at k=1024)."""
+    memory on Hopper (pq_dim up to about 200 at k=1024): the per-query
+    route's need, which also bounds what the grouped route is asked."""
     return pq_topk_smem_bytes(pq_dim, pq_len, k) <= SMEM_LIMIT
+
+
+#: fused_pq_topk's grouped route (fused_pq_topk.cu): a work item's pairs,
+#: one a lane (``IVF_SCAN_GROUP``); subspaces a LUT chunk (one code word);
+#: floats a pair's LUT chunk takes (pair stride 1025 ≡ 1 mod 32, so the 32
+#: lanes' lookups of one code hit 32 banks); list rows a warp scans; warps
+#: a block at most
+PQ_SUB, PQ_LUT_STRIDE, PQ_ROWS_PER_WARP, PQ_MAX_WARPS = 4, 4 * 256 + 1, 64, 16
+#: up to this k a pair's carry lives in the registers of one warp (entry l
+#: in lane l); above it the per-query route
+PQ_GROUPED_MAX_K = 32
+
+
+def pq_grouped_smem_bytes(pq_dim: int, pq_len: int, warps: int,
+                          res_chunked: bool = False) -> int:
+    """Shared memory of one block of ``fused_pq_topk``'s grouped route with
+    ``warps`` warps (``grouped_smem_bytes`` in fused_pq_topk.cu, plus 512
+    bytes for its static arrays): the 32 pairs' LUT chunk (later the
+    run's distance keys, [32, rows + 1]), the pairs' residuals ([32, rot],
+    or [32, 4·pq_len] when staged a LUT chunk at a time) and the run's
+    codes as words [⌈pq_dim / 4⌉, rows + 1]."""
+    rows = PQ_ROWS_PER_WARP * warps
+    words = -(-pq_dim // PQ_SUB)
+    res = PQ_SUB * pq_len if res_chunked else pq_dim * pq_len
+    return 4 * (IVF_SCAN_GROUP * PQ_LUT_STRIDE + IVF_SCAN_GROUP * res
+                + words * (rows + 1)) + 512
+
+
+@dataclasses.dataclass(frozen=True)
+class PqTopkPlan:
+    """How ``fused_pq_topk`` runs: ``route`` "grouped" (pairs grouped by
+    list, 32 a block, each pair's top k of a run of ``64·warps`` slots, then
+    a merge per query) or "per_query" (large k, or a shape whose grouped
+    block does not fit); ``runs`` of a list's slots; the pairs' residuals
+    staged whole, or a LUT chunk at a time (``res_chunked``, for wide
+    rotations); ``q_chunk`` queries a launch, so that the partials stay
+    within ``IVF_TOPK_SCRATCH_BUDGET``; ``scratch_bytes`` of the partials
+    and the grouping; ``smem`` bytes a block."""
+
+    route: str
+    warps: int
+    res_chunked: bool
+    runs: int
+    q_chunk: int
+    smem: int
+    scratch_bytes: int
+
+
+def plan_fused_pq(nq: int, n_probes: int, n_lists: int, pad: int,
+                  pq_dim: int, pq_len: int, k: int) -> PqTopkPlan:
+    """The plan of ``fused_pq_topk`` for nq queries × n_probes probes over
+    n_lists lists of pad slots, codes of pq_dim bytes, codebooks of pq_len.
+
+    The grouped route up to ``PQ_GROUPED_MAX_K``: as many warps (64 slots
+    each, up to 16, no more than the list needs) as fit a block's shared
+    memory, since every run of a pair rebuilds its LUT, with the residuals
+    staged whole unless staging them a chunk at a time fits more warps; the
+    queries cut into chunks whose partials fit the budget. Above it, or
+    when no block fits, the per-query route (which ``fused_pq_fits``
+    bounds)."""
+    q_rows = max(nq, 1)
+    need = min(PQ_MAX_WARPS, -(-max(pad, 1) // PQ_ROWS_PER_WARP))
+
+    def most(chunked: bool) -> int:
+        return max([w for w in range(1, need + 1) if pq_grouped_smem_bytes(
+            pq_dim, pq_len, w, chunked) <= SMEM_LIMIT], default=0)
+
+    whole, chunked = most(False), most(True)
+    if k > PQ_GROUPED_MAX_K or not chunked:
+        return PqTopkPlan("per_query", 0, False, 0, q_rows,
+                          pq_topk_smem_bytes(pq_dim, pq_len, k), 0)
+    res_chunked = chunked > whole
+    warps = chunked if res_chunked else whole
+    runs = -(-max(pad, 1) // (PQ_ROWS_PER_WARP * warps))
+    q_chunk = min(q_rows, max(1, IVF_TOPK_SCRATCH_BUDGET
+                              // (n_probes * runs * k * 8)))
+    scratch = (q_chunk * n_probes * runs * k * 8
+               + 4 * ivf_group_scratch(q_chunk * n_probes, n_lists))
+    return PqTopkPlan("grouped", warps, res_chunked, runs, q_chunk,
+                      pq_grouped_smem_bytes(pq_dim, pq_len, warps,
+                                            res_chunked), scratch)
+
+
+def _pq_distances(probes, q_rot, centers_rot, codebooks, cb_norms,
+                  list_codes, list_indices):
+    """The ADC distances of the plain version for a chunk of queries: [t,
+    P, pad] (+inf at ids < 0 and probes outside [0, n_lists)) and the slots'
+    ids [t, P, pad]."""
+    n_probes = probes.shape[1]
+    n_lists, pad, pq_dim = list_codes.shape
+    pq_len = codebooks.shape[2]
+    pr = probes.to(torch.int64)
+    valid = (pr >= 0) & (pr < n_lists)
+    pr = pr.clamp(0, n_lists - 1)
+    t = pr.shape[0]
+    res = q_rot[:, None, :].to(torch.float32) - centers_rot[pr]
+    base = (res * res).sum(-1)  # [t, P]
+    dots = einsum_fp32("tpsl,scl->tpsc",
+                       res.reshape(t, n_probes, pq_dim, pq_len), codebooks)
+    lut = cb_norms[None, None] - 2.0 * dots  # [t, P, s, book]
+    acc = torch.zeros((t, n_probes, pad), dtype=torch.float32,
+                      device=q_rot.device)
+    for s in range(pq_dim):
+        code_s = list_codes[:, :, s][pr].to(torch.int64)  # [t, P, pad]
+        acc = acc + torch.gather(lut[:, :, s, :], 2, code_s)
+    d = acc + base[:, :, None]
+    ids = list_indices[pr]
+    return torch.where((ids < 0) | ~valid[:, :, None], torch.inf, d), ids
 
 
 def fused_pq_topk_plain(probes, q_rot, centers_rot, codebooks, cb_norms,
@@ -693,30 +807,17 @@ def fused_pq_topk_plain(probes, q_rot, centers_rot, codebooks, cb_norms,
     outside [0, n_lists)) +inf, and the selection over the candidates in
     (probe, slot) order."""
     nq, n_probes = probes.shape
-    n_lists, pad, pq_dim = list_codes.shape
-    book, pq_len = codebooks.shape[1], codebooks.shape[2]
+    pad, pq_dim = list_codes.shape[1:]
+    book = codebooks.shape[1]
     # per query: the LUTs and their product, then acc, ids, gathered codes
     per_q = n_probes * (pq_dim * book * 8 + pad * 24)
     step = _row_chunk(1, per_q)
     out_v, out_i = [], []
     for s0 in range(0, nq, step):
-        pr = probes[s0:s0 + step].to(torch.int64)
-        valid = (pr >= 0) & (pr < n_lists)
-        pr = pr.clamp(0, n_lists - 1)
-        t = pr.shape[0]
-        res = q_rot[s0:s0 + step, None, :].to(torch.float32) - centers_rot[pr]
-        base = (res * res).sum(-1)  # [t, P]
-        dots = einsum_fp32("tpsl,scl->tpsc",
-                           res.reshape(t, n_probes, pq_dim, pq_len), codebooks)
-        lut = cb_norms[None, None] - 2.0 * dots  # [t, P, s, book]
-        acc = torch.zeros((t, n_probes, pad), dtype=torch.float32,
-                          device=q_rot.device)
-        for s in range(pq_dim):
-            code_s = list_codes[:, :, s][pr].to(torch.int64)  # [t, P, pad]
-            acc = acc + torch.gather(lut[:, :, s, :], 2, code_s)
-        d = acc + base[:, :, None]
-        ids = list_indices[pr]
-        d = torch.where((ids < 0) | ~valid[:, :, None], torch.inf, d)
+        d, ids = _pq_distances(probes[s0:s0 + step], q_rot[s0:s0 + step],
+                               centers_rot, codebooks, cb_norms, list_codes,
+                               list_indices)
+        t = d.shape[0]
         v, i = _stable_topk(d.reshape(t, n_probes * pad), k,
                             ids.reshape(t, n_probes * pad))
         out_v.append(v)
@@ -737,7 +838,9 @@ def fused_pq_topk(probes, q_rot, centers_rot, codebooks, cb_norms,
     256] f32 (the codebook rows' squared norms); list_codes [L, pad, pq_dim]
     uint8, one byte per code; list_indices [L, pad] int32, -1 at unfilled
     slots. Returns the ascending ADC squared distances ``(distances [nq, k],
-    ids [nq, k])``, unclamped."""
+    ids [nq, k])``, unclamped. On the card the route and its sizes come from
+    ``plan_fused_pq``; the grouped route takes int32 and float scratch of
+    ``plan.scratch_bytes``, one launch per query chunk."""
     _check_k("fused_pq_topk", k)
     tensors = (probes, q_rot, centers_rot, codebooks, cb_norms, list_codes,
                list_indices)
@@ -776,17 +879,45 @@ def fused_pq_topk(probes, q_rot, centers_rot, codebooks, cb_norms,
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq == 0:
         return out_v, out_i
-    vec16 = int(pq_dim % 16 == 0 and list_codes.data_ptr() % 16 == 0)
+    if n_probes == 0 or n_lists == 0 or pad == 0:  # no candidate
+        return out_v.fill_(torch.inf), out_i.fill_(-1)
+    plan = plan_fused_pq(nq, n_probes, n_lists, pad, pq_dim, pq_len, k)
+    grouped = plan.route == "grouped"
+    groups = part_v = part_i = None
+    if grouped:
+        n_pairs = plan.q_chunk * n_probes
+        if (n_pairs > 2**31 - 1
+                or -(-n_pairs // IVF_SCAN_GROUP) + n_lists + 1 > 2**31 - 1
+                or plan.runs > 65535):
+            raise ValueError(f"fused_pq_topk: {n_pairs} (query, probe) pairs "
+                             f"over {n_lists} lists of {pad} slots exceed one "
+                             "launch's grid")
+        groups = torch.empty(ivf_group_scratch(n_pairs, n_lists),
+                             dtype=torch.int32, device=dev)
+        part_v = torch.empty(n_pairs * plan.runs * k, dtype=torch.float32,
+                             device=dev)
+        part_i = torch.empty(n_pairs * plan.runs * k, dtype=torch.int32,
+                             device=dev)
+    # the route's widest code loads: 16 bytes a row (per-query route), 4
+    # (grouped route), where every row starts on such a boundary
+    align = 16 if not grouped else 4
+    vec = int(pq_dim % align == 0 and list_codes.data_ptr() % align == 0)
     lib = _lib("fused_pq_topk")
-    with torch.cuda.device(dev):
-        rc = lib.fused_pq_topk(
-            probes.data_ptr(), q_rot.data_ptr(), centers_rot.data_ptr(),
-            codebooks.data_ptr(), cb_norms.data_ptr(), list_codes.data_ptr(),
-            list_indices.data_ptr(), nq, n_probes, n_lists, pad, pq_dim,
-            pq_len, k, vec16, out_v.data_ptr(), out_i.data_ptr(),
-            _stream(dev))
-    _check_rc("fused_pq_topk", rc)
-    LAUNCHES["fused_pq_topk"] += 1
+    for r0 in range(0, nq, plan.q_chunk):
+        r1 = min(r0 + plan.q_chunk, nq)
+        with torch.cuda.device(dev):
+            rc = lib.fused_pq_topk(
+                probes[r0:r1].data_ptr(), q_rot[r0:r1].data_ptr(),
+                centers_rot.data_ptr(), codebooks.data_ptr(),
+                cb_norms.data_ptr(), list_codes.data_ptr(),
+                list_indices.data_ptr(), r1 - r0, n_probes, n_lists, pad,
+                pq_dim, pq_len, k, vec, int(not grouped), plan.warps,
+                int(plan.res_chunked), _ptr(groups), _ptr(part_v),
+                _ptr(part_i), out_v[r0:r1].data_ptr(), out_i[r0:r1].data_ptr(),
+                _stream(dev))
+        _check_rc("fused_pq_topk", rc)
+        LAUNCHES["fused_pq_topk"] += 1
+        LAUNCHES["select_k"] += int(grouped)  # the per-query merge
     return out_v, out_i
 
 
@@ -819,6 +950,52 @@ def cagra_topk_smem_bytes(itopk: int, dim: int, width: int,
     return (2 * (2 * _align16(itopk * 4) + _align16(itopk))
             + _align16(dim * 4) + cap * 8 + cap * 8 + _align16(width * 4)
             + 16)
+
+
+#: fused_cagra_topk's warp route (fused_cagra_topk.cu): the largest beam
+#: and hop (width·degree candidates, two a lane) one warp walks, and the
+#: queries (warps) a block holds at most
+CAGRA_WARP_MAX_ITOPK, CAGRA_WARP_MAX_CANDS, CAGRA_WARPS = 256, 64, 4
+
+
+def cagra_warp_smem_bytes(itopk: int, dim: int, width: int,
+                          degree: int) -> int:
+    """Shared memory of one warp of fused_cagra_topk's warp route (the
+    formula of ``warp_slice_bytes`` in fused_cagra_topk.cu): two beam
+    buffers (keys, ids, flags), the query row, the sorted candidates' keys
+    (32 or 64) and the parents."""
+    cands = 32 if width * degree <= 32 else 64
+    return (2 * (2 * _align16(itopk * 4) + _align16(itopk))
+            + _align16(dim * 4) + cands * 8 + _align16(width * 4))
+
+
+@dataclasses.dataclass(frozen=True)
+class CagraTopkPlan:
+    """How ``fused_cagra_topk`` runs: ``route`` "warp" (one warp a query,
+    ``warps`` queries a block) or "block" (one block of 128 threads a query,
+    for the beams and hops beyond a warp's reach); ``smem`` bytes a block."""
+
+    route: str
+    warps: int
+    smem: int
+
+
+def plan_fused_cagra(itopk: int, dim: int, width: int,
+                     degree: int) -> CagraTopkPlan:
+    """The plan of ``fused_cagra_topk`` for a beam of ``itopk`` (raised to
+    k) over rows of ``dim`` and hops of width·degree candidates.
+
+    The warp route up to ``CAGRA_WARP_MAX_ITOPK`` and
+    ``CAGRA_WARP_MAX_CANDS`` (two candidates a lane), with as many of its
+    ``CAGRA_WARPS`` warps a block as fit the shared memory; else the block
+    route."""
+    slice_ = cagra_warp_smem_bytes(itopk, dim, width, degree)
+    warps = min(CAGRA_WARPS, SMEM_LIMIT // slice_)
+    if (itopk > CAGRA_WARP_MAX_ITOPK or width * degree > CAGRA_WARP_MAX_CANDS
+            or warps < 1):
+        return CagraTopkPlan("block", 0, cagra_topk_smem_bytes(
+            itopk, dim, width, degree))
+    return CagraTopkPlan("warp", warps, warps * slice_)
 
 
 def lane_order_sum(p: torch.Tensor) -> torch.Tensor:
@@ -1027,7 +1204,8 @@ def fused_cagra_topk(queries, dataset, graph, seed_ids, q_norms, k: int,
     q_norms [nq] f32 (the queries' squared norms). Returns the ascending
     squared L2 ``(distances [nq, k], ids [nq, k] int32)``, ids -1 where the
     walk found fewer than k nodes. ``itopk`` (raised to k, at most 1024) is
-    the beam; ``max_iter`` <= 0 applies the auto heuristic."""
+    the beam; ``max_iter`` <= 0 applies the auto heuristic. On the card the
+    route (a warp or a block a query) comes from ``plan_fused_cagra``."""
     itopk = max(int(itopk), int(k))
     _check_k("fused_cagra_topk", k)
     if itopk > MAX_ITOPK:
@@ -1053,12 +1231,12 @@ def fused_cagra_topk(queries, dataset, graph, seed_ids, q_norms, k: int,
             or q_norms.shape[0] != nq or graph.shape[0] != n
             or dataset.shape[0] != n or n_seeds < 1 or degree < 1):
         raise ValueError("fused_cagra_topk: shapes disagree")
-    smem = cagra_topk_smem_bytes(itopk, dim, width, degree)
-    if smem > SMEM_LIMIT:
+    plan = plan_fused_cagra(itopk, dim, width, degree)
+    if plan.smem > SMEM_LIMIT:
         raise ValueError(
             f"fused_cagra_topk: itopk={itopk}, dim={dim}, width={width}, "
-            f"degree={degree} need {smem} bytes of shared memory, more than "
-            f"a block's {SMEM_LIMIT}")
+            f"degree={degree} need {plan.smem} bytes of shared memory, more "
+            f"than a block's {SMEM_LIMIT}")
     out_v = torch.empty((nq, k), dtype=torch.float32, device=dev)
     out_i = torch.empty((nq, k), dtype=torch.int32, device=dev)
     if nq > 0:
@@ -1069,7 +1247,8 @@ def fused_cagra_topk(queries, dataset, graph, seed_ids, q_norms, k: int,
             rc = lib.fused_cagra_topk(
                 queries.data_ptr(), dataset.data_ptr(), graph.data_ptr(),
                 seed_ids.data_ptr(), q_norms.data_ptr(), nq, n, dim, degree,
-                n_seeds, k, itopk, width, max_iter, vec4, out_v.data_ptr(),
+                n_seeds, k, itopk, width, max_iter, vec4,
+                int(plan.route != "warp"), plan.warps, out_v.data_ptr(),
                 out_i.data_ptr(), _stream(dev))
         _check_rc("fused_cagra_topk", rc)
         LAUNCHES["fused_cagra_topk"] += 1

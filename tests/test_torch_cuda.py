@@ -318,6 +318,102 @@ def test_fused_pq_topk_kernel_pads_and_resolves_ties(dev):
     torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=1e-3)
 
 
+def _pq_route_case(dev, case):
+    L, pad, pq_dim, pq_len, nq, P = 9, 1300, 16, 2, 60, 6
+    if case == "pq_dim6":  # rows of 6 bytes: no whole words
+        pq_dim, pq_len = 6, 3
+    elif case == "pq_dim128":  # fewer warps fit beside the staged codes
+        pq_dim, pq_len, pad = 128, 1, 700
+    elif case == "long_list":  # three runs of 1024 slots
+        pad = 2100
+    elif case == "wide_rot":  # rot 768: residuals staged a chunk at a time
+        pq_dim, pq_len = 96, 8
+    elif case == "refine_like":  # the refine shape's k over 64 probes
+        L, nq, P = 40, 200, 64
+    args = list(_pq_inputs(dev, L, pad, pq_dim, pq_len, nq, P, seed=70))
+    if case == "one_list":
+        args[0] = torch.full((nq, P), 3, dtype=torch.int32, device=dev)
+    elif case == "out_of_range":
+        g = torch.Generator(device=dev).manual_seed(71)
+        args[0] = torch.randint(-2, L + 2, (nq, P), generator=g, device=dev,
+                                dtype=torch.int32)
+    return tuple(args)
+
+
+def _pq_plan(args, k):
+    probes, _, _, cb, _, codes = args[:6]
+    return gk.plan_fused_pq(*probes.shape, *codes.shape, cb.shape[2], k)
+
+
+# the grouped route's last k (a warp's register carry) and the per-query
+# route above it, the refine shape's k, skewed and out-of-range probes,
+# code rows that are not whole words (pq_len 3, read at run time), fewer
+# warps, three runs of a list, residuals staged a chunk at a time
+@pytest.mark.parametrize("case,k,route", [
+    ("random", gk.PQ_GROUPED_MAX_K, "grouped"),
+    ("random", gk.PQ_GROUPED_MAX_K + 1, "per_query"),
+    ("random", 1, "grouped"), ("refine_like", 20, "grouped"),
+    ("one_list", 10, "grouped"), ("out_of_range", 10, "grouped"),
+    ("pq_dim6", 10, "grouped"), ("pq_dim128", 10, "grouped"),
+    ("long_list", 10, "grouped"), ("wide_rot", 10, "grouped")])
+def test_fused_pq_topk_kernel_routes_and_repeatable(dev, case, k, route):
+    args = _pq_route_case(dev, case)
+    plan = _pq_plan(args, k)
+    assert plan.route == route
+    if case == "pq_dim128":
+        assert plan.warps < gk.PQ_MAX_WARPS
+    if case == "long_list":
+        assert plan.runs == 3
+    # the residuals go whole unless a chunk at a time fits more warps
+    assert plan.res_chunked == (gk.pq_grouped_smem_bytes(
+        *args[5].shape[2:], args[3].shape[2], plan.warps) > gk.SMEM_LIMIT)
+    assert plan.res_chunked or case != "wide_rot"
+    before = dict(gk.LAUNCHES)
+    got = gk.fused_pq_topk(*args, k)
+    again = gk.fused_pq_topk(*args, k)
+    torch.cuda.synchronize()
+    chunks = -(-args[0].shape[0] // plan.q_chunk)
+    assert gk.LAUNCHES["fused_pq_topk"] == before["fused_pq_topk"] + 2 * chunks
+    # the grouped route merges each query's partials with select_k's kernel
+    merges = 2 * chunks if route == "grouped" else 0
+    assert gk.LAUNCHES["select_k"] == before["select_k"] + merges
+    assert _bitwise_equal(got, again)
+    want = gk.fused_pq_topk_plain(*args, k)
+    assert torch.equal(torch.isinf(got[0]), torch.isinf(want[0]))
+    scale = float(want[0][torch.isfinite(want[0])].abs().max())
+    assert_topk_close(got, want, 1e-4 * scale, 1e-5)
+
+
+@pytest.mark.parametrize("k", [20, gk.PQ_GROUPED_MAX_K])
+def test_fused_pq_topk_grouped_ties_go_by_probe_then_slot(dev, k):
+    # list 1 holds list 0's codes moved 1100 slots on (into the other run
+    # for most rows), with the same centre; every query probes the two
+    # lists, in either order: each row comes back twice at one distance,
+    # the copy in the earlier probe first
+    L, pad, nq = 3, 1300, 64
+    probes, q_rot, centers, cb, cbn, codes, _ = _pq_inputs(
+        dev, L, pad, 16, 2, nq, 2, seed=72)
+    ids = torch.arange(L * pad, device=dev, dtype=torch.int32).reshape(L, pad)
+    codes[1] = torch.roll(codes[0], 1100, dims=0)
+    centers[1] = centers[0]
+    flip = torch.arange(nq, device=dev) % 2 == 1
+    probes = torch.stack([flip.int(), 1 - flip.int()], 1).to(
+        torch.int32).contiguous()
+    args = (probes, q_rot, centers, cb, cbn, codes, ids)
+    assert _pq_plan(args, k).route == "grouped"
+    v, i = gk.fused_pq_topk(*args, k)
+    torch.cuda.synchronize()
+    assert torch.equal(v[:, 0::2].view(torch.int32), v[:, 1::2].view(
+        torch.int32))
+    slot = i[:, 0::2] % pad  # the earlier probe's list and slot
+    copy = torch.where(i[:, 0::2] < pad, pad + (slot + 1100) % pad,
+                       (slot - 1100) % pad)
+    assert torch.equal(i[:, 0::2] < pad, ~flip[:, None].expand(nq, k // 2))
+    assert torch.equal(i[:, 1::2], copy.to(torch.int32))
+    want = gk.fused_pq_topk_plain(*args, k)
+    assert torch.equal(i, want[1])
+
+
 def test_wrappers_check_their_inputs(dev):
     x = _randn(dev, 8, 16)
     with pytest.raises(TypeError, match="dtype"):
@@ -425,6 +521,32 @@ def test_fused_cagra_topk_kernel_scalar_and_wide_hops(dev, dim, degree, width):
     # dim 33 and 5 take the kernel's scalar loads (dim % 4 != 0)
     args = _cagra_inputs(dev, 2000, dim, degree, 30, 64, seed=20)
     _cagra_both(args, 10, 64, width)
+
+
+def _cagra_plan(args, k, itopk, width):
+    q, _, graph = args[:3]
+    return gk.plan_fused_cagra(max(itopk, k), q.shape[1], width,
+                               graph.shape[1])
+
+
+# the warp route's largest beam and the block route just above it; 64
+# candidates a hop (two a lane) and 96 (the block route); width 4; the
+# scalar loads of dim 33 and 5; the main path's shape
+@pytest.mark.parametrize("itopk,width,degree,dim,route", [
+    (gk.CAGRA_WARP_MAX_ITOPK, 1, 32, 40, "warp"),
+    (gk.CAGRA_WARP_MAX_ITOPK + 1, 1, 32, 40, "block"),
+    (64, 2, 32, 40, "warp"), (64, 3, 32, 40, "block"),
+    (64, 4, 7, 33, "warp"), (32, 8, 8, 5, "warp"), (64, 1, 32, 128, "warp")])
+def test_fused_cagra_topk_kernel_routes_and_repeatable(dev, itopk, width,
+                                                       degree, dim, route):
+    args = _cagra_inputs(dev, 3000, dim, degree, 50, 64, seed=30)
+    assert _cagra_plan(args, 10, itopk, width).route == route
+    before = gk.LAUNCHES["fused_cagra_topk"]
+    got, _ = _cagra_both(args, 10, itopk, width)
+    again = gk.fused_cagra_topk(*args, 10, itopk, width, 0)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_cagra_topk"] == before + 2
+    assert _bitwise_equal(got, again)
 
 
 def test_fused_cagra_topk_kernel_duplicate_seeds_across_chunks(dev):

@@ -31,7 +31,29 @@ selection rule.
   argmin at k-means-like shapes: its labels equal the fp32 product's
   wherever a row's two nearest centres are further apart than either
   side's rounding (``_tie_margin`` of tests/test_torch_cuda.py, per row).
+- ``plan_fused_pq`` for every pq_dim up to 256, pq_len up to 16 and the k
+  around its boundaries that ``fused_pq_fits`` admits: a block's shared
+  memory fits, the grouped route holds k up to ``PQ_GROUPED_MAX_K`` (32,
+  a warp's register carry) and the per-query route takes over above; the
+  runs cover every slot once and the partials stay within their budget.
+  A torch emulation of the grouped route (each pair's top k of every run
+  of 64·warps slots by (value, slot), then each query's first k of its
+  partials in (probe, run, rank) order) is bitwise equal to
+  ``fused_pq_topk_plain``: copies of a list's codes in two lists (ties
+  across probes and runs), duplicate and out-of-range probes, -1 ids.
+- ``plan_fused_cagra``: the warp route up to itopk 256 and 64 candidates
+  a hop, the block route beyond, shared memory within a block's. The warp
+  route's fold of a batch of 8 rows (half the rows exchanged at levels 16,
+  8 and 4, then the ladder) is bitwise the xor ladder's sum of each row,
+  and a torch emulation of its
+  walk (seed chunks of 32 or 64, candidates dropped against the beam and,
+  by the lowest lane of equal ids, against earlier candidates, a sort by
+  (value, position) and a merge by rank with the beam first on ties) is
+  bitwise equal to ``fused_cagra_topk_plain`` over random graphs with
+  invalid edges, duplicate seeds across chunks and ties.
 """
+
+import dataclasses
 
 import numpy as np
 import pytest
@@ -362,3 +384,342 @@ def test_three_tf32_argmin_labels_match_fp32_away_from_ties(seed, m, n_c, d,
     clear = _row_tie_margin(x, c) > 1
     assert clear.mean() > 0.9
     np.testing.assert_array_equal(split3[clear], fp32[clear])
+
+
+# ------------------------------------------------------- fused_pq_topk
+
+
+@pytest.mark.parametrize("pq_len", [1, 2, 3, 4, 8, 16])
+def test_plan_fused_pq_fits_and_ends_with_the_register_carry(pq_len):
+    ks = [1, 2, 10, 16, 20, 31, 32, 33, 64, 256, 1024]
+    for pq_dim in range(1, 257):
+        for k in ks:
+            if not gk.fused_pq_fits(pq_dim, pq_len, k):
+                continue
+            plan = gk.plan_fused_pq(10000, 32, 1024, 1456, pq_dim, pq_len, k)
+            assert plan.smem <= gk.SMEM_LIMIT, (pq_dim, pq_len, k)
+            if k > gk.PQ_GROUPED_MAX_K:
+                assert plan.route == "per_query", (pq_dim, pq_len, k)
+                assert plan.smem == gk.pq_topk_smem_bytes(pq_dim, pq_len, k)
+                continue
+            assert plan.route == "grouped", (pq_dim, pq_len, k)
+            assert plan.smem == gk.pq_grouped_smem_bytes(
+                pq_dim, pq_len, plan.warps, plan.res_chunked)
+            # the residuals go whole unless a chunk at a time fits more warps
+            assert plan.res_chunked == (gk.pq_grouped_smem_bytes(
+                pq_dim, pq_len, plan.warps) > gk.SMEM_LIMIT)
+            rows = gk.PQ_ROWS_PER_WARP * plan.warps
+            assert (plan.runs - 1) * rows < 1456 <= plan.runs * rows
+            assert 1 <= plan.warps <= gk.PQ_MAX_WARPS
+
+
+def test_plan_fused_pq_at_the_main_shapes():
+    # the LUT regime (32 probes, k=10) and refine (64 probes, k=20): 16
+    # warps (1024 slots a run), every query in one launch
+    for n_probes, k in [(32, 10), (64, 20)]:
+        plan = gk.plan_fused_pq(10000, n_probes, 1024, 1456, 64, 2, k)
+        assert (plan.route, plan.warps, plan.res_chunked, plan.runs,
+                plan.q_chunk) == ("grouped", 16, False, 2, 10000)
+        assert plan.scratch_bytes - 4 * gk.ivf_group_scratch(
+            10000 * n_probes, 1024) <= gk.IVF_TOPK_SCRATCH_BUDGET
+    assert gk.plan_fused_pq(10, 3, 8, 100, 64, 2, 32).route == "grouped"
+    assert gk.plan_fused_pq(10, 3, 8, 100, 64, 2, 33).route == "per_query"
+    # a short list needs no more warps than its slots
+    assert gk.plan_fused_pq(10, 3, 8, 100, 64, 2, 10).warps == 2
+    # a wide rotation (768 = 96 × 8): its residuals whole leave no room for
+    # a warp, a chunk at a time for 15 (the codes take 24 words a row)
+    plan = gk.plan_fused_pq(10, 3, 8, 1456, 96, 8, 10)
+    assert gk.pq_grouped_smem_bytes(96, 8, 1) > gk.SMEM_LIMIT
+    assert (plan.route, plan.res_chunked, plan.warps) == ("grouped", True,
+                                                          15)
+    # queries chunked where the partials would exceed the budget
+    plan = gk.plan_fused_pq(200000, 64, 1024, 1456, 64, 2, 32)
+    assert plan.q_chunk < 200000
+    assert plan.q_chunk * 64 * plan.runs * 32 * 8 <= \
+        gk.IVF_TOPK_SCRATCH_BUDGET
+
+
+def _pq_case(case, seed=19, L=6, pad=150, pq_dim=8, pq_len=2, nq=40, P=5):
+    """Inputs of fused_pq_topk (torch, CPU) for one adversarial case."""
+    rng = np.random.default_rng(seed)
+    rot = pq_dim * pq_len
+    centers = rng.standard_normal((L, rot)).astype(np.float32)
+    cb = rng.standard_normal((pq_dim, 256, pq_len)).astype(np.float32)
+    codes = rng.integers(0, 256, (L, pad, pq_dim)).astype(np.uint8)
+    ids = np.arange(L * pad, dtype=np.int32).reshape(L, pad)
+    ids[:, pad - 7:] = -1  # unfilled slots at the end of every list
+    ids[2, 10:20] = -1     # and a hole in one list
+    probes = rng.integers(0, L, (nq, P))
+    q_rot = rng.standard_normal((nq, rot)).astype(np.float32)
+    if case == "ties_across_probes":
+        # list 1 holds list 0's codes moved 70 slots on (another run at
+        # 64 slots a run) with the same centre: equal distances in two
+        # probes and two runs, resolved by probe order
+        codes[1] = np.roll(codes[0], 70, axis=0)
+        centers[1] = centers[0]
+        probes[:, :2] = rng.permutation([[0, 1], [1, 0]] * (nq // 2))
+        codes[0, 30:40] = codes[0, 0]  # and ties within a list
+    elif case == "duplicate_probes":
+        probes = rng.integers(0, 2, (nq, P))
+    elif case == "out_of_range":
+        probes = rng.integers(-2, L + 2, (nq, P))
+    elif case == "fewer_than_k":
+        probes = rng.integers(0, L, (nq, 1))
+        ids[:, 5:] = -1
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    cb_t = t(cb)
+    return (t(probes.astype(np.int32)), t(q_rot), t(centers), cb_t,
+            (cb_t * cb_t).sum(-1), t(codes), t(ids))
+
+
+def _pq_grouped_emulation(args, k, plan):
+    """The grouped route in plain torch: the plain version's distances,
+    each pair's top k of every run of 64·warps slots by (value, slot), then
+    each query's first k of its P·runs·k partials in (probe, run, rank)
+    order."""
+    nq, n_probes = args[0].shape
+    d, cid = gk._pq_distances(*args)
+    run_len = gk.PQ_ROWS_PER_WARP * plan.warps
+    part_v, part_i = [], []
+    for r in range(plan.runs):
+        seg = slice(r * run_len, (r + 1) * run_len)
+        v, i = gk._stable_topk(d[:, :, seg].reshape(nq * n_probes, -1), k,
+                               cid[:, :, seg].reshape(nq * n_probes, -1))
+        part_v.append(v.reshape(nq, n_probes, 1, k))
+        part_i.append(i.reshape(nq, n_probes, 1, k))
+    return gk._stable_topk(torch.cat(part_v, 2).reshape(nq, -1), k,
+                           torch.cat(part_i, 2).reshape(nq, -1))
+
+
+@pytest.mark.parametrize("case", ["random", "ties_across_probes",
+                                  "duplicate_probes", "out_of_range",
+                                  "fewer_than_k"])
+@pytest.mark.parametrize("k", [1, 10, 20, 32])
+def test_grouped_pq_emulation_is_bitwise_the_plain_version(case, k):
+    args = _pq_case(case)
+    nq, n_probes = args[0].shape
+    n_lists, pad, pq_dim = args[5].shape
+    want = gk.fused_pq_topk_plain(*args, k)
+    planned = gk.plan_fused_pq(nq, n_probes, n_lists, pad, pq_dim,
+                               args[3].shape[2], k)
+    assert planned.route == "grouped"
+    # the planner's runs and two others: 64 and 128 slots a run
+    for warps in sorted({planned.warps, 1, 2}):
+        runs = -(-pad // (gk.PQ_ROWS_PER_WARP * warps))
+        plan = dataclasses.replace(planned, warps=warps, runs=runs)
+        got = _pq_grouped_emulation(args, k, plan)
+        assert torch.equal(got[0].view(torch.int32),
+                           want[0].view(torch.int32)), (case, warps)
+        assert torch.equal(got[1], want[1]), (case, warps)
+    if case == "ties_across_probes" and k > 1:
+        # copies tie and come back in probe order
+        v = want[0]
+        assert bool((v[:, 1:] == v[:, :-1]).any())
+
+
+# ---------------------------------------------------- fused_cagra_topk
+
+
+def test_plan_fused_cagra_routes():
+    plan = gk.plan_fused_cagra(64, 128, 1, 32)  # the main path
+    assert (plan.route, plan.warps) == ("warp", gk.CAGRA_WARPS)
+    assert plan.smem == gk.CAGRA_WARPS * gk.cagra_warp_smem_bytes(64, 128, 1,
+                                                                  32)
+    for itopk in range(1, gk.MAX_ITOPK + 1, 3):
+        for dim, width, degree in [(40, 1, 7), (40, 4, 7), (128, 2, 32),
+                                   (5, 8, 8), (33, 2, 16), (128, 1, 64),
+                                   (128, 3, 32), (100, 1, 65)]:
+            plan = gk.plan_fused_cagra(itopk, dim, width, degree)
+            warp = (itopk <= gk.CAGRA_WARP_MAX_ITOPK
+                    and width * degree <= gk.CAGRA_WARP_MAX_CANDS)
+            assert plan.route == ("warp" if warp else "block")
+            assert plan.smem <= gk.SMEM_LIMIT
+            if warp:
+                assert 1 <= plan.warps <= gk.CAGRA_WARPS
+    assert gk.plan_fused_cagra(256, 40, 1, 7).route == "warp"
+    assert gk.plan_fused_cagra(257, 40, 1, 7).route == "block"
+    assert gk.plan_fused_cagra(64, 40, 8, 8).route == "warp"
+    assert gk.plan_fused_cagra(64, 40, 5, 13).route == "block"
+    # a query row too wide for a warp's slice takes the block route
+    assert gk.plan_fused_cagra(64, 60000, 1, 4).route == "block"
+
+
+def _xor_ladder(v):
+    """fused_cagra_topk's fold of lane sums: v[lane] + v[lane ^ o] for o =
+    16, 8, 4, 2, 1 (every lane ends with the same value), in float32."""
+    lanes = np.arange(32)
+    for o in (16, 8, 4, 2, 1):
+        v = (v + v[lanes ^ o]).astype(np.float32)
+    return v[0]
+
+
+def _batch_fold(p):
+    """The warp route's fold of a batch of 8 rows: p[lane, row] partials;
+    at levels 16, 8 and 4 a lane keeps the half of its rows on its side of
+    that bit and adds the partner's copy of them, at levels 2 and 1 it adds
+    the partner's sum of its one row (the ladder); lane l ends with row
+    ((l >> 4) & 1)·4 + ((l >> 3) & 1)·2 + ((l >> 2) & 1)'s sum."""
+    lanes = np.arange(32)
+    p = p.copy()
+    for h, o in ((4, 16), (2, 8), (1, 4)):
+        up = (lanes & o) != 0
+        keep = np.where(up[:, None], p[:, h:2 * h], p[:, :h])
+        send = np.where(up[:, None], p[:, :h], p[:, h:2 * h])
+        p = (keep + send[lanes ^ o]).astype(np.float32)
+    v = p[:, 0]
+    for o in (2, 1):
+        v = (v + v[lanes ^ o]).astype(np.float32)
+    return v
+
+
+def _fold_lane(r):
+    return ((r >> 2) & 1) * 16 + ((r >> 1) & 1) * 8 + (r & 1) * 4
+
+
+def test_batch_fold_is_bitwise_the_xor_ladder():
+    rng = np.random.default_rng(5)
+    for scale in (1.0, 1e-3, 1e6):
+        # wide magnitudes and cancellations, where the order of the sums
+        # decides the last bits
+        p = (rng.standard_normal((32, 8)) * scale
+             * 10.0 ** rng.integers(-3, 4, (32, 8))).astype(np.float32)
+        p[:, 5] = -p[::-1, 5]
+        p[:, 7] = 0.0
+        got = _batch_fold(p)
+        for r in range(8):
+            held = np.array([(l >> 4 & 1) * 4 + (l >> 3 & 1) * 2
+                             + (l >> 2 & 1) == r for l in range(32)])
+            want = _xor_ladder(p[:, r])
+            assert held[_fold_lane(r)]
+            np.testing.assert_array_equal(
+                got[held].view(np.int32),
+                np.full(held.sum(), want, np.float32).view(np.int32))
+    # and it is the plain version's order of additions
+    x = torch.from_numpy(rng.standard_normal((8, 128)).astype(np.float32))
+    lane_sums = x.reshape(8, 32, 4)  # row, lane, element of the lane
+    acc = lane_sums[:, :, 0] + lane_sums[:, :, 1]
+    acc = (acc + lane_sums[:, :, 2]) + lane_sums[:, :, 3]
+    got = _batch_fold(acc.numpy().T.copy())
+    want = gk.lane_order_sum(x).numpy()
+    np.testing.assert_array_equal(
+        got[[_fold_lane(r) for r in range(8)]].view(np.int32),
+        want.view(np.int32))
+
+
+def _cagra_case(case, seed=23, n=600, dim=20, degree=7, nq=30, n_seeds=80):
+    rng = np.random.default_rng(seed)
+    data = rng.standard_normal((n, dim)).astype(np.float32)
+    if case == "ties":
+        data[300:400] = data[200:300]  # copies of rows: equal distances
+        data = np.round(data * 2) / 2  # and coarse values, more ties
+    graph = rng.integers(0, n, (n, degree)).astype(np.int32)
+    graph[::5, :2] = -1
+    graph[7, 0] = n + 3  # outside [0, n): invalid too
+    graph[:, -1] = graph[:, 0]  # a repeated edge in every row
+    seeds = rng.integers(0, n, (nq, n_seeds)).astype(np.int32)
+    seeds[:, 40:60] = seeds[:, 0:20]  # copies across seed chunks
+    seeds[:, 5] = -1
+    q = rng.standard_normal((nq, dim)).astype(np.float32)
+    t = lambda a: torch.from_numpy(np.ascontiguousarray(a))
+    qt = t(q)
+    return qt, t(data), t(graph), t(seeds), gk.beam_norms(qt)
+
+
+def _warp_route_emulation(queries, dataset, graph, seeds, q_norms, k, itopk,
+                          width, max_iter):
+    """The warp route in plain torch, all queries at once: seed chunks of
+    the warp's candidate slots, each step's candidates dropped against the
+    beam and against earlier candidates (lanes of equal ids keep the
+    lowest; the second row of lanes also checks the first), scored by the
+    plain version's distances, sorted by (value, position) and merged by
+    rank (a beam entry moves down by the candidates strictly below it, a
+    candidate by the beam entries at or below it)."""
+    nq = queries.shape[0]
+    n, degree = graph.shape
+    cap = 32 if width * degree <= 32 else 64
+    bd = torch.full((nq, itopk), torch.inf)
+    bi = torch.full((nq, itopk), -1, dtype=torch.int64)
+    bf = torch.zeros((nq, itopk), dtype=torch.bool)
+
+    def step(bd, bi, bf, cand):
+        cand = cand.to(torch.int64)
+        drop = (cand < 0) | (cand >= n)
+        drop |= (cand[:, :, None] == bi[:, None, :]).any(-1)
+        lane = torch.arange(cand.shape[1])
+        for half in range(cand.shape[1] // 32):
+            cols = slice(32 * half, 32 * half + 32)
+            c = cand[:, cols]
+            lower = lane[:32][None, :] < lane[:32][:, None]  # [j, s]: s < j
+            drop[:, cols] |= ((c[:, :, None] == c[:, None, :])
+                              & lower[None]).any(-1)
+            if half:
+                drop[:, cols] |= (c[:, :, None]
+                                  == cand[:, None, :32]).any(-1)
+        tv = torch.where(drop, -1, cand)
+        cd = gk.beam_distances(queries, q_norms, dataset, tv)
+        sd, order = torch.sort(cd, dim=1, stable=True)  # (value, position)
+        ns = torch.isfinite(sd).sum(1)
+        si = torch.gather(tv, 1, order)
+        pos = torch.arange(itopk)[None] + torch.searchsorted(
+            sd, bd.contiguous(), right=False)
+        fin = torch.isfinite(sd)
+        cpos = torch.arange(sd.shape[1])[None] + torch.searchsorted(
+            bd.contiguous(), sd.contiguous(), right=True)
+        nd = torch.full_like(bd, torch.inf)
+        ni = torch.full_like(bi, -1)
+        nf = torch.zeros_like(bf)
+        for b in range(nq):
+            keep = pos[b] < itopk
+            nd[b, pos[b][keep]] = bd[b][keep]
+            ni[b, pos[b][keep]] = bi[b][keep]
+            nf[b, pos[b][keep]] = bf[b][keep]
+            take = fin[b] & (cpos[b] < itopk)
+            nd[b, cpos[b][take]] = sd[b][take]
+            ni[b, cpos[b][take]] = si[b][take]
+        moved = (ns > 0)[:, None]
+        return (torch.where(moved, nd, bd), torch.where(moved, ni, bi),
+                torch.where(moved, nf, bf))
+
+    n_seeds = seeds.shape[1]
+    for base in range(0, n_seeds, cap):
+        chunk = torch.full((nq, cap), -1, dtype=torch.int64)
+        part = seeds[:, base:base + cap]
+        chunk[:, :part.shape[1]] = part
+        bd, bi, bf = step(bd, bi, bf, chunk)
+    for _ in range(max_iter):
+        avail = ~bf & torch.isfinite(bd)
+        rank = torch.cumsum(avail.to(torch.int32), 1)
+        par = torch.full((nq, width), -1, dtype=torch.int64)
+        for w in range(width):
+            hit = avail & (rank == w + 1)
+            ok = hit.any(1)
+            pos = hit.to(torch.int8).argmax(1)
+            bf[ok, pos[ok]] = True
+            par[:, w] = torch.where(ok, pos, -1)
+        if not bool((par[:, 0] >= 0).any()):
+            break
+        pid = torch.gather(bi, 1, par.clamp_min(0))
+        tg = graph[pid.clamp_min(0)].to(torch.int64)  # [nq, width, degree]
+        tg = torch.where(par[:, :, None] < 0, -1, tg).reshape(nq, -1)
+        cand = torch.full((nq, cap), -1, dtype=torch.int64)
+        cand[:, :tg.shape[1]] = tg
+        bd, bi, bf = step(bd, bi, bf, cand)
+    return bd[:, :k], bi[:, :k].to(torch.int32)
+
+
+@pytest.mark.parametrize("case", ["random", "ties"])
+@pytest.mark.parametrize("itopk,width,degree", [(16, 1, 7), (64, 1, 7),
+                                                (64, 4, 7), (32, 2, 16),
+                                                (256, 1, 32), (64, 8, 8)])
+def test_warp_route_emulation_is_bitwise_the_plain_version(case, itopk, width,
+                                                           degree):
+    q, data, graph, seeds, qn = _cagra_case(case, degree=degree)
+    assert gk.plan_fused_cagra(itopk, q.shape[1], width, degree).route == \
+        "warp"
+    max_iter = gk.resolve_max_iter(itopk, width, 0)
+    want = gk.fused_cagra_topk_plain(q, data, graph, seeds, qn, 10, itopk,
+                                     width, max_iter)
+    got = _warp_route_emulation(q, data, graph, seeds, qn, 10, itopk, width,
+                                max_iter)
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
