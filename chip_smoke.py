@@ -10,8 +10,9 @@ seed, 10,000 queries, k=10, L2) it
 1. prints the card (``nvidia-smi`` name and power limit) and the versions;
 2. builds the eight CUDA kernels from ``raft_tpu_torch/csrc`` (timed), and
    prints ptxas's registers, spills and static shared memory of the
-   kernels of ``fused_l2_topk``, ``fused_ivf_topk``, ``fused_pq_topk``,
-   ``fused_cagra_topk``, ``fused_l2_argmin`` and ``ivf_scan``;
+   kernels of ``fused_l2_topk``, ``fused_ivf_topk``, ``select_k``,
+   ``fused_pq_topk``, ``fused_cagra_topk``, ``fused_l2_argmin``,
+   ``ivf_scan`` and ``ring_shift``;
 3. runs exact search (``brute_force.build`` + ``search``), the main path's
    first part, with the launch counts set to 0 just before and read just
    after; its result is the ground truth;
@@ -54,7 +55,8 @@ seed, 10,000 queries, k=10, L2) it
    over 4 logical ranks on the card (250,000 rows a rank, the queries
    replicated): ``sharded.knn`` with the allgather, tree and ring merges
    (bitwise equal; ids equal to phase 3's away from near-ties; the ring's
-   hops through ``ring_shift``, size·(size-1) launches a call); a sharded
+   hops through ``ring_shift``, (size-1) · source devices launches a call:
+   3 here); a sharded
    IVF-Flat build (1024 lists a rank) searched at 32 probes with the ring
    merge (recall@10 >= 0.90, bitwise equal to allgather); a sharded IVF-PQ
    build at ``raft_ivf_pq.d64b8n1024`` a rank in the cache regime, the same
@@ -73,16 +75,24 @@ seed, 10,000 queries, k=10, L2) it
    ``fused_cagra_topk`` bitwise, with the design figure ``gather_ms``, the
    scored rows at 3.35 TB/s; ``fused_ivf_topk``, ``fused_pq_topk`` and
    ``ivf_scan`` also bitwise equal over two runs; the rows of the planned
-   kernels carry the route and plan that ran). With ``--parent TREE`` (a
+   kernels carry the route and plan that ran; ``select_k`` at every shape
+   the main path launched it, by the launch counts' ``SELECT_K_SHAPES``: the
+   coarse probe selection, and the per-query merges with their ids, their
+   rows rebuilt as the fused kernels write them, bitwise against the plain
+   version, with ``torch.topk`` as the library yardstick; ``ring_shift`` a
+   hop of all ranks, from CUDA graphs and eagerly, against one
+   ``torch._foreach_copy_`` of the hop and a ``copy_`` a block). With
+   ``--parent TREE`` (a
    source tree, such as the parent commit unpacked under ``build/``) it
-   saves the inputs of the planned kernels' calls and times that tree's
+   saves the inputs of the planned kernels', ``select_k``'s and
+   ``ring_shift``'s calls and times that tree's
    kernels and this tree's on them in turns (parent, this, this, parent,
    one ``raft_tpu_torch/bench/kernel_ab.py`` process each): the rows get
    ``parent_ms`` and ``ab_ms``, null without the option;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
-   shapes, ``ivf_scan`` at three), then, as the last line, ``{"ok": true,
-   "device": {...}}``.
+   shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
+   shapes), then, as the last line, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line. Any failed check raises, and the script
 then exits non-zero without the last line. Without a CUDA device, or
@@ -160,47 +170,23 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     return start.elapsed_time(end) / reps
 
 
-def graph_ms(fn, calls: int, reps: int = 10) -> float:
-    """Mean device time of one ``fn()`` from a CUDA graph of ``calls``
-    calls replayed ``reps`` times, so that no host launch cost sits between
-    the kernels (for work shorter than a launch)."""
-    import torch
-
-    side = torch.cuda.Stream()
-    side.wait_stream(torch.cuda.current_stream())
-    with torch.cuda.stream(side):
-        fn()  # warm up off the default stream, as capture asks
-    torch.cuda.current_stream().wait_stream(side)
-    graph = torch.cuda.CUDAGraph()
-    with torch.cuda.graph(graph):
-        for _ in range(calls):
-            fn()
-    graph.replay()
-    torch.cuda.synchronize()
-    start = torch.cuda.Event(enable_timing=True)
-    end = torch.cuda.Event(enable_timing=True)
-    start.record()
-    for _ in range(reps):
-        graph.replay()
-    end.record()
-    torch.cuda.synchronize()
-    return start.elapsed_time(end) / (reps * calls)
-
-
 def ptxas_figures(lib: Path) -> dict:
     """Registers, spills and static shared memory of each kernel of a
     library, from ptxas's report kept beside it (``gpu_kernels.build_all``)."""
-    out, name = {}, None
+    out, name, entry, props = {}, None, None, None
     for line in lib.with_suffix(".log").read_text().splitlines():
         m = re.search(r"entry function '(\w+)'", line)
         if m:
-            name = base = kernel_name(m.group(1))
+            entry = m.group(1)
+            name = base = kernel_name(entry)
             suffix = 1
             while name in out:
                 suffix += 1
                 name = f"{base}#{suffix}"
             out[name] = {}
-        elif name and "spill stores" in line:
+        elif "Function properties for" in line:
+            props = line.split()[-1]  # a kernel's, or a device function's
+        elif name and "spill stores" in line and props == entry:
             st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
             out[name].update(spill_stores=int(st), spill_loads=int(ld))
         elif name and "registers" in line:
@@ -246,10 +232,10 @@ def main() -> int:
     parser.add_argument("--seed", type=int, default=0)
     parser.add_argument("--parent", default=None,
                         help="a source tree (the parent commit, unpacked) "
-                        "whose planned kernels (fused_l2_topk, "
-                        "fused_ivf_topk, fused_pq_topk, fused_cagra_topk, "
-                        "fused_l2_argmin, ivf_scan) are timed on the same "
-                        "inputs, in turns with this tree's")
+                        "whose kernels (fused_l2_topk, fused_ivf_topk, "
+                        "select_k, fused_pq_topk, fused_cagra_topk, "
+                        "fused_l2_argmin, ivf_scan, ring_shift) are timed "
+                        "on the same inputs, in turns with this tree's")
     opts = parser.parse_args()
 
     import torch
@@ -277,6 +263,15 @@ def main() -> int:
               file=sys.stderr)
         return 2
     import numpy as np
+    from raft_tpu_torch.bench.kernel_ab import graph_ms, select_k_rows
+
+    def launch_counts() -> dict:
+        """The launch counts since the last reset, with select_k's launches
+        by shape ("caller:n:k")."""
+        out = dict(gk.LAUNCHES)
+        out["select_k_shapes"] = {f"{c}:{n}:{k}": m for (c, n, k), m
+                                  in gk.SELECT_K_SHAPES.items()}
+        return out
 
     # ---- 1. the card
     smi = subprocess.run(
@@ -301,9 +296,10 @@ def main() -> int:
           "libraries": {k: str(v.name) for k, v in paths.items()}})
     emit({"phase": "ptxas", **{name: ptxas_figures(paths[name])
                                for name in ("fused_l2_topk", "fused_ivf_topk",
-                                            "fused_pq_topk",
+                                            "select_k", "fused_pq_topk",
                                             "fused_cagra_topk",
-                                            "fused_l2_argmin", "ivf_scan")}})
+                                            "fused_l2_argmin", "ivf_scan",
+                                            "ring_shift")}})
 
     # data at SIFT-1M's shape, from the seed (set-up, not timed)
     rng = np.random.default_rng(opts.seed)
@@ -318,7 +314,7 @@ def main() -> int:
     gk.reset_launch_counts()
     (gt_v, gt_i), bf_cold_s = timed(lambda: brute_force.search(bf, queries, K))
     (gt_v, gt_i), bf_s = timed(lambda: brute_force.search(bf, queries, K))
-    bf_launches = dict(gk.LAUNCHES)
+    bf_launches = launch_counts()
     if bf_launches["fused_l2_topk"] < 1:
         raise AssertionError("brute_force.search did not launch fused_l2_topk")
     if gt_v.shape != (N_QUERIES, K) or not bool(torch.isfinite(gt_v).all()) \
@@ -342,7 +338,7 @@ def main() -> int:
         if recall >= RECALL_FLOOR or n_probes >= N_LISTS:
             break
         n_probes *= 2
-    ivf_launches = dict(gk.LAUNCHES)
+    ivf_launches = launch_counts()
     emit({"phase": "ivf_flat", "n_lists": N_LISTS, "n_probes": n_probes,
           "list_pad": index.list_data.shape[1],
           "overflow_rows": int((index.overflow_indices >= 0).sum()),
@@ -377,7 +373,7 @@ def main() -> int:
     pq_index, pq_build_s = timed(lambda: ivf_pq.build(
         dataset, ivf_pq.IndexParams(n_lists=N_LISTS, pq_dim=PQ_DIM,
                                     pq_bits=PQ_BITS, kmeans_n_iters=20)))
-    pq_build_launches = dict(gk.LAUNCHES)
+    pq_build_launches = launch_counts()
     pq_pad = pq_index.list_codes.shape[1]
     packed_bytes, cache_bytes = ivf_pq.scan_memory_bytes(pq_index)
     emit({"phase": "ivf_pq_build", "n_lists": N_LISTS, "pq_dim": PQ_DIM,
@@ -406,7 +402,7 @@ def main() -> int:
             if recall >= floor or n_probes >= N_LISTS:
                 break
             n_probes *= 2
-        launches = dict(gk.LAUNCHES)
+        launches = launch_counts()
         emit({"phase": name, "engine": plan.engine, "reason": plan.reason,
               "n_probes": n_probes, "first_call_seconds": first_s,
               "search_seconds": search_s, "qps": N_QUERIES / search_s,
@@ -451,7 +447,7 @@ def main() -> int:
         if refine_recall >= REFINE_RECALL_FLOOR or refine_probes >= N_LISTS:
             break
         refine_probes *= 2
-    refine_launches = dict(gk.LAUNCHES)
+    refine_launches = launch_counts()
     emit({"phase": "ivf_pq_refine", "n_probes": refine_probes,
           "candidates": 2 * K, "first_call_seconds": refine_first_s,
           "seconds": refine_s, "qps": N_QUERIES / refine_s,
@@ -469,7 +465,7 @@ def main() -> int:
                                   intermediate_graph_degree=CAGRA_INTER,
                                   nn_descent_niter=20)
     cg_index, cg_build_s = timed(lambda: cagra.build(dataset, cg_params))
-    cg_build_launches = dict(gk.LAUNCHES)
+    cg_build_launches = launch_counts()
     g = cg_index.graph
     if g.shape != (N_ROWS, CAGRA_DEGREE) or bool((g < 0).any()) \
             or bool((g >= N_ROWS).any()):
@@ -496,7 +492,7 @@ def main() -> int:
         if cg_recall >= CAGRA_RECALL_FLOOR or itopk >= CAGRA_MAX_ITOPK:
             break
         itopk *= 2
-    cagra_launches = dict(gk.LAUNCHES)
+    cagra_launches = launch_counts()
     if cagra_launches["fused_cagra_topk"] < 1:
         raise AssertionError("cagra.search did not launch fused_cagra_topk")
     if cv.shape != (N_QUERIES, K) or not bool(torch.isfinite(cv).all()):
@@ -562,7 +558,7 @@ def main() -> int:
         (km_centers, km_labels, km_inertia, km_iters), km_fit_s = timed(
             lambda: kmeans.fit(dataset, km_params,
                                res=Resources(seed=opts.seed)))
-        km_fit_launches = dict(gk.LAUNCHES)
+        km_fit_launches = launch_counts()
     finally:
         for name, (fn, _) in wrapped.items():
             setattr(kmeans, name, fn)
@@ -633,7 +629,7 @@ def main() -> int:
             if recall >= floor or n_probes >= N_LISTS:
                 break
             n_probes *= 2
-        launches = dict(gk.LAUNCHES)
+        launches = launch_counts()
         line = {"phase": name, "n_probes": n_probes,
                 "first_call_seconds": first_s, "search_seconds": search_s,
                 "qps": N_QUERIES / search_s, "recall_at_10": recall,
@@ -724,14 +720,15 @@ def main() -> int:
         _, cold_s = timed(fn)
         gk.reset_launch_counts()
         out, warm_s = timed(fn)
-        return out, warm_s, dict(gk.LAUNCHES), cold_s
+        return out, warm_s, launch_counts(), cold_s
 
     def bitwise_equal(a, b) -> bool:
         return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
                 and torch.equal(a[1], b[1]))
 
     sharded_phases = []
-    ring_hops = N_RANKS * (N_RANKS - 1)
+    # a ring call: size - 1 hops, each one launch per source device
+    ring_hops = (N_RANKS - 1) * len(gk.ring_shift_launches([dev] * N_RANKS))
     gk.ring_shift = keep_ring_blocks
     try:
         sk_out, sk_line = {}, {}
@@ -800,7 +797,7 @@ def main() -> int:
         sf_index, sf_build_s = timed(lambda: sharded.build_ivf_flat(
             ring_comms, dataset, ivf_flat.IndexParams(n_lists=N_LISTS),
             res=Resources(seed=opts.seed)))
-        sf_build_launches = dict(gk.LAUNCHES)
+        sf_build_launches = launch_counts()
         sharded_phases.append(sf_build_launches)
         sharded_ivf_phase(
             "sharded_ivf_flat", sf_index,
@@ -815,7 +812,7 @@ def main() -> int:
                 n_lists=N_LISTS, pq_dim=PQ_DIM, pq_bits=PQ_BITS,
                 kmeans_n_iters=20), res=Resources(seed=opts.seed),
             scan_mode="cache"))
-        sp_build_launches = dict(gk.LAUNCHES)
+        sp_build_launches = launch_counts()
         sharded_phases.append(sp_build_launches)
         for idx in sp_index.indexes:
             engine = ivf_pq.plan_search(idx, K, ivf_pq.SearchParams(
@@ -845,7 +842,7 @@ def main() -> int:
         (skm_c, skm_l), skm_s = timed(lambda: sharded.kmeans_fit(
             ring_comms, dataset, KM_CLUSTERS, KM_ITERS,
             res=Resources(seed=opts.seed)))
-        skm_launches = dict(gk.LAUNCHES)
+        skm_launches = launch_counts()
     finally:
         sharded._initial_rows = draw
     sharded_phases.append(skm_launches)
@@ -898,6 +895,12 @@ def main() -> int:
                    fl_launches, pqf_launches, ip_launches, *sharded_phases)
     main_launches = {name: sum(ph[name] for ph in main_phases)
                      for name in gk.LAUNCHES}
+    main_shapes = {}  # select_k's launches by "caller:n:k"
+    for ph in main_phases:
+        for key, count in ph.get("select_k_shapes", {}).items():
+            main_shapes[key] = main_shapes.get(key, 0) + count
+    if sum(main_shapes.values()) != main_launches["select_k"]:
+        raise AssertionError("select_k's launches by shape do not add up")
 
     # ---- 6. each kernel against its plain version, at the main path's
     # shapes (launches here are not counted in the kernels line)
@@ -1112,22 +1115,147 @@ def main() -> int:
     check_pq("ivf_pq_refine", refine_probes, 2 * K,
              refine_launches["fused_pq_topk"])
 
-    res = assert_topk_close(gk.streaming_select_k(scores, n_probes),
-                            gk.streaming_select_k_plain(scores, n_probes),
-                            0.0, 0.0, "select_k")
-    torch.cuda.synchronize()
-    kernels.append(dict(
-        name="select_k", route="cuda", source="raft_tpu_torch/csrc/select_k.cu",
-        replaces="raft_tpu/ops/pallas_kernels.py:428",
-        shape=f"[{N_QUERIES} x {N_LISTS}], k={n_probes}",
-        launches=main_launches["select_k"], agrees_with_plain=True, **res,
-        ms=cuda_ms(lambda: gk.streaming_select_k(scores, n_probes), 20),
-        plain_ms=cuda_ms(lambda: gk.streaming_select_k_plain(scores,
-                                                             n_probes), 3),
-        **bound(4 * scores.numel() + 8 * N_QUERIES * n_probes, scores.numel()),
-        library_ms=cuda_ms(lambda: torch.topk(scores, n_probes, largest=False),
-                           20)))
-    emit({"phase": "kernel_check", **kernels[-1]})
+    # select_k at each shape the main path launched it: the coarse probe
+    # selection over [nq, n_lists] scores, and the per-query merges of
+    # fused_l2_topk's database ranges and of the grouped routes' (pair, run)
+    # partials, whose rows are rebuilt as the kernels write them (each
+    # range's, or each pair and run's, top k from the kernel over that range
+    # or that probe and run alone, in (range) or (probe, run, rank) order,
+    # with their ids) and selected through select_k's C entry with the ids,
+    # as the fused kernels launch it; timed from CUDA graphs (the shorter
+    # calls take less device time than a launch takes on the host) and
+    # eagerly
+    def l2_range_rows(n_sel):
+        for size in (N_ROWS, N_ROWS // N_RANKS):
+            plan = gk.plan_fused_topk(N_QUERIES, size, DIM, K, n_sm)
+            if plan.splits * K != n_sel:
+                continue
+            vs, ids_ = [], []
+            for lo in range(0, size, plan.split_len):
+                hi = min(lo + plan.split_len, size)
+                v, i = gk.fused_l2_topk(x, dataset[lo:hi], K, xn, yn[lo:hi])
+                vs.append(v)
+                ids_.append(torch.where(i >= 0, i + lo, -1))
+            return (torch.stack(vs, 1).reshape(N_QUERIES, -1),
+                    torch.stack(ids_, 1).reshape(N_QUERIES, -1))
+        raise AssertionError(f"fused_l2_topk merges {n_sel} candidates a "
+                             "query at no planned shape")
+
+    def pair_run_rows(call, n_pr, pad_, run_len):
+        runs_ = [(lo, min(lo + run_len, pad_)) for lo in range(0, pad_,
+                                                               run_len)]
+        vs, ids_ = [], []
+        for p in range(n_pr):
+            for lo, hi in runs_:
+                v, i = call(p, lo, hi)
+                vs.append(v)
+                ids_.append(i)
+        return (torch.stack(vs, 1).reshape(N_QUERIES, -1).contiguous(),
+                torch.stack(ids_, 1).reshape(N_QUERIES, -1).contiguous())
+
+    def ivf_rows(n_sel):
+        plan = gk.plan_fused_ivf(N_QUERIES, n_probes, N_LISTS, pad, DIM, K, 4,
+                                 n_sm)
+        if n_probes * plan.runs * K != n_sel:
+            raise AssertionError(f"fused_ivf_topk merges {n_sel} candidates "
+                                 "a query at no planned shape")
+        q1 = qf[:, None, :].contiguous()
+        n1 = row_norms_sq(qf)[:, None].contiguous()
+        run_len = plan.chunks_per_run * gk.IVF_SCAN_SLOTS
+        data_, norms_, ids_ = (index.list_data, index.ensure_row_norms(),
+                               index.safe_ids())
+
+        def call(p, lo, hi):
+            sl = slice(lo, hi)
+            return gk.fused_ivf_topk(
+                probes[:, p:p + 1].contiguous(), q1, n1,
+                data_[:, sl].contiguous(), norms_[:, sl].contiguous(),
+                ids_[:, sl].contiguous(), K)
+        return pair_run_rows(call, n_probes, pad, run_len)
+
+    def pq_rows(n_sel, k_sel):
+        for probes_n in (lut_probes, refine_probes):
+            plan = gk.plan_fused_pq(N_QUERIES, probes_n, N_LISTS, pq_pad,
+                                    PQ_DIM, pq_len, k_sel)
+            if probes_n * plan.runs * k_sel == n_sel:
+                break
+        else:
+            raise AssertionError(f"fused_pq_topk merges {n_sel} candidates "
+                                 "a query at no planned shape")
+        q_rot, centers_rot, pr = ivf_pq._coarse_probes_rot(queries, pq_index,
+                                                           probes_n)
+        codes, ids_ = pq_index.list_codes, pq_index.safe_ids()
+        run_len = gk.PQ_ROWS_PER_WARP * plan.warps
+        cut = {}
+
+        def call(p, lo, hi):
+            if (lo, hi) not in cut:
+                cut[(lo, hi)] = (codes[:, lo:hi].contiguous(),
+                                 ids_[:, lo:hi].contiguous())
+            return gk.fused_pq_topk(pr[:, p:p + 1].contiguous(), q_rot,
+                                    centers_rot, codebooks, cb_norms,
+                                    *cut[(lo, hi)], k_sel)
+        return pair_run_rows(call, probes_n, pq_pad, run_len)
+
+    qf = queries.to(torch.float32)
+    for key in sorted(main_shapes):
+        caller, n_sel, k_sel = key.split(":")
+        n_sel, k_sel = int(n_sel), int(k_sel)
+        if caller == "select_k" and n_sel == N_LISTS:
+            vals, ids_ = scores, None
+        elif caller == "fused_l2_topk" and k_sel == K:
+            vals, ids_ = l2_range_rows(n_sel)
+        elif caller == "fused_ivf_topk" and k_sel == K:
+            vals, ids_ = ivf_rows(n_sel)
+        elif caller == "fused_pq_topk":
+            vals, ids_ = pq_rows(n_sel, k_sel)
+        else:
+            raise AssertionError(f"select_k launched at {key}, a shape this "
+                                 "script has no inputs for")
+        if tuple(vals.shape) != (N_QUERIES, n_sel):
+            raise AssertionError(f"select_k {key}: rows {tuple(vals.shape)}")
+        if ids_ is None:
+            def kernel(v=vals, kk=k_sel):
+                return gk.streaming_select_k(v, kk)
+            ab_cases[f"select_k_{key}"] = ("streaming_select_k",
+                                           (vals, k_sel), 20, True)
+        else:
+            def kernel(v=vals, i=ids_, kk=k_sel):
+                return select_k_rows(v, i, kk)
+            ab_cases[f"select_k_{key}"] = ("select_k_rows",
+                                           (vals, ids_, k_sel), 20, True)
+
+        def plain(v=vals, i=ids_, kk=k_sel):
+            return gk._stable_topk(v, kk, i)
+        got, want = kernel(), plain()
+        torch.cuda.synchronize()
+        if not (torch.equal(got[0].view(torch.int32),
+                            want[0].view(torch.int32))
+                and torch.equal(got[1], want[1])):
+            raise AssertionError(f"select_k {key} differs from its plain "
+                                 "version")
+        del got, want
+        n_in = 4 * vals.numel() * (1 if ids_ is None else 2)
+        entry = dict(
+            name="select_k", route="cuda",
+            source="raft_tpu_torch/csrc/select_k.cu",
+            replaces="raft_tpu/ops/pallas_kernels.py:428",
+            shape=(f"[{N_QUERIES} x {n_sel}], k={k_sel}"
+                   + ("" if ids_ is None else ", with ids")
+                   + f" ({caller})"),
+            launches=main_shapes[key], agrees_with_plain=True, bitwise=True,
+            max_abs_err=0.0, kernel_route=gk.plan_select_k(n_sel,
+                                                           k_sel).route,
+            plan=dataclasses.asdict(gk.plan_select_k(n_sel, k_sel)),
+            ms=graph_ms(kernel, 20), ms_eager=cuda_ms(kernel, 20),
+            plain_ms=graph_ms(plain, 3),
+            library_ms=graph_ms(lambda v=vals, kk=k_sel: torch.topk(
+                v, kk, largest=False), 20),
+            ab_case=f"select_k_{key}",
+            **bound(n_in + 8 * N_QUERIES * k_sel, vals.numel()))
+        kernels.append(entry)
+        emit({"phase": "kernel_check", **entry})
+        del vals, ids_
 
     # the beam walk: each row it touches read once, each node's graph row
     # once; a dot product per (query, row) scored and one norm per row
@@ -1309,9 +1437,11 @@ def main() -> int:
                 pq_index.list_decoded, pq_index.decoded_norms), 5)
 
     # the ring merge's hop: the [3, nq, k] f32 blocks of the sharded knn's
-    # first ring call, bitwise against the plain version; per launch, from
-    # CUDA graphs (a launch costs more than this copy); the library yardstick
-    # is Tensor.copy_ of each block
+    # first ring call, bitwise against the plain version; a hop (every rank's
+    # block, one launch a source device) from CUDA graphs (a launch costs
+    # about as much as one block's copy) and eagerly; the library yardstick
+    # is one torch._foreach_copy_ of the hop's blocks, beside a Tensor.copy_
+    # a block
     blocks = ring_blocks
     got, want = gk.ring_shift(blocks), gk.ring_shift_plain(blocks)
     for r in range(N_RANKS):
@@ -1321,23 +1451,30 @@ def main() -> int:
     block_bytes = blocks[0].numel() * blocks[0].element_size()
     copies = [torch.empty_like(b) for b in blocks]
 
-    def library_copy():
+    def foreach_copy():
+        torch._foreach_copy_(copies, blocks)
+
+    def copy_loop():
         for c, b in zip(copies, blocks):
             c.copy_(b)
 
+    ab_cases["ring_shift"] = ("ring_shift", (blocks,), 20, True)
     entry = dict(
         name="ring_shift", route="cuda",
         source="raft_tpu_torch/csrc/ring_shift.cu",
         replaces="raft_tpu/ops/pallas_kernels.py:1469",
         shape=f"ring merge hop: {N_RANKS} ranks on one card, blocks "
-              f"{list(blocks[0].shape)} f32 ({block_bytes} bytes), per launch",
-        launches=main_launches["ring_shift"], agrees_with_plain=True,
-        max_abs_err=0.0, bitwise=True,
-        ms=graph_ms(lambda: gk.ring_shift(blocks), 20) / N_RANKS,
-        ms_eager=cuda_ms(lambda: gk.ring_shift(blocks), 50) / N_RANKS,
-        plain_ms=graph_ms(lambda: gk.ring_shift_plain(blocks), 20) / N_RANKS,
-        library_ms=graph_ms(library_copy, 20) / N_RANKS,
-        **bound(2 * block_bytes, 0))
+              f"{list(blocks[0].shape)} f32 ({block_bytes} bytes each), a "
+              "hop (all ranks)",
+        launches=main_launches["ring_shift"],
+        launches_per_hop=len(gk.ring_shift_launches([dev] * N_RANKS)),
+        agrees_with_plain=True, max_abs_err=0.0, bitwise=True,
+        ms=graph_ms(lambda: gk.ring_shift(blocks), 20),
+        ms_eager=cuda_ms(lambda: gk.ring_shift(blocks), 50),
+        plain_ms=graph_ms(lambda: gk.ring_shift_plain(blocks), 20),
+        library_ms=graph_ms(foreach_copy, 20),
+        library_copy_loop_ms=graph_ms(copy_loop, 20),
+        ab_case="ring_shift", **bound(2 * N_RANKS * block_bytes, 0))
     kernels.append(entry)
     emit({"phase": "kernel_check", **entry})
     del got, want, copies
@@ -1378,8 +1515,10 @@ def main() -> int:
                                "ivf_scan_ivf_flat_inner_product",
                                "ivf_scan_ivf_pq_filtered"))}
     for kern in kernels:
-        if kern["name"] in names:
+        case = kern.pop("ab_case", None)
+        if case is None and kern["name"] in names:
             case = next(names[kern["name"]])
+        if case is not None:
             kern["parent_ms"] = kern["ab_ms"] = None
             if opts.parent:
                 kern["parent_ms"] = (runs[0]["ms"][case]

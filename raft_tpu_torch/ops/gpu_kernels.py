@@ -12,7 +12,8 @@ slice. Each kernel has
   failed, and adds one to its count in ``LAUNCHES`` (``fused_l2_topk``
   over several database ranges and the grouped routes of
   ``fused_ivf_topk`` and ``fused_pq_topk`` end in a launch of select_k's
-  kernel, their per-query merge, counted under ``select_k``);
+  kernel, their per-query merge, counted under ``select_k`` and, by
+  shape, in ``SELECT_K_SHAPES``);
 - a plain PyTorch version of the same function, which the wrapper runs for
   tensors on the CPU and which the CPU tests and ``chip_smoke.py`` hold the
   kernel against.
@@ -64,6 +65,10 @@ SOURCES = {
 
 #: launches of each kernel since the last ``reset_launch_counts()``
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
+#: select_k's launches of ``LAUNCHES`` by (caller, row width, k): "select_k"
+#: for ``streaming_select_k``, else the fused kernel whose per-query merge
+#: it is
+SELECT_K_SHAPES: Dict[Tuple[str, int, int], int] = {}
 
 #: largest dynamic shared memory a block may ask for on Hopper (227 KB)
 SMEM_LIMIT = 232448
@@ -77,7 +82,8 @@ _ARGTYPES = {
                       _LL, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "fused_ivf_topk": [_VP, _VP, _VP, _VP, _I, _VP, _VP, _I, _I, _I, _I, _I,
                        _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
-    "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _VP, _VP, _VP],
+    "select_k_rows": [_VP, _VP, _LL, _LL, _I, _I, _I, _I, _VP, _VP, _VP],
+    "select_k_route": [_LL, _I],
     "fused_pq_topk": [_VP, _VP, _VP, _VP, _VP, _VP, _VP, _I, _I, _I, _I, _I,
                       _I, _I, _I, _I, _I, _I, _VP, _VP, _VP, _VP, _VP, _VP],
     "fused_cagra_topk": [_VP, _VP, _VP, _VP, _VP, _I, _LL, _I, _I, _I, _I, _I,
@@ -86,11 +92,11 @@ _ARGTYPES = {
                         _VP, _VP, _VP, _VP],
     "ivf_scan": [_VP, _VP, _VP, _I, _VP, _VP, _LL, _I, _I, _I, _I, _VP, _VP],
     "ivf_scan_group": [_VP, _LL, _I, _VP, _VP],
-    "ring_shift_copy": [_VP, _VP, _LL, _I, _VP],
+    "ring_shift_copy": [_VP, _VP, _I, _LL, _I, _VP],
     "ring_shift_enable_peer": [_I, _I],
 }
 #: the C functions of each library (default: the kernel's own name)
-_FUNCTIONS = {"select_k": ["select_k_rows"],
+_FUNCTIONS = {"select_k": ["select_k_rows", "select_k_route"],
               "ivf_scan": ["ivf_scan", "ivf_scan_group"],
               "ring_shift": ["ring_shift_copy", "ring_shift_enable_peer"]}
 
@@ -98,6 +104,14 @@ _FUNCTIONS = {"select_k": ["select_k_rows"],
 def reset_launch_counts() -> None:
     for name in LAUNCHES:
         LAUNCHES[name] = 0
+    SELECT_K_SHAPES.clear()
+
+
+def _count_select_k(caller: str, n: int, k: int) -> None:
+    """One launch of select_k's kernel over rows of n at this k."""
+    LAUNCHES["select_k"] += 1
+    key = (caller, int(n), int(k))
+    SELECT_K_SHAPES[key] = SELECT_K_SHAPES.get(key, 0) + 1
 
 
 # ------------------------------------------------------------------- build
@@ -414,7 +428,8 @@ def fused_l2_topk(x, y, k: int, x_norms=None, y_norms=None):
                 _stream(dev))
         _check_rc("fused_l2_topk", rc)
         LAUNCHES["fused_l2_topk"] += 1
-        LAUNCHES["select_k"] += int(plan.splits > 1)  # the ranges' merge
+        if plan.splits > 1:  # the ranges' merge
+            _count_select_k("fused_l2_topk", plan.splits * k, k)
     return out_v, out_i
 
 
@@ -630,11 +645,59 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
                 out_i[r0:r1].data_ptr(), _stream(dev))
         _check_rc("fused_ivf_topk", rc)
         LAUNCHES["fused_ivf_topk"] += 1
-        LAUNCHES["select_k"] += int(grouped)  # the per-query merge
+        if grouped:  # the per-query merge
+            _count_select_k("fused_ivf_topk", n_probes * plan.runs * k, k)
     return out_v, out_i
 
 
 # ----------------------------------------------------------- select_k
+
+#: select_k's register route (a warp's carry in its registers, entry j in
+#: lane j) takes k up to this; above it the shared-memory carry, up to MAX_K
+#: (kRegMaxK in topk_carry.cuh)
+SELECT_REG_MAX_K = 32
+#: a 32-value step with up to this many survivors inserts them one by one;
+#: more are sorted and merged (kRegInsertMax)
+SELECT_INSERT_MAX = 16
+#: most values a lane loads a chunk on the register route (kRegMaxV)
+SELECT_REG_MAX_V = 8
+#: rows longer than this take the register route's bounding first pass
+#: (each lane's two smallest keys, the k-th of those 64 as a bound on the
+#: k-th value) before the exact pass (kRegTwoPassMinN)
+SELECT_TWO_PASS_MIN_N = 256
+#: values a warp streams a chunk on the shared-memory route (kSelectChunk)
+SELECT_SHARED_CHUNK = 128
+
+
+@dataclasses.dataclass(frozen=True)
+class SelectKPlan:
+    """How select_k's kernel runs a row of n at k: ``route`` "register" (the
+    carry in one warp's registers) or "shared" (in shared memory); ``v``
+    values a lane loads a chunk (chunks of 32·v values); ``rows_per_warp``
+    (one: a short row leaves lanes idle rather than share a warp);
+    ``passes`` over the row (2: a bounding pass first, on the register
+    route)."""
+
+    route: str
+    v: int
+    rows_per_warp: int
+    passes: int
+
+
+def plan_select_k(n: int, k: int) -> SelectKPlan:
+    """The plan ``launch_select_rows`` in topk_carry.cuh picks for rows of n
+    at k (``select_reg_route`` and ``select_reg_v`` there): the register
+    route up to k = ``SELECT_REG_MAX_K`` while positions fit 31 bits, with
+    the row's 32-value steps rounded up to a power of two, at most
+    ``SELECT_REG_MAX_V``, a chunk, and two passes over rows longer than
+    ``SELECT_TWO_PASS_MIN_N``."""
+    if k <= SELECT_REG_MAX_K and n < 2**31:
+        v = 1
+        while v < SELECT_REG_MAX_V and 32 * v < n:
+            v *= 2
+        return SelectKPlan("register", v, 1,
+                           2 if n > SELECT_TWO_PASS_MIN_N else 1)
+    return SelectKPlan("shared", SELECT_SHARED_CHUNK // 32, 1, 1)
 
 
 def streaming_select_k_plain(values, k: int, select_min: bool = True):
@@ -648,7 +711,8 @@ def streaming_select_k(values, k: int, select_min: bool = True):
     """Streaming top-k of the rows of values [b, n] (the counterpart of
     ``pallas_select_k``): ``(values [b, k], ids [b, k] int32)``, ascending
     (descending for ``select_min=False``), ids -1 past the row's finite
-    entries. Values come back in the input dtype; the kernel reads float32."""
+    entries. Values come back in the input dtype; the kernel reads float32.
+    On the card the route comes from ``plan_select_k``."""
     _check_k("select_k", k)
     if _on_cpu(values):
         return streaming_select_k_plain(values, k, select_min)
@@ -661,13 +725,15 @@ def streaming_select_k(values, k: int, select_min: bool = True):
     out_i = torch.empty((b, k), dtype=torch.int32, device=dev)
     if b == 0:
         return out_v, out_i
+    plan = plan_select_k(n, k)
     lib = _lib("select_k")
     with torch.cuda.device(dev):
         rc = lib.select_k_rows(
             values.data_ptr(), None, b, n, k, int(not select_min),
+            plan.v if plan.route == "register" else -1, plan.passes,
             out_v.data_ptr(), out_i.data_ptr(), _stream(dev))
     _check_rc("select_k", rc)
-    LAUNCHES["select_k"] += 1
+    _count_select_k("select_k", n, k)
     return out_v, out_i
 
 
@@ -917,7 +983,8 @@ def fused_pq_topk(probes, q_rot, centers_rot, codebooks, cb_norms,
                 _stream(dev))
         _check_rc("fused_pq_topk", rc)
         LAUNCHES["fused_pq_topk"] += 1
-        LAUNCHES["select_k"] += int(grouped)  # the per-query merge
+        if grouped:  # the per-query merge
+            _count_select_k("fused_pq_topk", n_probes * plan.runs * k, k)
     return out_v, out_i
 
 
@@ -1529,15 +1596,44 @@ def ring_shift_plain(blocks):
             for r in range(size)]
 
 
+#: (source, destination) pairs one ring_shift launch moves (kMaxPairs in
+#: ring_shift.cu); a device with more ranks takes more launches
+RING_SHIFT_MAX_PAIRS = 32
+
+_sm_counts: Dict[int, int] = {}
+
+
+def ring_shift_launches(devices) -> list:
+    """The launches of one ``ring_shift`` over ranks on ``devices`` (one
+    entry a rank, repeats allowed): ``[(source device, [ranks]), ...]``,
+    rank r sending its block to rank r + 1. The ranks are grouped by the
+    device of their block, in order of first appearance, each group cut
+    into runs of at most ``RING_SHIFT_MAX_PAIRS``."""
+    groups: Dict = {}
+    for r, d in enumerate(devices):
+        groups.setdefault(d, []).append(r)
+    return [(d, ranks[i:i + RING_SHIFT_MAX_PAIRS])
+            for d, ranks in groups.items()
+            for i in range(0, len(ranks), RING_SHIFT_MAX_PAIRS)]
+
+
+def _sm_count(index: int) -> int:
+    if index not in _sm_counts:
+        _sm_counts[index] = torch.cuda.get_device_properties(
+            index).multi_processor_count
+    return _sm_counts[index]
+
+
 def ring_shift(blocks):
     """+1 ring rotation of one block per rank (the counterpart of
     ``pallas_ring_shift``): ``out[r]`` is a copy of ``blocks[r - 1]`` on
     ``blocks[r]``'s device. The blocks share shape and dtype and are
     contiguous; devices may repeat (logical ranks on one card) or differ
     (peer cards, which must reach each other's memory: no copy is staged
-    through the host). One kernel launch per rank with a non-empty block,
-    on the source device's current stream, ordered after the destination
-    stream's earlier work and before its later work."""
+    through the host). One kernel launch per source device (per
+    ``RING_SHIFT_MAX_PAIRS`` of its ranks; ``ring_shift_launches``) moves
+    every block on that device, on its current stream, ordered after the
+    destination streams' earlier work and before their later work."""
     size = len(blocks)
     if size == 0:
         return []
@@ -1559,27 +1655,34 @@ def ring_shift(blocks):
     if n_bytes == 0:
         return out
     lib = _lib("ring_shift")
-    for r in range(size):
-        src, dst = blocks[r], out[(r + 1) % size]
-        sdev, ddev = src.device, dst.device
-        if sdev != ddev:
-            rc = lib.ring_shift_enable_peer(sdev.index, ddev.index)
-            if rc != 0:
-                raise RuntimeError(
-                    f"ring_shift: {sdev} cannot write the memory of {ddev} "
-                    f"(CUDA error {rc}: "
-                    f"{lib.rtt_error_string(rc).decode()})")
+    for sdev, ranks in ring_shift_launches([b.device for b in blocks]):
+        dsts = [out[(r + 1) % size] for r in ranks]
         s_stream = torch.cuda.current_stream(sdev)
-        d_stream = torch.cuda.current_stream(ddev)
-        if s_stream != d_stream:
-            s_stream.wait_stream(d_stream)
+        d_streams = []
+        for dst in dsts:
+            if dst.device == sdev:  # ordered on the source's own stream
+                continue
+            d_stream = torch.cuda.current_stream(dst.device)
             dst.record_stream(s_stream)
-        n_sm = torch.cuda.get_device_properties(sdev).multi_processor_count
+            if d_stream not in d_streams:  # once per destination device
+                rc = lib.ring_shift_enable_peer(sdev.index, dst.device.index)
+                if rc != 0:
+                    raise RuntimeError(
+                        f"ring_shift: {sdev} cannot write the memory of "
+                        f"{dst.device} (CUDA error {rc}: "
+                        f"{lib.rtt_error_string(rc).decode()})")
+                d_streams.append(d_stream)
+        for d_stream in d_streams:
+            s_stream.wait_stream(d_stream)
+        n = len(ranks)
+        srcs = (ctypes.c_void_p * n)(*(blocks[r].data_ptr() for r in ranks))
+        dst_ptrs = (ctypes.c_void_p * n)(*(d.data_ptr() for d in dsts))
         with torch.cuda.device(sdev):
-            rc = lib.ring_shift_copy(src.data_ptr(), dst.data_ptr(), n_bytes,
-                                     n_sm, s_stream.cuda_stream)
+            rc = lib.ring_shift_copy(srcs, dst_ptrs, n, n_bytes,
+                                     _sm_count(sdev.index),
+                                     s_stream.cuda_stream)
         _check_rc("ring_shift", rc)
         LAUNCHES["ring_shift"] += 1
-        if s_stream != d_stream:
+        for d_stream in d_streams:
             d_stream.wait_stream(s_stream)
     return out

@@ -10,7 +10,8 @@ another order; for fused_pq_topk and the IVF-PQ engines the largest ADC
 distance stands for max‖x‖²; an fp8 LUT adds two e4m3 steps of the
 largest LUT entry, as an entry may round the other way on the card); ids
 equal away from near-ties, near-ties as sets, and for the IVF-PQ engines at
-least 90% equal; select_k does no arithmetic and is held to equality.
+least 90% equal; select_k does no arithmetic and is held to equality (bitwise, both
+routes, at the per-query merges' shapes with their ids).
 fused_cagra_topk is held to bitwise equality with its plain version (the
 plain version repeats the kernel's products and its order of additions),
 and so is the CAGRA kernel engine on the card with its CPU run.
@@ -28,7 +29,8 @@ k-means on the card against the CPU: one update from the same centres,
 and a whole fit from centres that leave every row far from a tie: labels
 and n_iter equal, centres and inertia rtol 1e-5 (the card and the CPU sum
 in another order). ring_shift: bitwise against its plain version and its input, on
-random bytes of every dtype. The sharded searches on the card: the three
+random bytes of every dtype, one launch per source device (per 32 ranks).
+The sharded searches on the card: the three
 merge engines bitwise equal, and against the CPU as the searches above.
 Sharded k-means on the card against the CPU from the same initial rows:
 two card fits bitwise equal, labels equal (every E-step of the CPU's fit
@@ -271,6 +273,87 @@ def test_streaming_select_k_kernel_matches_plain(dev, b, n, k, select_min):
     torch.cuda.synchronize()
     want = gk.streaming_select_k_plain(v, k, select_min)
     assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+
+
+def _select_rows(dev, case, b, n, k, seed=11):
+    """select_k's inputs on the card: ``ties`` (a coarse grid: ties across
+    chunks, -0.0 beside +0.0), ``specials`` (+inf rows and tails, -inf,
+    NaN of both signs), ``merge_runs`` (sorted runs of k with their ids, as
+    the per-query merges read them; +inf and id -1 where a run ran short)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if case == "merge_runs":
+        runs = -(-n // k)
+        v = torch.randn(b, runs, 1, generator=g, device=dev) + torch.randn(
+            b, runs, k, generator=g, device=dev).abs()
+        v = torch.round(torch.sort(v, dim=2).values * 8) / 8
+        short = torch.rand(b, runs, 1, generator=g, device=dev) < 0.2
+        v = torch.where(short & (torch.arange(k, device=dev) >= k // 2),
+                        torch.inf, v)
+        ids = torch.randperm(b * runs * k, generator=g, device=dev).reshape(
+            b, runs, k).to(torch.int32)
+        ids = torch.where(torch.isinf(v), -1, ids)
+        return (v.reshape(b, -1)[:, :n].contiguous(),
+                ids.reshape(b, -1)[:, :n].contiguous())
+    v = torch.round(torch.randn(b, n, generator=g, device=dev) * 4) / 4
+    v = torch.where((v == 0) & (torch.rand(b, n, generator=g, device=dev)
+                                < 0.5), -0.0, v)
+    if case == "specials":
+        v[0, n // 3:] = torch.inf
+        v[1] = torch.inf
+        v[2, ::5] = -torch.inf
+        v[3:, ::7] = torch.nan
+        v[4:, 3::11] = -torch.nan
+        v[5:, 1::13] = torch.inf
+    return v.contiguous(), None
+
+
+@pytest.mark.parametrize("case", ["ties", "specials", "merge_runs"])
+@pytest.mark.parametrize("b,n", [(10000, 50), (1000, 320), (1000, 640),
+                                 (1000, 1024), (500, 2560), (300, 77)])
+@pytest.mark.parametrize("k", [1, 10, 20, 32, 33])
+@pytest.mark.parametrize("select_min", [True, False])
+def test_select_k_routes_bitwise_at_the_merge_shapes(dev, case, b, n, k,
+                                                     select_min):
+    # the register route up to k = 32, the shared-memory route at 33; with
+    # ids through the C entry the per-query merges launch
+    from raft_tpu_torch.bench.kernel_ab import select_k_rows
+
+    v, ids = _select_rows(dev, case, b, n, k)
+    want = gk._stable_topk(v if select_min else -v, k, ids)
+    want = (want[0] if select_min else -want[0], want[1])
+    if ids is None:
+        got = gk.streaming_select_k(v, k, select_min)
+    else:
+        got = select_k_rows(v, ids, k, select_min)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+@pytest.mark.parametrize("v", [1, 2, 4, 8, -1])
+@pytest.mark.parametrize("passes", [1, 2])
+def test_select_k_every_chunk_width_is_bitwise_the_plain_version(dev, v,
+                                                                 passes):
+    # the widths and passes the planner does not pick at this n still
+    # select alike
+    from raft_tpu_torch.bench.kernel_ab import select_k_rows
+
+    vals, ids = _select_rows(dev, "merge_runs", 2000, 640, 10)
+    want = gk._stable_topk(vals, 10, ids)
+    got = select_k_rows(vals, ids, 10, v=v, passes=passes)
+    torch.cuda.synchronize()
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+
+
+def test_plan_select_k_is_the_launchers_choice(dev):
+    lib = gk._lib("select_k")
+    for n in (1, 7, 32, 33, 50, 64, 65, 128, 129, 256, 257, 320, 640, 1024,
+              2560, 10**6):
+        for k in (1, 10, 20, 32, 33, 64, 1024):
+            plan = gk.plan_select_k(n, k)
+            want = 4 * plan.v + plan.passes if plan.route == "register" else 0
+            assert lib.select_k_route(n, k) == want, (n, k)
 
 
 def _pq_inputs(dev, L, pad, pq_dim, pq_len, nq, P, seed=8):
@@ -985,7 +1068,8 @@ def test_ring_shift_kernel_matches_plain_bitwise(dev, size, dtype, shape):
     before = gk.LAUNCHES["ring_shift"]
     got = gk.ring_shift(blocks)
     torch.cuda.synchronize()
-    assert gk.LAUNCHES["ring_shift"] == before + (size if n_bytes else 0)
+    # one launch per source device: the ranks here share one card
+    assert gk.LAUNCHES["ring_shift"] == before + (1 if n_bytes else 0)
     want = gk.ring_shift_plain(blocks)
     for r in range(size):
         assert got[r].data_ptr() not in {b.data_ptr() for b in blocks} \
@@ -1013,6 +1097,21 @@ def test_ring_shift_kernel_unaligned_and_repeated(dev):
     assert all(torch.equal(a, b) for a, b in zip(cur, blocks))
 
 
+def test_ring_shift_longer_than_one_launch(dev):
+    # 70 ranks on one card: three launches of 32, 32 and 6 pairs
+    size = 70
+    blocks = _ring_blocks(dev, size, torch.float32, (3, 100, 10), seed=2)
+    launches = gk.ring_shift_launches([b.device for b in blocks])
+    assert [len(r) for _, r in launches] == [32, 32, 6]
+    before = gk.LAUNCHES["ring_shift"]
+    got = gk.ring_shift(blocks)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ring_shift"] == before + 3
+    for r in range(size):
+        assert torch.equal(got[r].view(torch.uint8),
+                           blocks[(r - 1) % size].view(torch.uint8))
+
+
 def test_ring_shift_checks_its_inputs(dev):
     a = torch.zeros((4, 6), device=dev)
     with pytest.raises(ValueError, match="contiguous"):
@@ -1034,7 +1133,7 @@ def test_sharded_knn_engines_bitwise_on_the_card(dev):
     outs = {m: sharded.knn(tc, q, db, 10, merge_mode=m)
             for m in ("allgather", "tree", "ring")}
     torch.cuda.synchronize()
-    assert gk.LAUNCHES["ring_shift"] == 4 * 3
+    assert gk.LAUNCHES["ring_shift"] == 3  # a launch a hop: one card
     assert gk.LAUNCHES["fused_l2_topk"] == 3 * 4
     for m in ("tree", "ring"):
         assert torch.equal(outs[m][0].view(torch.int32),
@@ -1069,7 +1168,7 @@ def test_sharded_ivf_flat_on_the_card_matches_the_cpu(dev):
     got = sharded.search_ivf_flat(card, q, 10, sp, merge_mode="ring")
     torch.cuda.synchronize()
     assert gk.LAUNCHES["fused_ivf_topk"] == 4
-    assert gk.LAUNCHES["ring_shift"] == 12
+    assert gk.LAUNCHES["ring_shift"] == 3  # a launch a hop: one card
     want = sharded.search_ivf_flat(cpu, q, 10, sp, merge_mode="ring")
     assert_topk_close(got, want, 1e-4 * float((db * db).sum(1).max()), 1e-5)
     tree = sharded.search_ivf_flat(card, q, 10, sp, merge_mode="tree")

@@ -1,6 +1,6 @@
 """What the CPU can check of the redesigned kernels: their plans, the
-precision argument of the 3xTF32 split, and the grouped IVF top-k's
-selection rule.
+precision argument of the 3xTF32 split, the grouped routes' and
+select_k's selection rules, and ring_shift's launches.
 
 - ``plan_fused_topk`` for every k in [1, 1024] and the feature widths the
   card tests use: a block's shared memory fits, the hi/lo planes' width is
@@ -51,6 +51,20 @@ selection rule.
   (value, position) and a merge by rank with the beam first on ties) is
   bitwise equal to ``fused_cagra_topk_plain`` over random graphs with
   invalid edges, duplicate seeds across chunks and ties.
+- ``plan_select_k``: the register route up to ``SELECT_REG_MAX_K`` (32)
+  at every main-path shape, its chunk width and passes, and the
+  shared-memory route above, up to k = 1024. A numpy emulation of the
+  register route lane by lane (chunks of 32·V values; in two passes, the
+  bound from each lane's two smallest keys; a step's survivors strictly
+  below entry k-1 and at or below the bound; up to ``SELECT_INSERT_MAX``
+  inserted by rank, more sorted and merged) is bitwise equal to
+  ``_stable_topk`` in one pass and in two: ties across chunks and ±0.0,
+  +inf tails, -inf and NaN of both signs, rows shorter than k or not a
+  multiple of 32, ``select_min=False``, and rows built as the per-query
+  merges build them (sorted runs of k with ids).
+- ``ring_shift_launches``: one launch of 4 pairs for four ranks on one
+  card, one a device for two cards, runs of ``RING_SHIFT_MAX_PAIRS`` (32)
+  for a longer ring.
 """
 
 import dataclasses
@@ -723,3 +737,203 @@ def test_warp_route_emulation_is_bitwise_the_plain_version(case, itopk, width,
                                 max_iter)
     assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
     assert torch.equal(got[1], want[1])
+
+
+# ------------------------------------------------------------- select_k
+
+
+@pytest.mark.parametrize("n,k,route,v", [
+    # the main path: the coarse probe selection and the per-query merges of
+    # fused_l2_topk (5 ranges), fused_ivf_topk (32 probes, one run) and
+    # fused_pq_topk (LUT: 32 probes, two runs; refine: 64 probes, k = 20)
+    (1024, 32, "register", 8), (50, 10, "register", 2),
+    (320, 10, "register", 8), (640, 10, "register", 8),
+    (2560, 20, "register", 8),
+    # both sides of k = 32, and k up to MAX_K on the shared route
+    (1024, 33, "shared", 4), (1024, 64, "shared", 4), (5000, 1024, "shared", 4),
+    (7, 10, "register", 1), (32, 1, "register", 1), (33, 1, "register", 2),
+    (128, 32, "register", 4), (129, 32, "register", 8),
+    (2**31, 10, "shared", 4)])
+def test_plan_select_k_routes(n, k, route, v):
+    plan = gk.plan_select_k(n, k)
+    assert (plan.route, plan.v, plan.rows_per_warp) == (route, v, 1)
+    assert plan.passes == (2 if route == "register"
+                           and n > gk.SELECT_TWO_PASS_MIN_N else 1)
+    assert (plan.route == "register") == (k <= gk.SELECT_REG_MAX_K
+                                          and n < 2**31)
+    if plan.route == "register":  # a chunk covers the row up to 8 steps
+        assert 32 * plan.v >= min(n, 32 * gk.SELECT_REG_MAX_V)
+
+
+_NO_KEY = np.uint64(0xFFFFFFFF)
+
+
+def _select_keys(v):
+    """select_key of topk_carry.cuh: order-preserving uint32 keys with -0.0
+    as +0.0; +inf and NaN take 0xffffffff, which never enters."""
+    f = v.astype(np.float32) + np.float32(0.0)
+    u = f.view(np.uint32).astype(np.uint64)
+    key = np.where(u & 0x80000000, ~u & 0xFFFFFFFF, u | 0x80000000)
+    return np.where(np.isnan(f) | (key >= 0xFF800000), _NO_KEY, key)
+
+
+def _key_values(key):
+    u = np.where(key & 0x80000000, key & 0x7FFFFFFF, ~key & 0xFFFFFFFF)
+    return np.where(key == _NO_KEY, np.float32(np.inf),
+                    u.astype(np.uint32).view(np.float32))
+
+
+def _register_route_emulation(vals, ids, k, select_min, passes, stats):
+    """select_reg_kernel lane by lane: a sorted carry of 32 64-bit keys
+    (order key << 32 | position) and ids; chunks of 32·v values, each
+    32-value step filtered strictly below entry k-1's order key, up to
+    SELECT_INSERT_MAX survivors inserted in position order by rank, more
+    sorted and merged (carry[l] against survivor[31 - l], then sorted), the
+    first step with survivors sorted straight into the empty carry. With
+    two passes only keys at or below the bound enter: the k-th smallest of
+    the lanes' two smallest keys over the row (lane l reads positions l,
+    l + 32, ...)."""
+    b, n = vals.shape
+    v = gk.plan_select_k(n, k).v
+    lanes = np.arange(32, dtype=np.uint64)
+    out_v = np.empty((b, k), np.float32)
+    out_i = np.empty((b, k), np.int32)
+    for row in range(b):
+        keys = _select_keys(vals[row] if select_min else -vals[row])
+        limit = _NO_KEY
+        if passes == 2:
+            lanes_keys = np.full(-(-n // 32) * 32, _NO_KEY, np.uint64)
+            lanes_keys[:n] = keys
+            two = np.sort(lanes_keys.reshape(-1, 32), axis=0)[:2]
+            limit = np.sort(two.ravel())[k - 1]
+            stats["bounded"] += 1
+        carry = np.full(32, ~np.uint64(0), np.uint64)
+        cid = np.full(32, -1, np.int64)
+        thr, empty = _NO_KEY, True
+        for base in range(0, n, 32 * v):
+            for j in range(v):
+                pos = np.uint64(base + 32 * j) + lanes
+                inside = pos < n
+                at = np.minimum(pos, n - 1).astype(np.int64)
+                key = np.where(inside, keys[at], _NO_KEY)
+                nid = np.where(inside, ids[row, at], -1) if ids is not None \
+                    else np.zeros(32, np.int64)
+                enter = (key < thr) & (key <= limit)
+                if not enter.any():
+                    continue
+                nk = np.where(enter, (key << np.uint64(32)) | pos,
+                              ~np.uint64(0))
+                if enter.sum() <= gk.SELECT_INSERT_MAX:
+                    stats["insert"] += 1
+                    for src in np.flatnonzero(enter):
+                        rank = int((carry < nk[src]).sum())
+                        if rank >= k:
+                            continue
+                        carry = np.concatenate([carry[:rank], nk[src:src + 1],
+                                                carry[rank:31]])
+                        cid = np.concatenate([cid[:rank], nid[src:src + 1],
+                                              cid[rank:31]])
+                else:
+                    stats["merge"] += 1
+                    order = np.argsort(nk, kind="stable")
+                    sk, sid = nk[order], nid[order]
+                    if empty:
+                        carry, cid = sk, sid
+                    else:
+                        take = sk[::-1] < carry
+                        low = np.where(take, sk[::-1], carry)
+                        lid = np.where(take, sid[::-1], cid)
+                        order = np.argsort(low, kind="stable")
+                        carry, cid = low[order], lid[order]
+                empty = False
+                thr = carry[k - 1] >> np.uint64(32)
+        key = carry[:k] >> np.uint64(32)
+        val = _key_values(key)
+        out_v[row] = val if select_min else -val
+        pos_id = (carry[:k] & np.uint64(0xFFFFFFFF)).astype(np.int64)
+        out_i[row] = np.where(key == _NO_KEY, -1,
+                              cid[:k] if ids is not None else pos_id)
+    return torch.from_numpy(out_v), torch.from_numpy(out_i)
+
+
+def _select_case(case, b, n, k, seed=31):
+    """Rows of select_k's inputs: ``ties`` (values on a coarse grid, ties
+    across chunks, -0.0 beside +0.0), ``specials`` (+inf tails, -inf, NaN),
+    ``merge_runs`` (rows as the per-query merges build them: sorted runs of
+    k, their ids, +inf and id -1 where a run ran short)."""
+    rng = np.random.default_rng(seed)
+    if case == "merge_runs":
+        runs = -(-n // k)
+        base = rng.standard_normal((b, runs, 1)).astype(np.float32)
+        vals = np.sort(base + np.abs(rng.standard_normal((b, runs, k))
+                                     .astype(np.float32)), axis=2)
+        vals = np.round(vals * 8) / 8  # ties within and across runs
+        short = rng.random((b, runs)) < 0.2
+        vals[:, :, k // 2:][short] = np.inf
+        ids = rng.permutation(b * runs * k).reshape(b, runs, k)
+        ids = np.where(np.isinf(vals), -1, ids)
+        return (vals.reshape(b, -1)[:, :n].astype(np.float32),
+                ids.reshape(b, -1)[:, :n].astype(np.int32))
+    vals = np.round(rng.standard_normal((b, n)) * 4) / 4
+    vals = vals.astype(np.float32)
+    vals[vals == 0] = np.where(rng.random(int((vals == 0).sum())) < 0.5,
+                               np.float32(-0.0), np.float32(0.0))
+    if case == "specials":
+        vals[0, n // 3:] = np.inf  # a row short of finite values
+        vals[1] = np.inf
+        vals[2, ::5] = -np.inf
+        vals[3:, ::7] = np.nan
+        vals[4:, 3::11] = -np.nan
+        vals[5:, 1::13] = np.inf
+    return vals, None
+
+
+@pytest.mark.parametrize("case", ["ties", "specials", "merge_runs"])
+@pytest.mark.parametrize("n,k", [(7, 10), (50, 10), (77, 32), (320, 10),
+                                 (640, 20), (1000, 1), (300, 32)])
+@pytest.mark.parametrize("select_min", [True, False])
+@pytest.mark.parametrize("passes", [1, 2])
+def test_register_route_emulation_is_bitwise_the_plain_version(case, n, k,
+                                                               select_min,
+                                                               passes):
+    # the planner takes two passes above SELECT_TWO_PASS_MIN_N; the kernel
+    # runs either at any n (select_k_rows' ``passes``)
+    vals, ids = _select_case(case, 12, n, k)
+    stats = {"insert": 0, "merge": 0, "bounded": 0}
+    got = _register_route_emulation(vals, ids, k, select_min, passes, stats)
+    v = torch.from_numpy(vals)
+    sv, si = gk._stable_topk(v if select_min else -v, k,
+                             None if ids is None else torch.from_numpy(ids))
+    want = (sv if select_min else -sv, si)
+    if ids is None:
+        plain = gk.streaming_select_k_plain(v, k, select_min)
+        assert torch.equal(plain[0].view(torch.int32),
+                           want[0].view(torch.int32))
+        assert torch.equal(plain[1], want[1])
+    assert torch.equal(got[0].view(torch.int32), want[0].view(torch.int32))
+    assert torch.equal(got[1], want[1])
+    assert stats["bounded"] == (vals.shape[0] if passes == 2 else 0)
+    if passes == 1 and n >= 300 and k > 1:  # long rows take both paths
+        assert stats["insert"] > 0 and stats["merge"] > 0, stats
+
+
+# ------------------------------------------------------------- ring_shift
+
+
+@pytest.mark.parametrize("devices,launches", [
+    (["cuda:0"] * 4, [("cuda:0", [0, 1, 2, 3])]),
+    (["cuda:0", "cuda:1"] * 2, [("cuda:0", [0, 2]), ("cuda:1", [1, 3])]),
+    (["cuda:1", "cuda:1", "cuda:0"], [("cuda:1", [0, 1]), ("cuda:0", [2])]),
+    (["cuda:0"] * 67, [("cuda:0", list(range(0, 32))),
+                       ("cuda:0", list(range(32, 64))),
+                       ("cuda:0", list(range(64, 67)))])])
+def test_ring_shift_launches_group_the_ranks_by_source_device(devices,
+                                                              launches):
+    assert gk.RING_SHIFT_MAX_PAIRS == 32
+    devs = [torch.device(d) for d in devices]
+    got = gk.ring_shift_launches(devs)
+    assert [(str(d), r) for d, r in got] == launches
+    # every rank sends once, from its own device
+    assert sorted(r for _, ranks in got for r in ranks) == list(
+        range(len(devices)))
+    assert all(devs[r] == d for d, ranks in got for r in ranks)
