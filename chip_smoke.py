@@ -89,10 +89,33 @@ seed, 10,000 queries, k=10, L2) it
    kernels and this tree's on them in turns (parent, this, this, parent,
    one ``raft_tpu_torch/bench/kernel_ab.py`` process each): the rows get
    ``parent_ms`` and ``ab_ms``, null without the option;
+6b. serves each index above through ``raft_tpu_torch.serving.Engine``
+   (``max_batch=64, max_wait_us=2000, max_inflight=2, warm_ks=(10,)``):
+   brute force, IVF-Flat, IVF-PQ in the cache regime and in the LUT
+   regime (under the LUT phase's Resources) and CAGRA, each at the probes
+   or itopk its phase settled on, under two closed-loop loads (8, then 64
+   submitter threads, every query once, one a request, k=10;
+   ``raft_tpu_torch/bench/serve_load.py``). A ``serving`` line per family
+   and load: QPS, p50/p99 latency, mean batch size and bucket histogram,
+   host-return and CUDA-event device ms per batch, the device busy share,
+   the first request's latency after ``start()``, kernel builds after
+   ``start()`` (asserted 0), recall@10 against phase 3 (the phases'
+   floors asserted; brute force held to phase 3's rows away from
+   near-ties), mismatches against ``solo_reference`` on 256 sampled
+   requests (asserted 0), the explain briefs' routes (a batch must name
+   the CUDA route) and, for the first load, a scrape of
+   ``serve_metrics(0)`` holding the serving families. Then each kernel of
+   the served path against its plain version on the inputs that path
+   gives it at buckets 8, 16, 32 and 64 (``fused_l2_topk``; the coarse
+   ``select_k``; ``fused_ivf_topk`` of IVF-Flat and of the PQ cache;
+   ``fused_pq_topk``; ``fused_cagra_topk`` bitwise, with the served
+   searcher's seeds); at 8 and 64 also timed, a row of the kernels line
+   with its launches at that bucket in the loads;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
-   shapes), then, as the last line, ``{"ok": true, "device": {...}}``.
+   shapes; the served kernels at buckets 8 and 64), then, as the last
+   line, ``{"ok": true, "device": {...}}``.
 
 Every phase prints one JSON line. Any failed check raises, and the script
 then exits non-zero without the last line. Without a CUDA device, or
@@ -109,6 +132,7 @@ import re
 import subprocess
 import sys
 import time
+import urllib.request
 from pathlib import Path
 
 #: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
@@ -135,6 +159,23 @@ FILTER_REMOVED = 0.10
 IP_ROWS, IP_DIM = 1_183_514, 100
 # the sharded path: logical ranks on the one card, the merge engines
 N_RANKS, MERGE_ENGINES = 4, ("allgather", "tree", "ring")
+# the serving phase: closed-loop submitter threads, the sampled requests
+# held against solo_reference, the buckets each served kernel is held
+# against its plain version at (every warmed one), and those that also
+# get a timed row in the kernels line
+SERVE_LOADS, SERVE_SAMPLE = (8, 64), 256
+SERVE_CHECK_BUCKETS, SERVE_ROW_BUCKETS = (8, 16, 32, 64), (8, 64)
+SERVE_KERNELS = ("fused_l2_topk", "select_k", "fused_ivf_topk",
+                 "fused_pq_topk", "fused_cagra_topk")
+SERVE_FAMILIES = ("raft_tpu_serving_requests_total",
+                  "raft_tpu_serving_batches_total",
+                  "raft_tpu_serving_total_seconds",
+                  "raft_tpu_dispatch_total", "raft_tpu_kernel_build_total")
+#: the TPU kernel each CUDA kernel replaces
+REPLACES = {name: f"raft_tpu/ops/pallas_kernels.py:{line}" for name, line in (
+    ("fused_l2_argmin", 88), ("ivf_scan", 328), ("select_k", 428),
+    ("fused_l2_topk", 610), ("fused_ivf_topk", 798), ("fused_pq_topk", 989),
+    ("fused_cagra_topk", 1368), ("ring_shift", 1469))}
 
 
 def emit(obj) -> None:
@@ -935,7 +976,7 @@ def main() -> int:
         tc = 3 * 2 * m * n * DIM / PEAK_TF32_FLOPS
         return dict(name="fused_l2_topk", route="cuda",
                     source="raft_tpu_torch/csrc/fused_l2_topk.cu",
-                    replaces="raft_tpu/ops/pallas_kernels.py:610",
+                    replaces=REPLACES["fused_l2_topk"],
                     shape=f"{m} x {n} x {DIM}, k={K}", launches=launches,
                     library_ms=None, **bound(n_bytes, 2 * m * n * DIM),
                     bound_3xtf32_ms=1e3 * max(tc, n_bytes / PEAK_BYTES_PER_S),
@@ -1002,7 +1043,7 @@ def main() -> int:
         ab_cases[f"fused_ivf_topk_{label}"] = ("fused_ivf_topk", args, 5)
         check(dict(name="fused_ivf_topk", route="cuda",
                    source="raft_tpu_torch/csrc/fused_ivf_topk.cu",
-                   replaces="raft_tpu/ops/pallas_kernels.py:798",
+                   replaces=REPLACES["fused_ivf_topk"],
                    shape=shape, launches=launches, library_ms=None,
                    rows_scanned=rows_scanned, bitwise_repeatable=True,
                    kernel_route=plan.route, plan=dataclasses.asdict(plan),
@@ -1092,7 +1133,7 @@ def main() -> int:
         lookups = rows_scanned * PQ_DIM
         check(dict(name="fused_pq_topk", route="cuda",
                    source="raft_tpu_torch/csrc/fused_pq_topk.cu",
-                   replaces="raft_tpu/ops/pallas_kernels.py:989",
+                   replaces=REPLACES["fused_pq_topk"],
                    shape=f"{label}: {N_QUERIES} queries x {probes_n} probes,"
                          f" pad {pq_pad}, pq_dim {PQ_DIM}, pq_len {pq_len}, "
                          f"k={k_}",
@@ -1239,7 +1280,7 @@ def main() -> int:
         entry = dict(
             name="select_k", route="cuda",
             source="raft_tpu_torch/csrc/select_k.cu",
-            replaces="raft_tpu/ops/pallas_kernels.py:428",
+            replaces=REPLACES["select_k"],
             shape=(f"[{N_QUERIES} x {n_sel}], k={k_sel}"
                    + ("" if ids_ is None else ", with ids")
                    + f" ({caller})"),
@@ -1271,7 +1312,7 @@ def main() -> int:
         "fused_cagra_topk", (*cg_args, K, itopk, 1, cg_max_iter), 3)
     check(dict(name="fused_cagra_topk", route="cuda",
                source="raft_tpu_torch/csrc/fused_cagra_topk.cu",
-               replaces="raft_tpu/ops/pallas_kernels.py:1368",
+               replaces=REPLACES["fused_cagra_topk"],
                shape=f"cagra: {N_QUERIES} queries, itopk {itopk}, width 1, "
                      f"degree {CAGRA_DEGREE}, dim {DIM}, {n_seeds} seeds, "
                      f"max_iter {cg_max_iter}",
@@ -1320,7 +1361,7 @@ def main() -> int:
     entry = dict(
         name="fused_l2_argmin", route="cuda",
         source="raft_tpu_torch/csrc/fused_l2_argmin.cu",
-        replaces="raft_tpu/ops/pallas_kernels.py:88",
+        replaces=REPLACES["fused_l2_argmin"],
         shape=f"k-means E-step: {m} x {n} x {DIM}, clamp",
         launches=km_launches["fused_l2_argmin"], library_ms=None,
         agrees_with_plain=True, max_abs_err=err, bitwise_repeatable=True,
@@ -1377,7 +1418,7 @@ def main() -> int:
         ab_cases[f"ivf_scan_{label}"] = ("ivf_scan", args, reps)
         entry.update(
             route="cuda", source="raft_tpu_torch/csrc/ivf_scan.cu",
-            replaces="raft_tpu/ops/pallas_kernels.py:328", library_ms=None,
+            replaces=REPLACES["ivf_scan"], library_ms=None,
             agrees_with_plain=True, max_abs_err=err,
             ms=cuda_ms(lambda: gk.ivf_scan(*args), reps),
             plain_ms=cuda_ms(lambda: gk.ivf_scan_plain(*args), 1, False),
@@ -1462,7 +1503,7 @@ def main() -> int:
     entry = dict(
         name="ring_shift", route="cuda",
         source="raft_tpu_torch/csrc/ring_shift.cu",
-        replaces="raft_tpu/ops/pallas_kernels.py:1469",
+        replaces=REPLACES["ring_shift"],
         shape=f"ring merge hop: {N_RANKS} ranks on one card, blocks "
               f"{list(blocks[0].shape)} f32 ({block_bytes} bytes each), a "
               "hop (all ranks)",
@@ -1529,6 +1570,262 @@ def main() -> int:
         if kern["launches"] < 1:
             raise AssertionError(f"{kern['name']} was not launched on the "
                                  "main path")
+
+    # ---- 6b. serving: each index above behind a serving Engine, single
+    # requests from closed-loop submitter threads, 8 then 64 of them; then
+    # each kernel of the served path against its plain version at buckets
+    # 8 and 64
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.bench.serve_load import BatchSink, closed_loop, \
+        summarize
+
+    q_host = queries.cpu().numpy()
+    served = {
+        "brute_force": (serving.brute_force_searcher(bf), None),
+        "ivf_flat": (serving.ivf_flat_searcher(
+            index, ivf_flat.SearchParams(n_probes=n_probes)), RECALL_FLOOR),
+        "ivf_pq_cache": (serving.ivf_pq_searcher(
+            pq_index, ivf_pq.SearchParams(n_probes=pq_probes),
+            res=card_res), PQ_RECALL_FLOOR),
+        "ivf_pq_lut": (serving.ivf_pq_searcher(
+            pq_index, ivf_pq.SearchParams(n_probes=lut_probes),
+            res=lut_res), PQ_RECALL_FLOOR),
+        "cagra": (serving.cagra_searcher(cg_index, cagra.SearchParams(
+            itopk_size=itopk, search_width=1)), CAGRA_RECALL_FLOOR)}
+    # launches by (family, bucket, kernel) while a load runs
+    bucket_launches, counting = {}, [None]
+
+    def counted(family, searcher):
+        inner = searcher.search
+
+        def search(q, k_):
+            before = dict(gk.LAUNCHES)
+            out = inner(q, k_)
+            if counting[0] is not None:
+                for name, n in gk.LAUNCHES.items():
+                    key = (family, q.shape[0], name)
+                    bucket_launches[key] = (bucket_launches.get(key, 0)
+                                            + n - before[name])
+            return out
+        searcher.search = search
+
+    for family, (searcher, _) in served.items():
+        counted(family, searcher)
+    sample = np.random.default_rng(opts.seed).choice(N_QUERIES, SERVE_SAMPLE,
+                                                    replace=False)
+    serve_launches = {name: 0 for name in gk.LAUNCHES}
+    for family, (searcher, floor) in served.items():
+        for n_threads in SERVE_LOADS:
+            sink = BatchSink()
+            eng = serving.Engine(searcher, serving.EngineConfig(
+                max_batch=64, max_wait_us=2000, max_inflight=2,
+                warm_ks=(K,), span_sink=sink))
+            eng.start()
+            try:
+                builds0 = serving.compile_count()
+                t_first = time.perf_counter()
+                eng.submit(q_host[0], K).result(timeout=60)
+                first_ms = (time.perf_counter() - t_first) * 1e3
+                sink.take()
+                gk.reset_launch_counts()
+                counting[0] = family
+                run = closed_loop(eng, q_host, K, n_threads)
+                counting[0] = None
+                launches = launch_counts()
+                batches = sink.take()
+                builds = serving.compile_count() - builds0
+                line = summarize(run, batches)
+                line["queue_wait_ms"] = eng.stats.snapshot().get(
+                    "queue_wait_ms")
+                scrape = None
+                if n_threads == SERVE_LOADS[0]:
+                    port = eng.serve_metrics(0).port
+                    with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}/metrics",
+                            timeout=30) as resp:
+                        text = resp.read().decode()
+                    scrape = {fam: fam in text for fam in SERVE_FAMILIES}
+                routes = sorted({(b_.get("kernel"), b_.get("route"))
+                                 for rec in batches
+                                 for b_ in rec.get("explain", [])},
+                                key=str)
+            finally:
+                eng.stop()
+            ids_t = torch.from_numpy(run["ids"]).to(dev)
+            if floor is None:
+                quality = assert_topk_close(
+                    (torch.from_numpy(run["distances"]).to(dev), ids_t),
+                    (gt_v, gt_i), 1e-4 * scale, 1e-5, f"served {family}")
+            else:
+                quality = {"recall_at_10": float(
+                    neighborhood_recall(ids_t, gt_i))}
+            mismatches = serving.verify_bit_identity(
+                searcher, [q_host[j] for j in sample],
+                [(run["distances"][j], run["ids"][j]) for j in sample], K,
+                [run["placements"][j] for j in sample])
+            for name in gk.LAUNCHES:
+                serve_launches[name] += launches[name]
+            emit({"phase": "serving", "family": family,
+                  "submitters": n_threads, **line,
+                  "first_request_ms": first_ms,
+                  "builds_after_start": builds,
+                  "warmup": eng.warmup_info, **quality,
+                  "solo_mismatches": mismatches,
+                  "solo_sampled": SERVE_SAMPLE, "explain_routes": routes,
+                  "scrape": scrape, "launches": launches})
+            if builds:
+                raise AssertionError(f"serving {family}: {builds} kernel "
+                                     "builds after start()")
+            if mismatches:
+                raise AssertionError(f"serving {family}: {mismatches} rows "
+                                     "differ from solo_reference")
+            if floor is not None and quality["recall_at_10"] < floor:
+                raise AssertionError(f"serving {family}: recall "
+                                     f"{quality['recall_at_10']} < {floor}")
+            if "cuda" not in {route for _, route in routes}:
+                raise AssertionError(f"serving {family}: no batch span "
+                                     "names the CUDA route")
+            if scrape is not None and not all(scrape.values()):
+                raise AssertionError(f"serving {family}: the scrape lacks "
+                                     f"{[f for f, ok in scrape.items() if not ok]}")
+    for name in SERVE_KERNELS:
+        if serve_launches[name] < 1:
+            raise AssertionError(f"the serving phase launched no {name}")
+
+    # each kernel of the served path against its plain version on the
+    # inputs the path gives it at every warmed bucket; timed rows at 8 and
+    # 64
+    def serve_check(family, bucket, name, kernel, plain, args, atol, n_bytes,
+                    n_ops, shape, library=None):
+        got, want = kernel(*args), plain(*args)
+        if atol == 0.0:
+            if not (torch.equal(got[0].view(torch.int32),
+                                want[0].view(torch.int32))
+                    and torch.equal(got[1], want[1])):
+                raise AssertionError(f"{name} at bucket {bucket} ({family}) "
+                                     "differs from its plain version")
+            res = {"max_abs_err": 0.0, "bitwise": True}
+        else:
+            res = assert_topk_close(got, want, atol, 1e-5,
+                                    f"{name} bucket {bucket} ({family})")
+        torch.cuda.synchronize()
+        if bucket not in SERVE_ROW_BUCKETS:
+            emit({"phase": "serving_agreement", "name": name,
+                  "family": family, "bucket": bucket, **res})
+            return None
+        entry = dict(
+            name=name, route="cuda", source=f"raft_tpu_torch/csrc/"
+            f"{gk.SOURCES[name]}", replaces=REPLACES[name],
+            shape=f"serving {family}, bucket {bucket}: {shape}",
+            launches=bucket_launches.get((family, bucket, name), 0),
+            agrees_with_plain=True, **res,
+            ms=graph_ms(lambda: kernel(*args), 20),
+            ms_eager=cuda_ms(lambda: kernel(*args), 20),
+            plain_ms=cuda_ms(lambda: plain(*args), 3),
+            library_ms=(graph_ms(library, 20) if library is not None
+                        else None),
+            parent_ms=None, ab_ms=None, **bound(n_bytes, n_ops))
+        emit({"phase": "kernel_check", **entry})
+        return entry
+
+    def select_check(family, bucket, scores_b, k_):
+        return serve_check(
+            family, bucket, "select_k",
+            lambda v: gk.streaming_select_k(v, k_),
+            lambda v: gk._stable_topk(v, k_), (scores_b,), 0.0,
+            4 * scores_b.numel() + 8 * bucket * k_, scores_b.numel(),
+            f"coarse probes [{bucket} x {scores_b.shape[1]}], k={k_}",
+            library=lambda: torch.topk(scores_b, k_, largest=False))
+
+    serve_rows = []
+    codebooks = pq_index.codebooks.contiguous()
+    cb_norms = (codebooks * codebooks).sum(-1).contiguous()
+    ivf_pq.ensure_scan_cache(pq_index, ivf_pq.SearchParams().scan_cache_dtype)
+    for bucket in SERVE_CHECK_BUCKETS:
+        xb = queries[:bucket].to(torch.float32).contiguous()
+        xbn = row_norms_sq(xb)
+        serve_rows.append(serve_check(
+            "brute_force", bucket, "fused_l2_topk", gk.fused_l2_topk,
+            gk.fused_l2_topk_plain, (xb, dataset, K, xbn, bf.norms),
+            1e-4 * scale,
+            4 * (bucket * DIM + N_ROWS * DIM + bucket + N_ROWS)
+            + 8 * bucket * K, 2 * bucket * N_ROWS * DIM,
+            f"{bucket} x {N_ROWS} x {DIM}, k={K}"))
+        # IVF-Flat: the coarse selection, then the grouped scan
+        sc, _ = ivf_flat._coarse_scores(xb, index.centers, index.metric)
+        sc = sc.contiguous()
+        serve_rows.append(select_check("ivf_flat", bucket, sc, n_probes))
+        _, pr = gk.streaming_select_k(sc, n_probes)
+        args = (pr, xb[:, None, :].expand(bucket, n_probes, DIM).contiguous(),
+                xbn[:, None].expand(bucket, n_probes).contiguous(),
+                index.list_data, index.ensure_row_norms(), index.safe_ids(),
+                K, True)
+        rows_b = int(index.list_sizes[pr.long()].sum())
+        pad_b = index.list_data.shape[1]
+        serve_rows.append(serve_check(
+            "ivf_flat", bucket, "fused_ivf_topk", gk.fused_ivf_topk,
+            gk.fused_ivf_topk_plain, args, 1e-4 * scale,
+            4 * (pr.numel() * (DIM + 2)) + torch.unique(pr.long()).numel()
+            * pad_b * (DIM * 4 + 8) + 8 * bucket * K, 2 * DIM * rows_b,
+            f"{bucket} queries x {n_probes} probes, pad {pad_b}, f32"))
+        # IVF-PQ, cache regime: the rotated residuals through the grouped
+        # scan over the bf16 cache
+        for fam, probes_n in (("ivf_pq_cache", pq_probes),
+                              ("ivf_pq_lut", lut_probes)):
+            q_rot, centers_rot, ppr = ivf_pq._coarse_probes_rot(
+                xb, pq_index, probes_n)
+            rows_b = int(pq_index.list_sizes[ppr.long()].sum())
+            n_probed = torch.unique(ppr.long()).numel()
+            if fam == "ivf_pq_cache":
+                qr_res = (q_rot[:, None, :]
+                          - centers_rot[ppr.long()]).contiguous()
+                args = (ppr, qr_res, (qr_res * qr_res).sum(-1).contiguous(),
+                        pq_index.list_decoded, pq_index.decoded_norms,
+                        pq_index.safe_ids(), K, False)
+                plain_v = gk.fused_ivf_topk_plain(*args)[0]
+                serve_rows.append(serve_check(
+                    fam, bucket, "fused_ivf_topk", gk.fused_ivf_topk,
+                    gk.fused_ivf_topk_plain, args,
+                    1e-4 * float(plain_v[torch.isfinite(plain_v)].abs()
+                                 .max()),
+                    4 * ppr.numel() * (rot + 2) + n_probed * pq_pad
+                    * (rot * 2 + 8) + 8 * bucket * K, 2 * rot * rows_b,
+                    f"{bucket} queries x {probes_n} probes, pad {pq_pad}, "
+                    f"rot {rot}, bf16"))
+            else:
+                args = (ppr, q_rot, centers_rot, codebooks, cb_norms,
+                        pq_index.list_codes, pq_index.safe_ids(), K)
+                plain_v = gk.fused_pq_topk_plain(*args)[0]
+                serve_rows.append(serve_check(
+                    fam, bucket, "fused_pq_topk", gk.fused_pq_topk,
+                    gk.fused_pq_topk_plain, args,
+                    1e-4 * float(plain_v[torch.isfinite(plain_v)].abs()
+                                 .max()),
+                    4 * (ppr.numel() + q_rot.numel() + centers_rot.numel()
+                         + codebooks.numel() + cb_norms.numel())
+                    + n_probed * pq_pad * (PQ_DIM + 4) + 8 * bucket * K,
+                    ppr.numel() * PQ_DIM * 256 * (2 * pq_len + 2)
+                    + rows_b * PQ_DIM,
+                    f"{bucket} queries x {probes_n} probes, pad {pq_pad}, "
+                    f"pq_dim {PQ_DIM}"))
+        # CAGRA: the seeds the served searcher draws for this bucket
+        cg_b = (xb, dataset, cg_index.graph,
+                cagra.seed_table(cg_sp, bucket, N_ROWS, n_seeds, dev),
+                gk.beam_norms(xb))
+        *_, st = gk.fused_cagra_topk_plain(*cg_b, K, itopk, 1, cg_max_iter,
+                                           return_stats=True)
+        serve_rows.append(serve_check(
+            "cagra", bucket, "fused_cagra_topk",
+            lambda *a: gk.fused_cagra_topk(*a, K, itopk, 1, cg_max_iter),
+            lambda *a: gk.fused_cagra_topk_plain(*a, K, itopk, 1,
+                                                 cg_max_iter),
+            cg_b, 0.0,
+            st["rows_touched"] * DIM * 4 + st["nodes_expanded"]
+            * CAGRA_DEGREE * 4 + 4 * bucket * (DIM + 1 + n_seeds)
+            + 8 * bucket * K,
+            2 * DIM * (int(st["rows_scored"].sum()) + st["rows_touched"]),
+            f"{bucket} queries, itopk {itopk}, width 1, {n_seeds} seeds"))
+    kernels.extend(row for row in serve_rows if row is not None)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

@@ -7,11 +7,13 @@ serves: L2 or L2Sqrt, no filter, no fast scan, k <= 1024. Other requests
 take the tiled path: a distance tile per (query tile, database tile), a
 ``select_k`` per tile, and one more ``select_k`` over the tiles' survivors.
 ``scan_mode="xla"`` keeps its name from the JAX package and forces the
-tiled path.
+tiled path. Every search records its engine and why
+(``obs.explain.record_dispatch``; ``explain=True`` returns the record).
 """
 
 from __future__ import annotations
 
+import contextlib
 from typing import Optional, Tuple
 
 import torch
@@ -19,13 +21,15 @@ import torch
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
+from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops.distance import (PORTED_METRICS, DistanceType,
                                          cosine_expanded, is_min_close,
                                          l2_expanded, pairwise_core,
                                          resolve_metric, row_norms_sq)
 from raft_tpu_torch.ops.select_k import select_k, select_k_maybe_approx
-from raft_tpu_torch.utils.shape import as_query_array, balanced_tile
+from raft_tpu_torch.utils.shape import (as_query_array, balanced_tile,
+                                        query_bucket)
 
 
 class Index:
@@ -144,14 +148,29 @@ def fused_ineligible_reason(metric, dtype: torch.dtype, k: int,
     return None
 
 
-def _check_deferred(scan_dtype, explain: bool) -> None:
+def _check_deferred(scan_dtype) -> None:
     if scan_dtype is not None:
         raise NotImplementedError(
             "the bf16 fast scan (scan_dtype) is not ported yet (ROADMAP)")
-    if explain:
-        raise NotImplementedError(
-            "explain=True and its obs.explain records are not ported yet "
-            "(ROADMAP)")
+
+
+def fused_dispatch_reason(scan_mode: str) -> str:
+    """The reason code of a search that took its fused kernel: "forced"
+    when ``scan_mode`` named it, "auto_fused" under "auto"."""
+    return "auto_fused" if scan_mode == "auto" else "forced"
+
+
+def kernel_plan(device: torch.device, kernel: str) -> dict:
+    """The explain plan of a fused engine: the kernel and its route, the
+    hand-written CUDA kernel on the card ("cuda") or its plain PyTorch
+    version on the CPU ("plain")."""
+    return {"kernel": kernel,
+            "route": "cuda" if device.type == "cuda" else "plain"}
+
+
+def explained(result, cap, explain: bool):
+    """``result`` plus the capture's record when ``explain`` is set."""
+    return (*result, cap.last) if explain else result
 
 
 @tracing.range("brute_force.search")
@@ -165,8 +184,9 @@ def search(index: Index, queries, k: int, filter=None,
     over dataset rows; cleared rows are never returned. ``scan_mode``:
     ``"auto"`` and ``"pallas"`` take the fused kernel for every eligible
     request, ``"xla"`` forces the tiled path. The search runs on the index's
-    device."""
-    _check_deferred(scan_dtype, explain)
+    device. ``explain=True`` returns ``(distances, ids, ExplainRecord)``.
+    """
+    _check_deferred(scan_dtype)
     if scan_mode not in ("auto", "xla", "pallas"):
         raise ValueError(
             f"scan_mode={scan_mode!r}: expected 'auto', 'xla' or 'pallas'")
@@ -176,20 +196,36 @@ def search(index: Index, queries, k: int, filter=None,
         raise ValueError(
             f"query dim {queries.shape[1]} != index dim {index.dim}")
     k = int(min(k, index.size))
+    nq = queries.shape[0]
     ineligible = fused_ineligible_reason(
         index.metric, index.dataset.dtype, k, filter is not None, False)
-    if scan_mode != "xla" and ineligible is None:
-        x = queries.to(torch.float32)
-        y = index.dataset.to(torch.float32)
-        v, i = gk.fused_l2_topk(x, y, k, row_norms_sq(x), index.norms)
-        if index.metric == DistanceType.L2SqrtExpanded:
-            v = torch.sqrt(torch.clamp_min(v, 0.0))
-        return v, i
-    q_tile, db_tile = _choose_tiles(queries.shape[0], index.size, index.dim,
-                                    k, res.workspace_limit_bytes)
-    words = filter.words.to(index.device) if filter is not None else None
-    return _knn_tiled(queries, index, words, k, q_tile, db_tile,
-                      float(select_recall))
+    ex_params = {"k": k, "nq": nq, "bucket": query_bucket(nq),
+                 "n_db": index.size, "dim": index.dim,
+                 "metric": index.metric.name}
+    with contextlib.ExitStack() as stack:
+        cap = stack.enter_context(obs_explain.capture()) if explain else None
+        if scan_mode != "xla" and ineligible is None:
+            obs_explain.record_dispatch(
+                "brute_force", scan_mode, "pallas",
+                fused_dispatch_reason(scan_mode), params=ex_params,
+                plan=kernel_plan(index.device, "fused_l2_topk"))
+            x = queries.to(torch.float32)
+            y = index.dataset.to(torch.float32)
+            v, i = gk.fused_l2_topk(x, y, k, row_norms_sq(x), index.norms)
+            if index.metric == DistanceType.L2SqrtExpanded:
+                v = torch.sqrt(torch.clamp_min(v, 0.0))
+        else:
+            q_tile, db_tile = _choose_tiles(nq, index.size, index.dim, k,
+                                            res.workspace_limit_bytes)
+            obs_explain.record_dispatch(
+                "brute_force", scan_mode, "xla",
+                "forced" if scan_mode == "xla" else ineligible,
+                params=ex_params, plan={"q_tile": q_tile, "db_tile": db_tile})
+            words = filter.words.to(index.device) if filter is not None \
+                else None
+            v, i = _knn_tiled(queries, index, words, k, q_tile, db_tile,
+                              float(select_recall))
+    return explained((v, i), cap, explain)
 
 
 @tracing.range("brute_force.knn")

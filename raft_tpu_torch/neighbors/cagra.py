@@ -28,6 +28,7 @@ row).
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import time
@@ -39,14 +40,18 @@ import torch
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
-from raft_tpu_torch.neighbors.brute_force import fused_ineligible_reason
+from raft_tpu_torch.neighbors.brute_force import (explained,
+                                                  fused_dispatch_reason,
+                                                  fused_ineligible_reason,
+                                                  kernel_plan)
 from raft_tpu_torch.neighbors.nn_descent import scatter_last_wins
+from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops.distance import DistanceType, resolve_metric
 from raft_tpu_torch.ops.rng import cagra_seed_offsets
 from raft_tpu_torch.ops.select_k import (merge_topk_dedup_flagged,
                                          topk_lowest_first)
-from raft_tpu_torch.utils.shape import as_query_array
+from raft_tpu_torch.utils.shape import as_query_array, query_bucket
 
 
 class BuildAlgo(enum.IntEnum):
@@ -462,17 +467,18 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
 @tracing.range("cagra.search")
 def search(index: Index, queries, k: int,
            params: Optional[SearchParams] = None, filter=None,
-           res: Optional[Resources] = None, explain: bool = False):
+           res: Optional[Resources] = None, explain: bool = False,
+           seeds: Optional[torch.Tensor] = None):
     """Greedy graph search → ``(distances [nq, k] f32, ids [nq, k] int32)``
     in the metric's units. ``filter`` is an optional
     :class:`~raft_tpu_torch.core.bitset.Bitset` over dataset rows; cleared
     rows never enter the beam. Runs on the index's device; ``plan_search``
-    says which engine it takes."""
+    says which engine it takes, and ``explain=True`` returns a third
+    element, the search's ``ExplainRecord``. ``seeds`` is the
+    ``seed_table`` of these params and this batch's row count, drawn
+    beforehand (the serving searcher keeps one a bucket); None draws it
+    here, on the host."""
     params = params or SearchParams()
-    if explain:
-        raise NotImplementedError(
-            "explain=True and its obs.explain records are not ported yet "
-            "(ROADMAP); plan_search gives the engine and its reason")
     if params.scan_dtype is not None:
         raise NotImplementedError(
             "the bf16 fast scan (scan_dtype) is not ported yet (ROADMAP)")
@@ -488,18 +494,42 @@ def search(index: Index, queries, k: int,
     sp = plan_search(index, k, params, filter is not None)
     itopk, width, max_iter = (sp.plan["itopk"], sp.plan["search_width"],
                               sp.plan["max_iter"])
-    seeds = seed_table(params, queries.shape[0], index.size,
-                       sp.plan["n_seeds"], index.device)
+    nq = queries.shape[0]
+    if seeds is None:
+        seeds = seed_table(params, nq, index.size, sp.plan["n_seeds"],
+                           index.device)
+    elif tuple(seeds.shape) != (nq, sp.plan["n_seeds"]):
+        raise ValueError(f"seeds {tuple(seeds.shape)} != "
+                         f"({nq}, {sp.plan['n_seeds']})")
+    ex_params = {"k": int(k), "nq": nq, "bucket": query_bucket(nq),
+                 "metric": index.metric.name,
+                 "graph_degree": index.graph_degree, "fast_scan": False}
     if sp.engine == "pallas":
-        return search_fused_core(queries, index.dataset, index.graph, seeds,
-                                 index.metric, int(k), itopk, width, max_iter)
-    words = filter.words.to(index.device) if filter is not None else None
-    wd = width * index.graph_degree
-    per_q = (wd * (itopk + wd) + (itopk + wd) * 16
-             + (wd + sp.plan["n_seeds"]) * index.dim * 8)
-    q_tile = max(1, res.workspace_limit_bytes // per_q)
-    return search_core(queries, index.dataset, index.graph, seeds, words,
-                       index.metric, int(k), itopk, width, max_iter, q_tile)
+        reason = fused_dispatch_reason(params.scan_mode)
+        ex_plan = {**sp.plan, **kernel_plan(index.device,
+                                            "fused_cagra_topk")}
+    else:
+        reason = "forced" if sp.reason == "scan_mode_xla" else sp.reason
+        ex_plan = dict(sp.plan)
+    with contextlib.ExitStack() as stack:
+        cap = stack.enter_context(obs_explain.capture()) if explain else None
+        obs_explain.record_dispatch("cagra", params.scan_mode, sp.engine,
+                                    reason, params=ex_params, plan=ex_plan)
+        if sp.engine == "pallas":
+            out = search_fused_core(queries, index.dataset, index.graph,
+                                    seeds, index.metric, int(k), itopk, width,
+                                    max_iter)
+        else:
+            words = filter.words.to(index.device) if filter is not None \
+                else None
+            wd = width * index.graph_degree
+            per_q = (wd * (itopk + wd) + (itopk + wd) * 16
+                     + (wd + sp.plan["n_seeds"]) * index.dim * 8)
+            q_tile = max(1, res.workspace_limit_bytes // per_q)
+            out = search_core(queries, index.dataset, index.graph, seeds,
+                              words, index.metric, int(k), itopk, width,
+                              max_iter, q_tile)
+    return explained(out, cap, explain)
 
 
 def serialize(index: Index, file, include_dataset: bool = True) -> None:

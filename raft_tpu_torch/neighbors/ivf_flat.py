@@ -29,6 +29,7 @@ int8/uint8 list data.
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 from typing import Optional
 
@@ -43,15 +44,17 @@ from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.bitset import filter_mask as bitset_filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors import list_packing
-from raft_tpu_torch.neighbors.brute_force import (_check_deferred,
-                                                  fused_ineligible_reason)
+from raft_tpu_torch.neighbors.brute_force import (
+    _check_deferred, explained, fused_dispatch_reason, fused_ineligible_reason,
+    kernel_plan)
+from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops import rng as rrng
 from raft_tpu_torch.ops.distance import (DistanceType, dot_fp32,
                                          resolve_metric, row_norms_sq)
 from raft_tpu_torch.ops.select_k import (SelectAlgo, select_k,
                                          select_k_maybe_approx)
-from raft_tpu_torch.utils.shape import as_query_array
+from raft_tpu_torch.utils.shape import as_query_array, query_bucket
 
 
 @dataclasses.dataclass
@@ -476,9 +479,10 @@ def search(index: Index, queries, k: int,
            res: Optional[Resources] = None, explain: bool = False):
     """Search → ``(distances [nq, k] f32, ids [nq, k] i32)``; ids are source
     row ids, -1 where fewer than k valid candidates were probed. Runs on
-    the index's device."""
+    the index's device. ``explain=True`` returns a third element, the
+    search's ``ExplainRecord``."""
     params = params or SearchParams()
-    _check_deferred(params.scan_dtype, explain)
+    _check_deferred(params.scan_dtype)
     if index.list_data is None:
         raise ValueError("index has no data; call extend() first")
     if params.scan_mode not in ("auto", "xla", "pallas"):
@@ -490,17 +494,42 @@ def search(index: Index, queries, k: int,
         raise ValueError(
             f"query dim {queries.shape[1]} != index dim {index.dim}")
     n_probes = int(min(params.n_probes, index.n_lists))
+    nq, list_pad = queries.shape[0], index.list_data.shape[1]
+    scan_mode = params.scan_mode
     ineligible = fused_ineligible_reason(
         index.metric, index.list_data.dtype, int(k), filter is not None,
         False, require_float=False)
-    if params.scan_mode != "xla" and ineligible is None:
-        return _search_fused_core(queries, index, int(k), n_probes)
-    q_tile = plan_scan_tiles(n_probes, index.list_data.shape[1], index.dim,
-                             res.workspace_limit_bytes)
-    words = filter.words.to(index.device) if filter is not None else None
-    return _search_core(queries, index, words, int(k), n_probes, q_tile,
-                        float(params.select_recall),
-                        use_scan=params.scan_mode != "xla")
+    ex_params = {"k": int(k), "nq": nq, "bucket": query_bucket(nq),
+                 "n_probes": n_probes, "n_lists": index.n_lists,
+                 "list_pad": list_pad, "dim": index.dim,
+                 "metric": index.metric.name}
+    with contextlib.ExitStack() as stack:
+        cap = stack.enter_context(obs_explain.capture()) if explain else None
+        if scan_mode != "xla" and ineligible is None:
+            obs_explain.record_dispatch(
+                "ivf_flat", scan_mode, "pallas",
+                fused_dispatch_reason(scan_mode), params=ex_params,
+                plan=kernel_plan(index.device, "fused_ivf_topk"))
+            out = _search_fused_core(queries, index, int(k), n_probes)
+        else:
+            use_scan = scan_mode != "xla"
+            q_tile = plan_scan_tiles(n_probes, list_pad, index.dim,
+                                     res.workspace_limit_bytes)
+            plan = {"q_tile": q_tile, "unfused_ivf_scan": use_scan,
+                    "predicted_workspace_bytes": q_tile *
+                    scan_bytes_per_query(n_probes, list_pad, index.dim)}
+            if use_scan:
+                plan.update(kernel_plan(index.device, "ivf_scan"))
+            obs_explain.record_dispatch(
+                "ivf_flat", scan_mode, "xla",
+                ineligible if use_scan else "forced", params=ex_params,
+                plan=plan)
+            words = filter.words.to(index.device) if filter is not None \
+                else None
+            out = _search_core(queries, index, words, int(k), n_probes,
+                               q_tile, float(params.select_recall),
+                               use_scan=use_scan)
+    return explained(out, cap, explain)
 
 
 def serialize(index: Index, file) -> None:

@@ -44,6 +44,7 @@ Not ported yet (each raises ``NotImplementedError``): ``explain=True``,
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
 import enum
 import functools
@@ -61,7 +62,10 @@ from raft_tpu_torch.core.bitset import filter_mask as bitset_filter_mask
 from raft_tpu_torch.core.resources import (Resources, ensure_resources,
                                            solve_joint_tiles)
 from raft_tpu_torch.neighbors import list_packing
-from raft_tpu_torch.neighbors.brute_force import fused_ineligible_reason
+from raft_tpu_torch.neighbors.brute_force import (explained,
+                                                  fused_ineligible_reason,
+                                                  kernel_plan)
+from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.neighbors.ivf_flat import _as_tensor
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops import rng as rrng
@@ -69,7 +73,8 @@ from raft_tpu_torch.ops.distance import (DistanceType, dot_fp32, einsum_fp32,
                                          resolve_metric, row_norms_sq)
 from raft_tpu_torch.ops.select_k import (SelectAlgo, select_k,
                                          select_k_maybe_approx)
-from raft_tpu_torch.utils.shape import as_query_array, balanced_tile, cdiv
+from raft_tpu_torch.utils.shape import (as_query_array, balanced_tile, cdiv,
+                                        query_bucket)
 
 _FP8 = (torch.float8_e4m3fn, torch.float8_e5m2)
 _LUT_DTYPES = (torch.float32, torch.bfloat16) + _FP8
@@ -1242,12 +1247,10 @@ def search(index: Index, queries, k: int,
     InnerProduct), source row ids, -1 where fewer than k candidates were
     probed. Runs on the index's device; ``plan_search`` says which engine
     it takes. ``memory_mode`` (``"cache"`` or ``"lut"``) states the memory
-    regime, as a sharded index built for one regime does."""
+    regime, as a sharded index built for one regime does. ``explain=True``
+    returns a third element, the search's ``ExplainRecord`` (the engine
+    and reason of ``plan_search``)."""
     params = params or SearchParams()
-    if explain:
-        raise NotImplementedError(
-            "explain=True and its obs.explain records are not ported yet "
-            "(ROADMAP); plan_search gives the engine and its reason")
     if index.list_codes is None:
         raise ValueError("index has no data; call extend() first")
     res = ensure_resources(res, index.device)
@@ -1259,6 +1262,32 @@ def search(index: Index, queries, k: int,
     plan = plan_search(index, k, params, filter is not None, res,
                        memory_mode=memory_mode)
     n_probes = int(min(params.n_probes, index.n_lists))
+    nq = queries.shape[0]
+    ex_params = {"k": k, "nq": nq, "bucket": query_bucket(nq),
+                 "n_probes": n_probes, "n_lists": index.n_lists,
+                 "list_pad": index.list_codes.shape[1],
+                 "pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
+                 "metric": index.metric.name}
+    ex_plan = dict(plan.plan)
+    kernel = {"pallas_cache": "fused_ivf_topk", "pallas_lut": "fused_pq_topk",
+              "cache": "ivf_scan" if plan.plan["unfused_ivf_scan"] else None,
+              "lut": None}[plan.engine]
+    if kernel is not None:
+        ex_plan.update(kernel_plan(index.device, kernel))
+    with contextlib.ExitStack() as stack:
+        cap = stack.enter_context(obs_explain.capture()) if explain else None
+        obs_explain.record_dispatch("ivf_pq", params.scan_mode, plan.engine,
+                                    plan.reason, params=ex_params,
+                                    plan=ex_plan)
+        out = _search_engine(queries, index, filter, k, n_probes, params,
+                             plan, res)
+    return explained(out, cap, explain)
+
+
+def _search_engine(queries, index: Index, filter: Optional[Bitset], k: int,
+                   n_probes: int, params: SearchParams, plan: SearchPlan,
+                   res: Resources):
+    """Run the engine ``plan`` resolved."""
     if index.overflow_codes.shape[0] > 0:
         ensure_overflow_decoded(index, params.scan_cache_dtype)
     if plan.engine == "pallas_cache":

@@ -39,8 +39,9 @@ import os
 import shutil
 import subprocess
 import threading
+import time
 from pathlib import Path
-from typing import Dict, Iterable, Optional, Tuple
+from typing import Callable, Dict, Iterable, List, Optional, Tuple
 
 import torch
 
@@ -62,6 +63,10 @@ SOURCES = {
     "ivf_scan": "ivf_scan.cu",
     "ring_shift": "ring_shift.cu",
 }
+
+#: callables ``(n_builds, seconds)`` told of every ``build_all`` call that
+#: ran ``nvcc`` (``obs.device`` counts the builds through this)
+BUILD_LISTENERS: List[Callable[[int, float], None]] = []
 
 #: launches of each kernel since the last ``reset_launch_counts()``
 LAUNCHES: Dict[str, int] = {name: 0 for name in SOURCES}
@@ -146,6 +151,7 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
     BUILD_DIR.mkdir(parents=True, exist_ok=True)
     paths = {name: library_path(name) for name in names}
     procs = {}
+    t0 = time.perf_counter()
     for name, path in paths.items():
         if path.exists():
             continue
@@ -162,6 +168,9 @@ def build_all(names: Optional[Iterable[str]] = None) -> Dict[str, Path]:
             continue
         paths[name].with_suffix(".log").write_text(out)
         os.replace(tmp, paths[name])
+    if procs:
+        for listener in list(BUILD_LISTENERS):
+            listener(len(procs), time.perf_counter() - t0)
     if failures:
         raise RuntimeError("kernel build failed:\n" + "\n".join(failures))
     return paths

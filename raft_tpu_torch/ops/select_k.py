@@ -30,6 +30,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.utils.shape import cdiv
 
@@ -148,6 +149,9 @@ def select_k(values, k: int, select_min: bool = True,
         raise ValueError(f"k={k} > row length {values.shape[-1]}")
     if algo == SelectAlgo.AUTO:
         algo = _resolve_auto(values.shape[-1], int(k))
+    # capture-only explain note (never the dispatch counter): the resolved
+    # algorithm rides the record of the search that selects here
+    obs_explain.note_select_k(values.shape[-1], int(k), algo.name)
     if algo == SelectAlgo.PALLAS:
         v, out_i = gk.streaming_select_k(values.to(torch.float32).contiguous(),
                                          int(k), bool(select_min))

@@ -26,15 +26,27 @@ Where the JAX package stacks per-shard arrays into [S, ...] for
 built one rank after another (``_map_shards``), each rank with Resources
 on its own device whose generator is seeded from the caller's.
 
+Every sharded search records its merge (``obs.explain.record_dispatch``,
+family ``sharded_<family>``, engine the merge, with the JAX package's
+``params`` keys; ``params["engine"]`` is the ranks' local engine, from
+the records their single-device searches emit). With a span sink
+installed (:func:`set_span_sink`) each rank's local search is timed with
+CUDA events on its device (the host clock on the CPU) and emitted as a
+``shard_search`` span, and the whole search as a ``sharded_search`` span;
+the ranks run and merge exactly as without a sink, so the results are
+bitwise the same.
+
 Not ported (each raises ``NotImplementedError``; ROADMAP Queue A item 13):
-sharded CAGRA, persistence and elastic restore, the from-file and pod
-builds, and the span sink.
+sharded CAGRA, persistence and elastic restore, and the from-file and pod
+builds.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import List, Optional, Tuple
+import threading
+import time
+from typing import Callable, List, Optional, Tuple
 
 import numpy as np
 import torch
@@ -42,6 +54,8 @@ import torch
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
+from raft_tpu_torch.obs import explain as obs_explain
+from raft_tpu_torch.obs import spans as obs_spans
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops.distance import (DistanceType, dot_fp32,
                                          is_min_close, pairwise_core,
@@ -158,6 +172,101 @@ def _plan_merge(comms: Comms, plan: PlacementPlan, vs, ids, minimize: bool
                                  shift=shift)
 
 
+def _record_plan(plan: PlacementPlan, family: str, requested: str,
+                 local_engine: str, params: dict) -> None:
+    """Emit the merge-dispatch ExplainRecord of one sharded search."""
+    p = {"nq": plan.nq, "k": plan.k, "engine": local_engine}
+    p.update(params)
+    obs_explain.record_dispatch(
+        f"sharded_{family}", requested, plan.merge_mode, plan.merge_reason,
+        params=p, plan={"size": plan.size, "kk": plan.kk,
+                        "k_out": plan.k_out, "merge_mode": plan.merge_mode,
+                        "ring_shift": plan.ring_shift})
+
+
+# ------------------------------------------------------------ span sink
+
+_SPAN_SINK_LOCK = threading.Lock()
+_SPAN_SINK: Optional[object] = None  # guarded_by: _SPAN_SINK_LOCK
+
+
+def set_span_sink(sink: Optional[object]) -> Optional[object]:
+    """Install (or clear, with None) the sharded-search span sink.
+    Anything with ``emit(dict)`` works (:class:`raft_tpu_torch.obs.
+    RingSink`, :class:`~raft_tpu_torch.obs.JsonlSink`, ...). Returns the
+    previous sink so callers can restore it."""
+    global _SPAN_SINK
+    with _SPAN_SINK_LOCK:
+        prev, _SPAN_SINK = _SPAN_SINK, sink
+    return prev
+
+
+def _span_sink() -> Optional[object]:
+    with _SPAN_SINK_LOCK:
+        return _SPAN_SINK
+
+
+def _search_and_merge(comms: Comms, family: str, local: Callable, per_rank,
+                      plan: PlacementPlan, minimize: bool, requested: str,
+                      params: dict) -> Tuple[torch.Tensor, torch.Tensor]:
+    """Run ``local(r, *per_rank[r])`` → (values, ids) on every rank, record
+    the merge, merge by ``plan``; returns rank 0's (values, ids). With a
+    span sink, each rank's local search is bracketed by CUDA events on its
+    device (host clock on the CPU) and emitted as a ``shard_search`` span
+    (``device_ms``: that rank's search), then the whole search as a
+    ``sharded_search`` span (``launch_ms``: the ranks' calls on the host,
+    ``merge_ms``, ``total_ms``). The sink changes no computation."""
+    sink = _span_sink()
+    marks = []
+
+    def timed(r, *args):
+        if comms.devices[r].type != "cuda":
+            t = time.perf_counter()
+            out = local(r, *args)
+            marks.append((time.perf_counter() - t) * 1e3)
+            return out
+        start = torch.cuda.Event(enable_timing=True)
+        end = torch.cuda.Event(enable_timing=True)
+        start.record()
+        out = local(r, *args)
+        end.record()
+        marks.append((start, end))
+        return out
+
+    t0 = time.perf_counter()
+    with obs_explain.capture() as cap:
+        found = comms.map(local if sink is None else timed, *per_rank)
+    local_engine = cap.records[-1].engine if cap.records else "none"
+    _record_plan(plan, family, requested, local_engine, params)
+    if sink is None:
+        out_v, out_i = _plan_merge(comms, plan, [f[0] for f in found],
+                                   [f[1] for f in found], minimize)
+        return out_v[0], out_i[0]
+    trace_id = obs_spans.new_trace_id()
+    t_launch = time.perf_counter()
+    for r, mark in enumerate(marks):
+        if isinstance(mark, tuple):
+            mark[1].synchronize()
+            mark = mark[0].elapsed_time(mark[1])
+        obs_spans.safe_emit(sink, {
+            "kind": "shard_search", "trace_id": trace_id, "family": family,
+            "rank": r, "device": str(comms.devices[r]),
+            "device_ms": round(mark, 3)})
+    t_merge = time.perf_counter()
+    out_v, out_i = _plan_merge(comms, plan, [f[0] for f in found],
+                               [f[1] for f in found], minimize)
+    if out_v[0].device.type == "cuda":
+        torch.cuda.synchronize(out_v[0].device)
+    t_end = time.perf_counter()
+    obs_spans.safe_emit(sink, {
+        "kind": "sharded_search", "trace_id": trace_id, "family": family,
+        "n_shards": comms.size,
+        "launch_ms": round((t_launch - t0) * 1e3, 3),
+        "merge_ms": round((t_end - t_merge) * 1e3, 3),
+        "total_ms": round((t_end - t0) * 1e3, 3)})
+    return out_v[0], out_i[0]
+
+
 # ------------------------------------------------------ per-rank resources
 
 
@@ -235,11 +344,10 @@ def knn(comms: Comms, queries, dataset, k: int, metric="sqeuclidean",
         gids = torch.where(i >= 0, i + lo, -1).to(torch.int32)
         return _pad_candidates(v, gids, kk, fill)
 
-    vs, ids = zip(*comms.map(local, q))
     plan = plan_sharded_search(comms, q[0].shape[0], int(k), kk,
                                merge_mode=merge_mode)
-    out_v, out_i = _plan_merge(comms, plan, list(vs), list(ids), minimize)
-    return out_v[0], out_i[0]
+    return _search_and_merge(comms, "brute_force", local, (q,), plan,
+                             minimize, merge_mode, {"metric": m.name})
 
 
 # ---------------------------------------------- sharded pairwise distance
@@ -448,14 +556,13 @@ def search_ivf_flat(index: ShardedIvfFlat, queries, k: int,
     comms = index.comms
     minimize = is_min_close(index.metric)
     q = comms.shard(_as_tensor(queries), None)
-    found = comms.map(lambda r, q_r, idx: ivf_flat.search(
-        idx, q_r, int(k), params, res=_rank_resources(res, idx.device)),
-        q, index.indexes)
     plan = plan_sharded_search(comms, q[0].shape[0], int(k), int(k),
                                merge_mode=merge_mode, mask_invalid=True)
-    out_v, out_i = _plan_merge(comms, plan, [f[0] for f in found],
-                               [f[1] for f in found], minimize)
-    return out_v[0], out_i[0]
+    return _search_and_merge(
+        comms, "ivf_flat", lambda r, q_r, idx: ivf_flat.search(
+            idx, q_r, int(k), params, res=_rank_resources(res, idx.device)),
+        (q, index.indexes), plan, minimize, merge_mode,
+        {"n_probes": int(min(params.n_probes, index.indexes[0].n_lists))})
 
 
 class ShardedIvfPq:
@@ -535,15 +642,14 @@ def search_ivf_pq(index: ShardedIvfPq, queries, k: int,
     mode = _resolve_pq_scan_mode(params, index)
     local_params = dataclasses.replace(params, scan_mode="auto")
     q = comms.shard(_as_tensor(queries), None)
-
-    found = comms.map(lambda r, q_r, idx: ivf_pq.search(
-        idx, q_r, int(k), local_params, res=_rank_resources(res, idx.device),
-        memory_mode=mode), q, index.indexes)
     plan = plan_sharded_search(comms, q[0].shape[0], int(k), int(k),
                                merge_mode=merge_mode, mask_invalid=True)
-    out_v, out_i = _plan_merge(comms, plan, [f[0] for f in found],
-                               [f[1] for f in found], minimize)
-    return out_v[0], out_i[0]
+    return _search_and_merge(
+        comms, "ivf_pq", lambda r, q_r, idx: ivf_pq.search(
+            idx, q_r, int(k), local_params,
+            res=_rank_resources(res, idx.device), memory_mode=mode),
+        (q, index.indexes), plan, minimize, merge_mode,
+        {"n_probes": int(min(params.n_probes, index.indexes[0].n_lists))})
 
 
 # ------------------------------------------------------------ not ported
@@ -566,7 +672,6 @@ build_ivf_pq_from_file = _deferred("build_ivf_pq_from_file",
                                    "the from-file builds")
 build_ivf_pq_from_file_pod = _deferred("build_ivf_pq_from_file_pod",
                                        "the pod build")
-set_span_sink = _deferred("set_span_sink", "the span sink")
 serialize_ivf_flat = _deferred("serialize_ivf_flat", "persistence")
 deserialize_ivf_flat = _deferred("deserialize_ivf_flat", "persistence")
 deserialize_ivf_flat_elastic = _deferred("deserialize_ivf_flat_elastic",

@@ -42,3 +42,32 @@ def as_query_array(queries, device: torch.device,
     if queries.dim() != 2:
         raise ValueError(f"queries must be [n, dim], got {tuple(queries.shape)}")
     return queries.contiguous()
+
+
+def pad_rows(x, target_rows: int, fill=0):
+    """Pad a [n, ...] array to [target_rows, ...] (counterpart of
+    ``raft_tpu.utils.shape.pad_rows``). numpy arrays pad on the host, so a
+    serving batch is staged there and copied to the card once; tensors pad
+    on their own device."""
+    n = x.shape[0]
+    if n == target_rows:
+        return x
+    if isinstance(x, np.ndarray):
+        pad_widths = [(0, target_rows - n), *[(0, 0)] * (x.ndim - 1)]
+        return np.pad(x, pad_widths, constant_values=fill)
+    pad = x.new_full((target_rows - n, *x.shape[1:]), fill)
+    return torch.cat([x, pad])
+
+
+def query_bucket(nq: int, max_bucket: int = 256) -> int:
+    """Serving batch bucket (counterpart of
+    ``raft_tpu.utils.shape.query_bucket``): small query batches round up
+    to the next power of two (min 8), so the serving engine warms a few
+    shapes and every batch it launches is one of them; batches above
+    ``max_bucket`` keep their exact size."""
+    if nq > max_bucket:
+        return nq
+    b = 8
+    while b < nq:
+        b *= 2
+    return b

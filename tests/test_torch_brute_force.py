@@ -115,8 +115,6 @@ def test_rejects_bad_requests(data):
         tbf.search(index, q[:, :8], 5)
     with pytest.raises(NotImplementedError, match="fast scan"):
         tbf.search(index, q, 5, scan_dtype="bfloat16")
-    with pytest.raises(NotImplementedError, match="explain"):
-        tbf.search(index, q, 5, explain=True)
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbf.build(db, metric="l1", device="cpu")
 

@@ -34,7 +34,10 @@ The sharded searches on the card: the three
 merge engines bitwise equal, and against the CPU as the searches above.
 Sharded k-means on the card against the CPU from the same initial rows:
 two card fits bitwise equal, labels equal (every E-step of the CPU's fit
-clear of a tie), centres rtol 1e-5.
+clear of a tie), centres rtol 1e-5. The serving engine on the card:
+IVF-Flat rows bitwise equal to ``solo_reference``, CAGRA rows served with
+the searcher's cached seed tables bitwise equal to a search that draws
+its seeds per call, and no kernel build after ``start()``.
 """
 
 import pytest
@@ -1247,3 +1250,72 @@ def test_ivf_pq_builds_on_the_card_are_bitwise_equal(dev):
                  "overflow_indices"):
         u, v = getattr(a, name), getattr(b, name)
         assert u.shape == v.shape and torch.equal(u, v), name
+
+
+def _serve(searcher, queries, k, max_batch=16):
+    """Serve every row of ``queries`` through one engine, 4 submitter
+    threads, and return (rows, placements, engine warmup info, builds
+    after start)."""
+    import threading
+
+    from raft_tpu_torch import serving
+
+    rows = [None] * len(queries)
+    placements = [None] * len(queries)
+    with serving.Engine(searcher, serving.EngineConfig(
+            max_batch=max_batch, max_wait_us=2000, warm_ks=(k,))) as eng:
+        c0 = serving.compile_count()
+
+        def worker(t):
+            for j in range(t, len(queries), 4):
+                f = eng.submit(queries[j], k)
+                rows[j] = f.result(timeout=60)
+                placements[j] = f.placement
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(4)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        assert not any(th.is_alive() for th in threads)
+        builds = serving.compile_count() - c0
+    return rows, placements, eng.warmup_info, builds
+
+
+def test_served_ivf_flat_rows_bitwise_solo_on_the_card(dev):
+    from raft_tpu_torch import serving
+
+    db = _randn(dev, 20000, 32, seed=70)
+    index = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=64),
+                           res=Resources(device=dev, seed=3))
+    s = serving.ivf_flat_searcher(index, ivf_flat.SearchParams(n_probes=8))
+    queries = _randn(dev, 60, 32, seed=71).cpu().numpy()
+    rows, placements, info, builds = _serve(s, queries, 10)
+    assert builds == 0 and info["device"] == str(s.device)
+    assert serving.verify_bit_identity(s, list(queries), rows, 10,
+                                       placements) == 0
+
+
+def test_served_cagra_seed_tables_bitwise_per_call_draw_on_the_card(dev):
+    from raft_tpu_torch import serving
+
+    db = _randn(dev, 5000, 32, seed=72)
+    g = torch.Generator(device=dev).manual_seed(73)
+    graph = torch.randint(0, 5000, (5000, 16), generator=g, device=dev,
+                          dtype=torch.int32)
+    index = interop.cagra_index_from_numpy(
+        cagra.IndexParams(graph_degree=16, intermediate_graph_degree=32),
+        db.cpu().numpy(), graph.cpu().numpy(), device=dev)
+    sp = cagra.SearchParams(itopk_size=32)
+    s = serving.cagra_searcher(index, sp)
+    queries = _randn(dev, 40, 32, seed=74).cpu().numpy()
+    rows, placements, _, builds = _serve(s, queries, 10)
+    assert builds == 0
+    for q, (d_row, i_row), (row, bucket) in zip(queries, rows, placements):
+        batch = torch.zeros((bucket, 32))
+        batch[row] = torch.from_numpy(q)
+        d, i = cagra.search(index, batch.to(dev), 10, sp)  # draws seeds
+        assert torch.equal(torch.from_numpy(d_row).view(torch.int32),
+                           d[row].cpu().view(torch.int32))
+        assert torch.equal(torch.from_numpy(i_row), i[row].cpu())

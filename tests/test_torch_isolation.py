@@ -33,6 +33,11 @@ from raft_tpu_torch.neighbors import cagra, nn_descent, refine
 from raft_tpu_torch.bench import breakdown
 from raft_tpu_torch.ops import fused_l2_nn, gpu_kernels, rng, select_k
 from raft_tpu_torch.parallel import comms, sharded
+from raft_tpu_torch import obs, serving
+from raft_tpu_torch.bench import serve_load
+from raft_tpu_torch.obs import (device, diagnostics, explain, httpd, metrics,
+                                quality, slo, spans)
+from raft_tpu_torch.serving import batcher, engine, searchers, stats
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
 print("BAD", bad)

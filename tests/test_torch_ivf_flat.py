@@ -268,8 +268,6 @@ def test_deferred_pieces_raise(data, jindex):
     _, t = _with_metric(jindex, "sqeuclidean")
     with pytest.raises(NotImplementedError, match="fast scan"):
         tivf.search(t, q, 5, tivf.SearchParams(scan_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="explain"):
-        tivf.search(t, q, 5, explain=True)
     with pytest.raises(NotImplementedError, match="serialize"):
         tivf.serialize(t, "index.bin")
     with pytest.raises(NotImplementedError, match="deserialize"):

@@ -649,8 +649,6 @@ def test_cpu_search_launches_no_kernel(data, jindex):
 def test_deferred_pieces_raise(data, jindex):
     _, q = data
     _, t = _carry(jindex)
-    with pytest.raises(NotImplementedError, match="explain"):
-        tpq.search(t, q, 5, explain=True)
     with pytest.raises(NotImplementedError, match="serialize"):
         tpq.serialize(t, "index.bin")
     with pytest.raises(NotImplementedError, match="deserialize"):

@@ -391,7 +391,7 @@ def test_plan_cache_round_trip():
 
 
 @pytest.mark.parametrize("name", ["build_cagra", "search_cagra",
-                                  "build_ivf_pq_from_file", "set_span_sink",
+                                  "build_ivf_pq_from_file",
                                   "serialize_ivf_flat",
                                   "deserialize_ivf_pq_elastic"])
 def test_deferred_parts_raise(name):
