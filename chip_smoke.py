@@ -111,6 +111,31 @@ seed, 10,000 queries, k=10, L2) it
    ``fused_pq_topk``; ``fused_cagra_topk`` bitwise, with the served
    searcher's seeds); at 8 and 64 also timed, a row of the kernels line
    with its launches at that bucket in the loads;
+6c. saves every index above and restores it onto the card
+   (``serialize``/``deserialize``, files under ``build/`` deleted at the
+   end): brute force, IVF-Flat, IVF-PQ (searched in the cache regime, its
+   cache decoded again on the card, and in the LUT regime) and CAGRA (with
+   its dataset and with ``dataset=``), each restored search bitwise equal
+   to the saved index's and launching its kernel (a ``persist`` line a
+   family: file bytes, save, load and load-to-first-result seconds); the
+   hnswlib export of phase 5b's graph, ``hnsw.search`` bitwise
+   ``cagra.search`` at ``itopk_size=max(ef, k)`` and its C++ engine on
+   1,000 queries (the native library asserted built and used); phase 5e's
+   sharded IVF-Flat and IVF-PQ (cache) checkpoints: ``verify_checkpoint``,
+   the strict restore's ring search and a full elastic restore bitwise
+   equal to the saved index's ring and allgather searches; a damaged copy
+   (one rank file deleted: the strict restore names it; another truncated:
+   ``verify_checkpoint`` names both) restored with ``allow_partial=True``,
+   its coverage the surviving ranks' rows over all, its search bitwise the
+   allgather merge of the surviving ranks; and that degraded restore
+   served through ``serving.Engine(elastic_searcher(...))`` to 8
+   submitters on 2,000 queries (0 builds after ``start()``, coverage < 1,
+   0 ``solo_reference`` mismatches on 256 samples), then ``swap_index`` to
+   the full restore (the coverage transition, recall@10 at phase 4's
+   floor). Every restored path's kernels (``fused_l2_topk``,
+   ``fused_ivf_topk``, ``fused_pq_topk``, ``fused_cagra_topk``,
+   ``select_k``) must launch, counted per step; the kernels line gains
+   ``persist_launches``. Each 6c line carries the card's name and limit;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -126,6 +151,7 @@ from __future__ import annotations
 
 import argparse
 import dataclasses
+import glob
 import json
 import os
 import re
@@ -167,6 +193,11 @@ SERVE_LOADS, SERVE_SAMPLE = (8, 64), 256
 SERVE_CHECK_BUCKETS, SERVE_ROW_BUCKETS = (8, 16, 32, 64), (8, 64)
 SERVE_KERNELS = ("fused_l2_topk", "select_k", "fused_ivf_topk",
                  "fused_pq_topk", "fused_cagra_topk")
+#: the persistence phase: queries served by the degraded restore, and the
+#: kernels its restored searches must launch
+SERVE_DEGRADED_QUERIES = 2000
+PERSIST_KERNELS = ("fused_l2_topk", "fused_ivf_topk", "fused_pq_topk",
+                   "fused_cagra_topk", "select_k")
 SERVE_FAMILIES = ("raft_tpu_serving_requests_total",
                   "raft_tpu_serving_batches_total",
                   "raft_tpu_serving_total_seconds",
@@ -266,6 +297,348 @@ def time_trees(inputs: Path, trees) -> list:
                                f"{proc.returncode}:\n{proc.stderr[-3000:]}")
         runs.append(json.loads(proc.stdout.strip().splitlines()[-1]))
     return runs
+
+
+def bitwise_equal(a, b) -> bool:
+    """Two (distances, ids) results equal bit for bit."""
+    import torch
+
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
+def persistence_phase(*, smi, dev, queries, gt_i, dataset, bf, flat,
+                      flat_probes, pq_index, pq_probes, card_res, lut_probes,
+                      lut_res, cg_index, cg_itopk, sf_index, sf_probes,
+                      sp_index, sp_probes, ring_comms, launch_counts,
+                      root: Path) -> dict:
+    """Phase 6c: every ported index saved, restored onto the card and
+    searched, its results held bitwise to the index's before saving. Files
+    go under ``root`` and are deleted at the end. Returns the phase's
+    launch counts by kernel (each step's counts set to 0 just before it
+    and read just after)."""
+    import shutil
+
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import native, serving
+    from raft_tpu_torch.bench.serve_load import BatchSink, closed_loop, \
+        summarize
+    from raft_tpu_torch.core.errors import IntegrityError
+    from raft_tpu_torch.neighbors import brute_force, cagra, hnsw, ivf_flat, \
+        ivf_pq
+    from raft_tpu_torch.ops import gpu_kernels as gk
+    from raft_tpu_torch.parallel import comms as tcomms
+    from raft_tpu_torch.parallel import sharded
+    from raft_tpu_torch.stats import neighborhood_recall
+
+    # the host C++ library is compiled here, off every timed step below
+    built, native_build_s = timed(native.ensure_built)
+    if not built:
+        raise AssertionError("the native C++ library did not build")
+    emit({"phase": "native_build", "card": smi, "seconds": native_build_s,
+          "library": str(native.library_path())})
+
+    totals = {name: 0 for name in gk.LAUNCHES}
+
+    def counted(fn):
+        """fn() with the launch counts set to 0 just before and read (and
+        added to the phase's totals) just after."""
+        gk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        launches = launch_counts()
+        for name in totals:
+            totals[name] += launches[name]
+        return out, launches
+
+    def sync_clock():
+        torch.cuda.synchronize()
+        return time.perf_counter()
+
+    def round_trip(family, mod, index, searches, load_kw=None, save_kw=None):
+        """Save, restore onto the card, search: each search bitwise equal
+        to the same search of ``index`` before saving; the first restored
+        search's launches must show ``kernel``."""
+        before = [search(index) for search, _ in searches]
+        path = root / f"{family}.idx"
+        _, save_s = timed(lambda: mod.serialize(index, path, **(save_kw or {})))
+        n_bytes = path.stat().st_size
+        t0 = sync_clock()
+        restored = mod.deserialize(path, **(load_kw or {}))
+        t_load = sync_clock()
+        results = []
+        for (search, kernel), want in zip(searches, before):
+            got, launches = counted(lambda: search(restored))
+            results.append((got, launches))
+            if len(results) == 1:
+                first_s = time.perf_counter() - t0
+            if not bitwise_equal(got, want):
+                raise AssertionError(f"persist {family}: the restored search "
+                                     "differs from the saved index's")
+            if launches[kernel] < 1:
+                raise AssertionError(f"persist {family}: the restored search "
+                                     f"launched no {kernel}")
+        if restored.device != dev:
+            raise AssertionError(f"persist {family}: restored onto "
+                                 f"{restored.device}")
+        path.unlink()
+        emit({"phase": "persist", "family": family, "card": smi,
+              "file_bytes": n_bytes, "save_seconds": save_s,
+              "load_seconds": t_load - t0, "load_to_first_result_seconds":
+              first_s, "bitwise_equal": True,
+              "launches": [launches for _, launches in results]})
+        return restored
+
+    root.mkdir(parents=True, exist_ok=True)
+    try:
+        # ---- 1. single-device round trips
+        round_trip("brute_force", brute_force, bf,
+                   [(lambda i: brute_force.search(i, queries, K),
+                     "fused_l2_topk")])
+        round_trip("ivf_flat", ivf_flat, flat,
+                   [(lambda i: ivf_flat.search(
+                       i, queries, K, ivf_flat.SearchParams(
+                           n_probes=flat_probes)), "fused_ivf_topk")])
+        # the file holds no decoded cache: the cache regime decodes it again
+        # on the card, the LUT regime scans the packed codes
+        round_trip("ivf_pq", ivf_pq, pq_index,
+                   [(lambda i: ivf_pq.search(
+                       i, queries, K, ivf_pq.SearchParams(n_probes=pq_probes),
+                       res=card_res), "fused_ivf_topk"),
+                    (lambda i: ivf_pq.search(
+                        i, queries, K, ivf_pq.SearchParams(
+                            n_probes=lut_probes), res=lut_res),
+                     "fused_pq_topk")])
+        cg_search = [(lambda i: cagra.search(
+            i, queries, K, cagra.SearchParams(itopk_size=cg_itopk,
+                                              search_width=1)),
+            "fused_cagra_topk")]
+        round_trip("cagra", cagra, cg_index, cg_search)
+        round_trip("cagra_without_dataset", cagra, cg_index, cg_search,
+                   load_kw={"dataset": dataset},
+                   save_kw={"include_dataset": False})
+
+        # ---- 2. HNSW: the export, the CAGRA engine bitwise, the C++ engine
+        native.CALLS.clear()
+        hpath = str(root / "cagra.hnsw")
+        _, export_s = timed(lambda: hnsw.from_cagra(cg_index, hpath))
+        h_bytes = os.path.getsize(hpath)
+        hidx, hload_s = timed(lambda: hnsw.load(hpath))
+        os.remove(hpath)
+        want = cagra.search(cg_index, queries, K,
+                            cagra.SearchParams(itopk_size=max(cg_itopk, K)))
+        got, h_launches = counted(lambda: hnsw.search(hidx, queries, K,
+                                                      ef=cg_itopk))
+        if not bitwise_equal(got, want):
+            raise AssertionError("hnsw.search differs from cagra.search at "
+                                 "itopk_size=max(ef, k)")
+        if h_launches["fused_cagra_topk"] < 1:
+            raise AssertionError("hnsw.search launched no fused_cagra_topk")
+        n_cpu = CAGRA_GLUE_QUERIES
+        (cd, ci), cpu_s = timed(lambda: hnsw.search(
+            hidx, queries[:n_cpu], K, ef=cg_itopk, engine="cpu"))
+        cpu_recall = float(neighborhood_recall(ci.to(dev), gt_i[:n_cpu]))
+        if not (native.available() and native.CALLS["hnswlib_write"] == 1
+                and native.CALLS["graph_greedy_search"] == 1):
+            raise AssertionError(f"the native C++ library was not built and "
+                                 f"used: {dict(native.CALLS)}")
+        if cd.shape != (n_cpu, K) or not bool(torch.isfinite(cd).all()):
+            raise AssertionError("hnsw cpu engine: distances not finite")
+        emit({"phase": "persist_hnsw", "card": smi, "file_bytes": h_bytes,
+              "export_seconds": export_s, "load_seconds": hload_s,
+              "ef": cg_itopk, "xla_bitwise_equal_cagra": True,
+              "cpu_queries": n_cpu, "cpu_seconds": cpu_s,
+              "cpu_recall_at_10": cpu_recall,
+              "native_library": str(native.library_path()),
+              "native_calls": dict(native.CALLS), "launches": h_launches})
+        del hidx
+
+        # ---- 3. sharded checkpoints: strict restore (ring) and a full
+        # elastic restore (allgather), bitwise the index before saving
+        ckpt = {}
+        for kind, index, fam, params in (
+                ("ivf_flat", sf_index, "ivf_flat",
+                 ivf_flat.SearchParams(n_probes=sf_probes)),
+                ("ivf_pq", sp_index, "ivf_pq",
+                 ivf_pq.SearchParams(n_probes=sp_probes))):
+            search = getattr(sharded, f"search_{fam}")
+            ring = search(index, queries, K, params, merge_mode="ring")
+            gather = search(index, queries, K, params, merge_mode="allgather")
+            prefix = str(root / f"sharded_{kind}" / "index")
+            os.makedirs(os.path.dirname(prefix))
+            _, save_s = timed(lambda: getattr(sharded, f"serialize_{fam}")(
+                index, prefix))
+            n_bytes = sum(os.path.getsize(f) for f in
+                          glob.glob(prefix + ".*"))
+            report, verify_s = timed(lambda: sharded.verify_checkpoint(prefix))
+            if not report["ok"]:
+                raise AssertionError(f"sharded {kind}: verify {report}")
+            t0 = sync_clock()
+            strict = getattr(sharded, f"deserialize_{fam}")(prefix,
+                                                            ring_comms)
+            strict_s = sync_clock() - t0
+            got, s_launches = counted(lambda: search(
+                strict, queries, K, params, merge_mode="ring"))
+            if not bitwise_equal(got, ring):
+                raise AssertionError(f"sharded {kind}: the strict restore's "
+                                     "ring search differs")
+            t0 = sync_clock()
+            full = getattr(sharded, f"deserialize_{fam}_elastic")(prefix)
+            elastic_s = sync_clock() - t0
+            got, e_launches = counted(lambda: full.search(queries, K, params))
+            if not bitwise_equal(got, gather) or got.coverage != 1.0:
+                raise AssertionError(f"sharded {kind}: the full elastic "
+                                     "restore differs from allgather")
+            kernel = "fused_ivf_topk"
+            if e_launches[kernel] < N_RANKS or e_launches["select_k"] < 1 \
+                    or s_launches["ring_shift"] < 1:
+                raise AssertionError(f"sharded {kind}: launches {s_launches}"
+                                     f" / {e_launches}")
+            emit({"phase": "persist_sharded", "kind": kind, "card": smi,
+                  "ranks": N_RANKS, "file_bytes": n_bytes,
+                  "save_seconds": save_s, "verify_seconds": verify_s,
+                  "strict_load_seconds": strict_s,
+                  "elastic_load_seconds": elastic_s,
+                  "strict_ring_bitwise_equal": True,
+                  "elastic_bitwise_equal_allgather": True,
+                  "pads": sorted({i.list_indices.shape[1]
+                                  for i in index.indexes}),
+                  "restored_pads": sorted({i.list_indices.shape[1]
+                                           for i in strict.indexes}),
+                  "strict_launches": s_launches,
+                  "elastic_launches": e_launches})
+            ckpt[kind] = (prefix, full, gather)
+            del strict
+            if kind == "ivf_pq":
+                shutil.rmtree(os.path.dirname(prefix))
+                del full
+
+        # ---- 4. a damaged copy of the IVF-Flat checkpoint
+        prefix, full, gather = ckpt["ivf_flat"]
+        params = ivf_flat.SearchParams(n_probes=sf_probes)
+        shutil.copytree(os.path.dirname(prefix), root / "damaged")
+        dprefix = str(root / "damaged" / "index")
+        os.remove(f"{dprefix}.rank1")
+        try:
+            sharded.deserialize_ivf_flat_elastic(dprefix)
+        except ValueError as e:
+            if f"{dprefix}.rank1" not in str(e):
+                raise AssertionError(f"the strict restore did not name the "
+                                     f"missing file: {e}") from e
+        else:
+            raise AssertionError("the strict restore of a checkpoint missing "
+                                 "a rank file did not raise")
+        with open(f"{dprefix}.rank2", "r+b") as f:
+            f.truncate(os.path.getsize(f"{dprefix}.rank2") // 2)
+        report = sharded.verify_checkpoint(dprefix)
+        if report["files"] != {"index.rank0": "ok", "index.rank1": "missing",
+                               "index.rank2": "truncated",
+                               "index.rank3": "ok"} or report["ok"]:
+            raise AssertionError(f"verify_checkpoint: {report}")
+        try:
+            sharded.deserialize_ivf_flat_elastic(dprefix)
+        except IntegrityError as e:
+            if e.reason != "truncated":
+                raise AssertionError(f"strict restore: {e.reason}") from e
+        else:
+            raise AssertionError("the strict restore of a damaged checkpoint "
+                                 "did not raise")
+        degraded, degraded_s = timed(
+            lambda: sharded.deserialize_ivf_flat_elastic(
+                dprefix, allow_partial=True))
+        survivors = [sf_index.indexes[r] for r in (0, 3)]
+        want_cov = sum(int((i.list_indices >= 0).sum())
+                       + int((i.overflow_indices >= 0).sum())
+                       for i in survivors) / sf_index.n_rows
+        if degraded.shard_ranks != [0, 3] or degraded.coverage != want_cov \
+                or not degraded.coverage < 1:
+            raise AssertionError(f"degraded restore: ranks "
+                                 f"{degraded.shard_ranks}, coverage "
+                                 f"{degraded.coverage} (want {want_cov})")
+        got, d_launches = counted(lambda: degraded.search(queries, K, params))
+        two = sharded.ShardedIvfFlat(tcomms.init_comms([dev] * 2), survivors,
+                                     sf_index.metric, sf_index.n_rows,
+                                     [0, sf_index.n_rows])
+        if not bitwise_equal(got, sharded.search_ivf_flat(
+                two, queries, K, params, merge_mode="allgather")):
+            raise AssertionError("the degraded search differs from the "
+                                 "allgather merge of the surviving ranks")
+        emit({"phase": "persist_damaged", "card": smi,
+              "verify": report["files"],
+              "missing_ranks": report["missing_ranks"],
+              "coverage": degraded.coverage, "survivors": [0, 3],
+              "restore_seconds": degraded_s,
+              "degraded_recall_at_10": float(neighborhood_recall(
+                  got.indices, gt_i)),
+              "bitwise_equal_survivors_allgather": True,
+              "launches": d_launches})
+
+        # ---- 5. degraded serving, then the swap to the full restore
+        q_host = queries[:SERVE_DEGRADED_QUERIES].cpu().numpy()
+        gt_part = gt_i[:SERVE_DEGRADED_QUERIES]
+        sample = np.random.default_rng(0).choice(
+            SERVE_DEGRADED_QUERIES, SERVE_SAMPLE, replace=False)
+        searcher = serving.elastic_searcher(degraded, params)
+        sink = BatchSink()
+        eng = serving.Engine(searcher, serving.EngineConfig(
+            max_batch=64, max_wait_us=2000, max_inflight=2, warm_ks=(K,),
+            span_sink=sink))
+        eng.start()
+        try:
+            builds0 = serving.compile_count()
+            run, s_launches = counted(lambda: closed_loop(
+                eng, q_host, K, SERVE_LOADS[0]))
+            line = summarize(run, sink.take())
+            coverage = eng.stats.coverage
+            mismatches = serving.verify_bit_identity(
+                searcher, [q_host[j] for j in sample],
+                [(run["distances"][j], run["ids"][j]) for j in sample], K,
+                [run["placements"][j] for j in sample])
+            degraded_recall = float(neighborhood_recall(
+                torch.from_numpy(run["ids"]).to(dev), gt_part))
+            full_searcher = serving.elastic_searcher(full, params)
+            eng.swap_index(full_searcher)
+            transitions = list(eng.stats.coverage_transitions)
+            run2, f_launches = counted(lambda: closed_loop(
+                eng, q_host, K, SERVE_LOADS[0]))
+            builds = serving.compile_count() - builds0
+            full_line = summarize(run2, sink.take())
+        finally:
+            eng.stop()
+        full_recall = float(neighborhood_recall(
+            torch.from_numpy(run2["ids"]).to(dev), gt_part))
+        emit({"phase": "persist_serving", "card": smi,
+              "submitters": SERVE_LOADS[0], **line,
+              "builds_after_start": builds, "coverage": coverage,
+              "solo_mismatches": mismatches, "solo_sampled": SERVE_SAMPLE,
+              "recall_at_10": degraded_recall,
+              "coverage_transitions": transitions,
+              "full_qps": full_line["qps"], "full_p50_ms": full_line["p50_ms"],
+              "full_recall_at_10": full_recall,
+              "launches": s_launches, "full_launches": f_launches})
+        if builds:
+            raise AssertionError(f"degraded serving: {builds} kernel builds "
+                                 "after start()")
+        if not coverage < 1 or mismatches:
+            raise AssertionError(f"degraded serving: coverage {coverage}, "
+                                 f"{mismatches} rows differ from "
+                                 "solo_reference")
+        if transitions != [(round(degraded.coverage, 6), 1.0)]:
+            raise AssertionError(f"coverage transitions {transitions}")
+        if full_recall < RECALL_FLOOR:
+            raise AssertionError(f"served full restore recall {full_recall} "
+                                 f"< {RECALL_FLOOR}")
+        for name in ("fused_ivf_topk", "select_k"):
+            if s_launches[name] < 1 or f_launches[name] < 1:
+                raise AssertionError(f"elastic serving launched no {name}")
+    finally:
+        shutil.rmtree(root, ignore_errors=True)
+    for name in PERSIST_KERNELS:
+        if totals[name] < 1:
+            raise AssertionError(f"phase 6c launched no {name}")
+    return totals
 
 
 def main() -> int:
@@ -763,10 +1136,6 @@ def main() -> int:
         out, warm_s = timed(fn)
         return out, warm_s, launch_counts(), cold_s
 
-    def bitwise_equal(a, b) -> bool:
-        return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
-                and torch.equal(a[1], b[1]))
-
     sharded_phases = []
     # a ring call: size - 1 hops, each one launch per source device
     ring_hops = (N_RANKS - 1) * len(gk.ring_shift_launches([dev] * N_RANKS))
@@ -804,7 +1173,8 @@ def main() -> int:
         def sharded_ivf_phase(name, index, params_of, floor, build_s,
                               build_launches, search, kernel):
             """Ring search until the recall floor is met (probes doubling),
-            then the allgather merge on the same index, bitwise equal."""
+            then the allgather merge on the same index, bitwise equal.
+            Returns the probes settled on."""
             n_probes = N_PROBES
             while True:
                 sp = params_of(n_probes)
@@ -833,6 +1203,7 @@ def main() -> int:
             if v.shape != (N_QUERIES, K) or not bool(torch.isfinite(v).all()):
                 raise AssertionError(f"{name}: distances not finite and "
                                      "complete")
+            return n_probes
 
         gk.reset_launch_counts()
         sf_index, sf_build_s = timed(lambda: sharded.build_ivf_flat(
@@ -840,12 +1211,12 @@ def main() -> int:
             res=Resources(seed=opts.seed)))
         sf_build_launches = launch_counts()
         sharded_phases.append(sf_build_launches)
-        sharded_ivf_phase(
+        # the sharded indexes are kept for phase 6c's checkpoints
+        sf_probes = sharded_ivf_phase(
             "sharded_ivf_flat", sf_index,
             lambda p: ivf_flat.SearchParams(n_probes=p), RECALL_FLOOR,
             sf_build_s, sf_build_launches, sharded.search_ivf_flat,
             "fused_ivf_topk")
-        del sf_index
 
         gk.reset_launch_counts()
         sp_index, sp_build_s = timed(lambda: sharded.build_ivf_pq(
@@ -861,12 +1232,11 @@ def main() -> int:
             if engine != "pallas_cache":
                 raise AssertionError(f"sharded_ivf_pq: a rank's engine is "
                                      f"{engine}, expected pallas_cache")
-        sharded_ivf_phase(
+        sp_probes = sharded_ivf_phase(
             "sharded_ivf_pq", sp_index,
             lambda p: ivf_pq.SearchParams(n_probes=p), PQ_RECALL_FLOOR,
             sp_build_s, sp_build_launches, sharded.search_ivf_pq,
             "fused_ivf_topk")
-        del sp_index
     finally:
         gk.ring_shift = ring_shift
 
@@ -1826,6 +2196,23 @@ def main() -> int:
             2 * DIM * (int(st["rows_scored"].sum()) + st["rows_touched"]),
             f"{bucket} queries, itopk {itopk}, width 1, {n_seeds} seeds"))
     kernels.extend(row for row in serve_rows if row is not None)
+
+    # ---- 6c. persistence: every index above saved, restored onto the card
+    # and searched bitwise like the saved one; the sharded checkpoints'
+    # strict and elastic restores, a damaged copy, degraded serving
+    persist_launches, persist_s = timed(lambda: persistence_phase(
+        smi=smi, dev=dev, queries=queries, gt_i=gt_i, dataset=dataset, bf=bf,
+        flat=index, flat_probes=n_probes, pq_index=pq_index,
+        pq_probes=pq_probes, card_res=card_res, lut_probes=lut_probes,
+        lut_res=lut_res, cg_index=cg_index, cg_itopk=itopk,
+        sf_index=sf_index, sf_probes=sf_probes, sp_index=sp_index,
+        sp_probes=sp_probes, ring_comms=ring_comms,
+        launch_counts=launch_counts,
+        root=Path(__file__).resolve().parent / "build" / "chip_smoke_persist"))
+    emit({"phase": "persist_total", "card": smi, "seconds": persist_s,
+          "launches": persist_launches})
+    for row in kernels:
+        row["persist_launches"] = persist_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

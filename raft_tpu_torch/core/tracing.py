@@ -1,12 +1,17 @@
-"""Named trace ranges (counterpart of ``raft_tpu.core.tracing.range``).
+"""Named trace ranges and profiler captures (counterpart of
+``raft_tpu.core.tracing``).
 
 Each range is a ``torch.profiler.record_function`` scope, so it shows on the
 host timeline of a ``torch.profiler`` capture beside the kernels it launched.
-Works as a context manager and as a decorator."""
+``range`` works as a context manager and as a decorator, ``annotate`` is the
+decorator form, and ``profile`` captures a trace around a region."""
 
 from __future__ import annotations
 
+import contextlib
 import functools
+import os
+from typing import Optional
 
 import torch
 
@@ -34,3 +39,29 @@ class range:  # noqa: A001 — mirrors raft_tpu.core.tracing.range
                 return fn(*args, **kwargs)
 
         return wrapper
+
+
+@contextlib.contextmanager
+def profile(log_dir: str):
+    """Capture a ``torch.profiler`` trace around a region (CPU, and CUDA
+    where a card is present) and write it to ``<log_dir>/trace.json`` (the
+    Chrome trace format): ``with tracing.profile(dir): search(...)``.
+    Yields ``log_dir``. ``obs.profile_session`` adds session accounting on
+    the metrics registry."""
+    os.makedirs(log_dir, exist_ok=True)
+    activities = [torch.profiler.ProfilerActivity.CPU]
+    if torch.cuda.is_available():
+        activities.append(torch.profiler.ProfilerActivity.CUDA)
+    with torch.profiler.profile(activities=activities) as prof:
+        yield log_dir
+    prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
+
+
+def annotate(name: Optional[str] = None):
+    """Decorator form: ``@annotate("ivf_pq::search")`` (the function's
+    qualified name by default)."""
+
+    def deco(fn):
+        return range(name or fn.__qualname__)(fn)
+
+    return deco

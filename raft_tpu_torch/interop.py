@@ -133,30 +133,28 @@ def sharded_ivf_pq_from_numpy(comms: Comms, params: ivf_pq.IndexParams,
     cache (list_decoded [S, L, pad, rot], decoded_norms [S, L, pad]). The
     JAX index keeps its overflow rows decoded only ([S, O, rot], [S, O],
     ids [S, O]): each rank's index takes them as its decoded overflow block
-    and is marked ``overflow_decoded_only`` (its overflow codes are zero
-    placeholders), so a search with another ``scan_cache_dtype`` than the
-    one they were decoded in raises, and so does ``extend``."""
+    and is marked ``overflow_decoded_only`` (``ivf_pq.index_from_parts``),
+    so a search with another ``scan_cache_dtype`` than the one they were
+    decoded in raises, and so does ``extend``."""
     rows = _rank_rows(bounds)
-    n_bytes = np.asarray(list_codes).shape[-1]
     indexes = []
     for r, dev in enumerate(comms.devices):
-        n_over = 0 if overflow_indices is None else len(overflow_indices[r])
-        idx = ivf_pq_index_from_numpy(
-            params, pq_dim, centers[r], rotation[r], codebooks[r],
-            list_codes[r], list_indices[r], list_sizes[r], int(rows[r]),
-            np.zeros((n_over, n_bytes), np.uint8),
-            np.zeros((n_over,), np.int32),
-            np.zeros((0,), np.int32) if n_over == 0 else overflow_indices[r],
-            device=dev)
-        if n_over:
-            idx.overflow_decoded = _t(overflow_decoded[r], dev)
-            idx.overflow_norms = _t(np.asarray(overflow_norms[r], np.float32),
-                                    dev)
-            idx.overflow_decoded_only = True
-        if list_decoded is not None:
-            idx.list_decoded = _t(list_decoded[r], dev)
-            idx.decoded_norms = _t(np.asarray(decoded_norms[r], np.float32),
-                                   dev)
-        indexes.append(idx)
+        def t(a, dtype=None):
+            return None if a is None else _t(
+                a[r] if dtype is None else np.asarray(a[r], dtype), dev)
+
+        has_over = overflow_indices is not None and len(overflow_indices[r])
+        over = (dict(overflow_decoded=t(overflow_decoded),
+                     overflow_norms=t(overflow_norms, np.float32),
+                     overflow_indices=t(overflow_indices, np.int32))
+                if has_over else {})
+        indexes.append(ivf_pq.index_from_parts(
+            params, int(pq_dim), t(centers, np.float32),
+            t(rotation, np.float32), t(list_indices, np.int32),
+            t(list_sizes, np.int32), int(rows[r]),
+            codebooks=t(codebooks, np.float32),
+            list_codes=t(list_codes, np.uint8),
+            list_decoded=t(list_decoded),
+            decoded_norms=t(decoded_norms, np.float32), **over))
     return sharded.ShardedIvfPq(comms, indexes, params.metric,
                                 int(rows.sum()), bounds, scan_mode)

@@ -9,6 +9,7 @@ take the tiled path: a distance tile per (query tile, database tile), a
 ``scan_mode="xla"`` keeps its name from the JAX package and forces the
 tiled path. Every search records its engine and why
 (``obs.explain.record_dispatch``; ``explain=True`` returns the record).
+``serialize``/``deserialize`` write and read the JAX package's file format.
 """
 
 from __future__ import annotations
@@ -18,6 +19,7 @@ from typing import Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
@@ -239,11 +241,33 @@ def knn(queries, dataset, k: int, metric="euclidean", metric_arg: float = 2.0,
                   scan_mode=scan_mode, explain=explain)
 
 
+_SERIAL_VERSION = 1
+
+
 def serialize(index: Index, file) -> None:
-    raise NotImplementedError(
-        "brute_force.serialize is not ported yet (ROADMAP Queue A item 2)")
+    """Write the index to a path (atomically: a temporary file, then
+    ``os.replace``) or a binary stream, in the JAX package's format: the
+    metric, its argument, the dataset and the cached norms, each record
+    crc-framed."""
+    with ser.writer_for(file) as stream:
+        w = ser.IndexWriter(stream, "brute_force", _SERIAL_VERSION)
+        w.scalar(int(index.metric), "<i4").scalar(index.metric_arg, "<f8")
+        w.array(index.dataset)
+        w.scalar(1 if index.norms is not None else 0, "<i4")
+        if index.norms is not None:
+            w.array(index.norms)
+        w.finish()
 
 
-def deserialize(file, res: Optional[Resources] = None) -> Index:
-    raise NotImplementedError(
-        "brute_force.deserialize is not ported yet (ROADMAP Queue A item 2)")
+def deserialize(file, res: Optional[Resources] = None, device=None) -> Index:
+    """Read an index written by :func:`serialize` (or by the JAX package)
+    onto ``res``'s device (CUDA unless the caller asks for the CPU)."""
+    res = ensure_resources(res, device)
+    with ser.reader_for(file) as stream:
+        r = ser.IndexReader(stream, "brute_force", _SERIAL_VERSION)
+        metric = DistanceType(r.scalar())
+        metric_arg = r.scalar()
+        dataset = ser.to_tensor(r.array(), res.device)
+        norms = ser.to_tensor(r.array(), res.device) if r.scalar() else None
+        r.finish()
+    return Index(dataset, metric, float(metric_arg), norms)

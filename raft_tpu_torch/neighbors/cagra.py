@@ -20,10 +20,11 @@ Counterpart of ``raft_tpu.neighbors.cagra``.
   ``"pallas"`` take the kernel wherever it is eligible, ``"xla"`` forces
   the glue engine.
 
-Not ported yet: ``serialize``/``deserialize``, the bf16 fast scan
-(``scan_dtype``) and ``explain=True`` raise ``NotImplementedError``; the
-serving batch bucket is not needed (a query's seeds depend only on its
-row).
+Every search records its engine and why (``obs.explain.record_dispatch``;
+``explain=True`` returns the record). ``serialize``/``deserialize`` write
+and read the JAX package's file format. Not ported yet: the bf16 fast scan
+(``scan_dtype``) raises ``NotImplementedError``; the serving batch bucket
+is not needed (a query's seeds depend only on its row).
 """
 
 from __future__ import annotations
@@ -37,6 +38,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
@@ -532,11 +534,44 @@ def search(index: Index, queries, k: int,
     return explained(out, cap, explain)
 
 
+_SERIAL_VERSION = 1
+
+
 def serialize(index: Index, file, include_dataset: bool = True) -> None:
-    raise NotImplementedError(
-        "cagra.serialize is not ported yet (ROADMAP Queue A item 2)")
+    """Write the index to a path (atomically) or a binary stream, in the
+    JAX package's format: the metric, the graph degree, the graph and,
+    with ``include_dataset``, the dataset (without it, ``deserialize``
+    needs ``dataset=``)."""
+    with ser.writer_for(file) as stream:
+        w = ser.IndexWriter(stream, "cagra", _SERIAL_VERSION)
+        w.scalar(int(index.metric), "<i4")
+        w.scalar(index.graph_degree, "<i4")
+        w.scalar(1 if include_dataset else 0, "<i4")
+        w.array(index.graph)
+        if include_dataset:
+            w.array(index.dataset)
+        w.finish()
 
 
-def deserialize(file, dataset=None, res: Optional[Resources] = None) -> Index:
-    raise NotImplementedError(
-        "cagra.deserialize is not ported yet (ROADMAP Queue A item 2)")
+def deserialize(file, dataset=None, res: Optional[Resources] = None,
+                device=None) -> Index:
+    """Read an index written by :func:`serialize` or the JAX package onto
+    ``res``'s device (CUDA unless the caller asks for the CPU); a file
+    written without its dataset takes ``dataset``."""
+    res = ensure_resources(res, device)
+    with ser.reader_for(file) as stream:
+        r = ser.IndexReader(stream, "cagra", _SERIAL_VERSION)
+        metric = DistanceType(r.scalar())
+        graph_degree = r.scalar()
+        has_ds = bool(r.scalar())
+        graph = ser.to_tensor(r.array(), res.device)
+        if has_ds:
+            ds = ser.to_tensor(r.array(), res.device)
+        elif dataset is not None:
+            ds = as_query_array(dataset, res.device)
+        else:
+            raise ValueError(
+                "index file has no dataset; pass dataset= to deserialize")
+        r.finish()
+    params = IndexParams(graph_degree=graph_degree, metric=metric)
+    return Index(params, ds, graph)

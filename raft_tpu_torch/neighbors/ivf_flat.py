@@ -22,9 +22,12 @@ which reads each probed slab where it lies), the metric's distances from
 them, and one ``select_k``. ``scan_mode="xla"`` forces the tiled path with
 the gather of the probed lists per query tile in place of the scan kernel.
 
-Not ported yet (each raises ``NotImplementedError``): ``explain=True``,
-``serialize``/``deserialize``, the bf16 fast scan (``scan_dtype``), and
-int8/uint8 list data.
+Every search records its engine and why (``obs.explain.record_dispatch``;
+``explain=True`` returns the record). ``serialize``/``deserialize`` write
+and read the JAX package's file format.
+
+Not ported yet (each raises ``NotImplementedError``): the bf16 fast scan
+(``scan_dtype``) and int8/uint8 list data.
 """
 
 from __future__ import annotations
@@ -39,6 +42,7 @@ import torch
 from raft_tpu_torch import native
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.bitset import filter_mask as bitset_filter_mask
@@ -170,12 +174,12 @@ def _pack_lists(dataset: np.ndarray, labels: np.ndarray, n_lists: int,
     sizes = np.bincount(labels, minlength=n_lists).astype(np.int32)
     pad = list_packing.choose_list_pad(sizes, max_expansion)
     if int(sizes.max(initial=0)) <= pad:
-        data, idxs, sizes = native.pack_lists(dataset, labels, n_lists, pad,
-                                              ids)
+        data, idxs, sizes = native.pack_lists_numpy(dataset, labels,
+                                                    n_lists, pad, ids)
         return data, idxs, sizes, *list_packing.pad_overflow_block(
             dataset[:0], ids[:0])
     keep = list_packing.fit_mask(labels, n_lists, pad)
-    data, idxs, sizes = native.pack_lists(
+    data, idxs, sizes = native.pack_lists_numpy(
         np.ascontiguousarray(dataset[keep]), labels[keep], n_lists, pad,
         np.ascontiguousarray(ids[keep]))
     over_rows, over_ids = list_packing.pad_overflow_block(
@@ -223,16 +227,20 @@ def build(dataset, params: Optional[IndexParams] = None,
                                   km_params)
     index = Index(params, centers, None, None, None, 0)
     if params.add_data_on_build:
-        index = extend(index, dataset)
+        index = extend(index, dataset, res=res)
     return index
 
 
 @tracing.range("ivf_flat.extend")
-def extend(index: Index, new_vectors, new_indices=None) -> Index:
+def extend(index: Index, new_vectors, new_indices=None,
+           res: Optional[Resources] = None) -> Index:
     """Add vectors (with ids, or ids past every existing one) on the index's
     device and return the new index; ``adaptive_centers`` recomputes the
-    centers as list means."""
+    centers as list means. ``res``, when given, must be on the index's
+    device."""
     dev = index.device
+    if res is not None:
+        ensure_resources(res, dev)
     new_vectors = _as_tensor(new_vectors, dev)
     _check_list_dtype(new_vectors.dtype)
     km_params = KMeansBalancedParams(metric=index.metric)
@@ -532,11 +540,53 @@ def search(index: Index, queries, k: int,
     return explained(out, cap, explain)
 
 
+_SERIAL_VERSION = 2  # v2: + list_pad_expansion, overflow block
+
+
 def serialize(index: Index, file) -> None:
-    raise NotImplementedError(
-        "ivf_flat.serialize is not ported yet (ROADMAP Queue A item 2)")
+    """Write the index to a path (atomically) or a binary stream, in the
+    JAX package's format (v2, crc-framed records): the build parameters,
+    the centers, the padded lists with their ids and sizes, and the
+    overflow block."""
+    if index.list_data is None:
+        raise ValueError("index has no data; call extend() before serialize()")
+    with ser.writer_for(file) as stream:
+        w = ser.IndexWriter(stream, "ivf_flat", _SERIAL_VERSION)
+        w.scalar(int(index.metric), "<i4")
+        w.scalar(index.params.n_lists, "<i8")
+        w.scalar(index.params.kmeans_n_iters, "<i4")
+        w.scalar(index.params.kmeans_trainset_fraction, "<f8")
+        w.scalar(1 if index.params.adaptive_centers else 0, "<i4")
+        w.scalar(index.params.list_pad_expansion, "<f8")
+        w.scalar(index.n_rows, "<i8")
+        w.array(index.centers)
+        w.array(index.list_data)
+        w.array(index.list_indices)
+        w.array(index.list_sizes)
+        w.array(index.overflow_data)
+        w.array(index.overflow_indices)
+        w.finish()
 
 
-def deserialize(file, res: Optional[Resources] = None) -> Index:
-    raise NotImplementedError(
-        "ivf_flat.deserialize is not ported yet (ROADMAP Queue A item 2)")
+def deserialize(file, res: Optional[Resources] = None, device=None) -> Index:
+    """Read an index written by :func:`serialize` or the JAX package (v1 or
+    v2) onto ``res``'s device (CUDA unless the caller asks for the CPU)."""
+    res = ensure_resources(res, device)
+    dev = res.device
+    with ser.reader_for(file) as stream:
+        r = ser.IndexReader(stream, "ivf_flat", _SERIAL_VERSION)
+        metric = DistanceType(r.scalar())
+        params = IndexParams(
+            n_lists=r.scalar(), metric=metric, kmeans_n_iters=r.scalar(),
+            kmeans_trainset_fraction=r.scalar(),
+            adaptive_centers=bool(r.scalar()),
+            # v1 files predate the capped pad: max-driven layout, no spill
+            list_pad_expansion=r.scalar() if r.version >= 2 else 1e30)
+        n_rows = r.scalar()
+        centers, data, idxs, sizes = (ser.to_tensor(r.array(), dev)
+                                      for _ in range(4))
+        over_rows = ser.to_tensor(r.array(), dev) if r.version >= 2 else None
+        over_ids = ser.to_tensor(r.array(), dev) if r.version >= 2 else None
+        r.finish()
+    return Index(params, centers, data, idxs, sizes, n_rows, over_rows,
+                 over_ids)

@@ -38,8 +38,11 @@ the same memory model as the JAX package (``resolve_scan_mode``, against
 engine. The fused engines' overflow rows are scanned unfused and merged by
 one ``select_k``.
 
-Not ported yet (each raises ``NotImplementedError``): ``explain=True``,
-``serialize``/``deserialize`` and ``helpers``.
+Every search records its engine and why (``obs.explain.record_dispatch``;
+``explain=True`` returns the record). ``serialize``/``deserialize`` write
+and read the JAX package's file format.
+
+Not ported yet (raises ``NotImplementedError``): ``helpers``.
 """
 
 from __future__ import annotations
@@ -56,6 +59,7 @@ import torch
 from raft_tpu_torch import native
 from raft_tpu_torch.cluster import kmeans_balanced
 from raft_tpu_torch.cluster.kmeans_balanced import KMeansBalancedParams
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.bitset import filter_mask as bitset_filter_mask
@@ -201,10 +205,12 @@ class Index:
         # full rotated overflow vectors [n_over, rot_dim] + ‖v‖² f32
         self.overflow_decoded = None
         self.overflow_norms = None
-        # True when the overflow rows came decoded, without their codes
-        # (``interop.sharded_ivf_pq_from_numpy``): they cannot be decoded
-        # in another dtype or re-packed
+        # True when the overflow rows (the lists) came decoded, without
+        # their codes (``index_from_parts``: a sharded checkpoint): they
+        # cannot be decoded in another dtype or re-packed, and lists without
+        # codes are searched in the cache regime only
         self.overflow_decoded_only = False
+        self.lists_decoded_only = False
         self._safe_ids = None
 
     @property
@@ -513,6 +519,11 @@ def ensure_scan_cache(index: Index, dtype=torch.bfloat16) -> None:
     dtype = _dtype(dtype, _FLOAT_DTYPES, "scan_cache_dtype")
     if index.list_decoded is not None and index.list_decoded.dtype == dtype:
         return
+    if index.lists_decoded_only:
+        raise ValueError(
+            f"the lists of this index came decoded in "
+            f"{index.list_decoded.dtype} without their codes; search it "
+            f"with scan_cache_dtype={index.list_decoded.dtype}, not {dtype}")
     per_cluster = index.params.codebook_kind == CodebookGen.PER_CLUSTER
     list_tile = balanced_tile(index.n_lists, min(index.n_lists, 128), 8)
     index.list_decoded, index.decoded_norms = _decode_lists(
@@ -541,6 +552,9 @@ def _decode_overflow(codebooks, centers_rot, codes_bytes, labels,
 def drop_scan_cache(index: Index) -> None:
     """Free the decoded-residual scan cache; the next search in the cache
     regime decodes it again, and the LUT regime never needs it."""
+    if index.lists_decoded_only:
+        raise ValueError("the lists of this index came decoded without "
+                         "their codes; their cache cannot be dropped")
     index.list_decoded = index.decoded_norms = None
 
 
@@ -565,6 +579,49 @@ def ensure_overflow_decoded(index: Index, dtype=torch.bfloat16) -> None:
         dtype)
 
 
+def _placeholder(shape, dtype, device) -> torch.Tensor:
+    """Zeros of ``shape`` that hold no memory (every stride 0)."""
+    return torch.zeros((), dtype=dtype, device=device).expand(*shape)
+
+
+def index_from_parts(params: IndexParams, pq_dim: int, centers, rotation,
+                     list_indices, list_sizes, n_rows: int, codebooks=None,
+                     list_codes=None, list_decoded=None, decoded_norms=None,
+                     overflow_decoded=None, overflow_norms=None,
+                     overflow_indices=None) -> Index:
+    """An index from the parts one rank of a sharded index keeps (the JAX
+    package's ``ShardedIvfPq`` fields, tensors on one device): the packed
+    codes with their codebooks (LUT regime), the decoded cache with its
+    norms (cache regime), or both; the overflow block decoded only
+    ([O, rot_dim] full rotated vectors, ‖v‖², ids). Absent codes and
+    codebooks become placeholders that hold no memory, and the index is
+    marked ``lists_decoded_only`` / ``overflow_decoded_only``."""
+    dev = centers.device
+    n_bytes = pq_dim * params.pq_bits // 8
+    lists_decoded_only = list_codes is None
+    if lists_decoded_only:
+        if list_decoded is None:
+            raise ValueError("an index needs its codes or its decoded lists")
+        list_codes = _placeholder((*list_indices.shape, n_bytes),
+                                  torch.uint8, dev)
+        codebooks = _placeholder((0, 1 << params.pq_bits, 0), torch.float32,
+                                 dev)
+    n_over = 0 if overflow_indices is None else overflow_indices.shape[0]
+    idx = Index(params, pq_dim, centers, rotation, codebooks, list_codes,
+                list_indices, list_sizes, n_rows,
+                _placeholder((n_over, n_bytes), torch.uint8, dev),
+                _placeholder((n_over,), torch.int32, dev),
+                overflow_indices if n_over else None)
+    idx.lists_decoded_only = lists_decoded_only
+    if list_decoded is not None:
+        idx.list_decoded, idx.decoded_norms = list_decoded, decoded_norms
+    if n_over:
+        idx.overflow_decoded, idx.overflow_norms = (overflow_decoded,
+                                                    overflow_norms)
+        idx.overflow_decoded_only = True
+    return idx
+
+
 # --------------------------------------------------------------------- build
 
 
@@ -577,12 +634,12 @@ def _pack_lists_np(code_bytes: np.ndarray, labels: np.ndarray, n_lists: int,
     pad = list_packing.choose_list_pad(sizes, max_expansion)
     ids = np.asarray(ids, np.int32)
     if int(sizes.max(initial=0)) <= pad:
-        codes, idxs, sizes = native.pack_lists(code_bytes, labels, n_lists,
-                                               pad, ids)
+        codes, idxs, sizes = native.pack_lists_numpy(code_bytes, labels,
+                                                     n_lists, pad, ids)
         return (codes, idxs, sizes, code_bytes[:0],
                 np.zeros((0,), np.int32), np.zeros((0,), np.int32))
     keep = list_packing.fit_mask(labels, n_lists, pad)
-    codes, idxs, sizes = native.pack_lists(
+    codes, idxs, sizes = native.pack_lists_numpy(
         np.ascontiguousarray(code_bytes[keep]), labels[keep], n_lists, pad,
         np.ascontiguousarray(ids[keep]))
     over_codes, over_ids = list_packing.pad_overflow_block(
@@ -663,9 +720,9 @@ def extend(index: Index, new_vectors, new_indices=None,
            res: Optional[Resources] = None) -> Index:
     """Encode and add vectors (with ids, or ids past every existing one) on
     the index's device and return the new index."""
-    if index.overflow_decoded_only:
-        raise ValueError("the overflow rows of this index came decoded "
-                         "without their codes, so it cannot be extended")
+    if index.overflow_decoded_only or index.lists_decoded_only:
+        raise ValueError("this index came decoded without its codes, so it "
+                         "cannot be extended")
     dev = index.device
     res = ensure_resources(res, dev)
     new_vectors = _as_tensor(new_vectors, dev).to(torch.float32)
@@ -1181,6 +1238,13 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
     list_pad = index.list_codes.shape[1]
     requested = params.scan_mode
     fused = requested in ("auto", "pallas")
+    if index.lists_decoded_only:
+        if memory_mode == "lut" or requested == "lut":
+            raise ValueError(
+                "index holds no packed codes (its lists came decoded, from "
+                "a cache-regime sharded checkpoint); search it in the cache "
+                "regime")
+        memory_mode = "cache"
     if memory_mode is None:
         memory_mode = resolve_scan_mode(
             index.n_lists, list_pad, index.rot_dim, index.list_codes.shape[2],
@@ -1311,14 +1375,70 @@ def _search_engine(queries, index: Index, filter: Optional[Bitset], k: int,
                             plan.plan["probe_tile"])
 
 
+_SERIAL_VERSION = 2  # v2: + list_pad_expansion, overflow block
+
+
 def serialize(index: Index, file) -> None:
-    raise NotImplementedError(
-        "ivf_pq.serialize is not ported yet (ROADMAP Queue A item 2)")
+    """Write the index to a path (atomically) or a binary stream, in the
+    JAX package's format (v2, crc-framed records): the build parameters,
+    centers, rotation, codebooks, the packed list codes with their ids and
+    sizes, and the overflow block's codes, coarse lists and ids. The
+    decoded scan cache is not written: a restored index decodes it again
+    when a search in the cache regime needs it."""
+    if index.list_codes is None:
+        raise ValueError("index has no data; call extend() before serialize()")
+    if index.overflow_decoded_only or index.lists_decoded_only:
+        raise ValueError("this index came decoded without its codes, so it "
+                         "cannot be written in the single-index format")
+    with ser.writer_for(file) as stream:
+        w = ser.IndexWriter(stream, "ivf_pq", _SERIAL_VERSION)
+        w.scalar(int(index.metric), "<i4")
+        w.scalar(index.params.n_lists, "<i8")
+        w.scalar(index.params.kmeans_n_iters, "<i4")
+        w.scalar(index.params.kmeans_trainset_fraction, "<f8")
+        w.scalar(index.params.pq_bits, "<i4")
+        w.scalar(index.pq_dim, "<i4")
+        w.scalar(int(index.params.codebook_kind), "<i4")
+        w.scalar(1 if index.params.force_random_rotation else 0, "<i4")
+        w.scalar(index.params.list_pad_expansion, "<f8")
+        w.scalar(index.n_rows, "<i8")
+        for a in (index.centers, index.rotation, index.codebooks,
+                  index.list_codes, index.list_indices, index.list_sizes,
+                  index.overflow_codes, index.overflow_labels,
+                  index.overflow_indices):
+            w.array(a)
+        w.finish()
 
 
-def deserialize(file, res: Optional[Resources] = None) -> Index:
-    raise NotImplementedError(
-        "ivf_pq.deserialize is not ported yet (ROADMAP Queue A item 2)")
+def deserialize(file, res: Optional[Resources] = None, device=None) -> Index:
+    """Read an index written by :func:`serialize` or the JAX package (v1 or
+    v2) onto ``res``'s device (CUDA unless the caller asks for the CPU);
+    either memory regime can search it."""
+    res = ensure_resources(res, device)
+    dev = res.device
+    with ser.reader_for(file) as stream:
+        r = ser.IndexReader(stream, "ivf_pq", _SERIAL_VERSION)
+        metric = DistanceType(r.scalar())
+        n_lists = r.scalar()
+        kmeans_n_iters = r.scalar()
+        frac = r.scalar()
+        pq_bits = r.scalar()
+        pq_dim = r.scalar()
+        kind = CodebookGen(r.scalar())
+        force_rot = bool(r.scalar())
+        # v1 files predate the capped pad: max-driven layout, no spill
+        expansion = r.scalar() if r.version >= 2 else 1e30
+        params = IndexParams(
+            n_lists=n_lists, metric=metric, kmeans_n_iters=kmeans_n_iters,
+            kmeans_trainset_fraction=frac, pq_bits=pq_bits, pq_dim=pq_dim,
+            codebook_kind=kind, force_random_rotation=force_rot,
+            list_pad_expansion=expansion)
+        n_rows = r.scalar()
+        arrays = [ser.to_tensor(r.array(), dev) for _ in range(6)]
+        over = ([ser.to_tensor(r.array(), dev) for _ in range(3)]
+                if r.version >= 2 else [None] * 3)
+        r.finish()
+    return Index(params, pq_dim, *arrays, n_rows, *over)
 
 
 class helpers:

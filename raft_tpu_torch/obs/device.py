@@ -28,7 +28,6 @@ functions, so the registry and span sinks stay importable without them.
 from __future__ import annotations
 
 import contextlib
-import os
 import threading
 from typing import Iterator
 
@@ -98,18 +97,13 @@ def profile_session(log_dir: str) -> Iterator[str]:
     scrape shows whether a capture is live, and on exit writes the Chrome
     trace to ``<log_dir>/trace.json``. Yields the log dir; the
     ``core.tracing.range`` names show on its host timeline."""
-    import torch
+    from raft_tpu_torch.core import tracing
 
     install_compile_metrics()
-    os.makedirs(log_dir, exist_ok=True)
-    activities = [torch.profiler.ProfilerActivity.CPU]
-    if torch.cuda.is_available():
-        activities.append(torch.profiler.ProfilerActivity.CUDA)
     _PROFILE_SESSIONS.inc()
     _PROFILE_ACTIVE.inc()
     try:
-        with torch.profiler.profile(activities=activities) as prof:
+        with tracing.profile(log_dir):
             yield log_dir
-        prof.export_chrome_trace(os.path.join(log_dir, "trace.json"))
     finally:
         _PROFILE_ACTIVE.dec()

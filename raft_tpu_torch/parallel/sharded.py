@@ -36,14 +36,23 @@ CUDA events on its device (the host clock on the CPU) and emitted as a
 the ranks run and merge exactly as without a sink, so the results are
 bitwise the same.
 
+Persistence is the JAX package's checkpoint format, readable by either
+package: ``serialize_*`` writes one file a rank and a manifest,
+``verify_checkpoint`` checks them, ``deserialize_*`` restores onto a
+communicator of the same size, and ``deserialize_*_elastic`` onto one
+device, around missing or damaged rank files with ``allow_partial=True``
+(``coverage`` < 1).
+
 Not ported (each raises ``NotImplementedError``; ROADMAP Queue A item 13):
-sharded CAGRA, persistence and elastic restore, and the from-file and pod
-builds.
+sharded CAGRA and the from-file and pod builds.
 """
 
 from __future__ import annotations
 
 import dataclasses
+import glob
+import json
+import os
 import threading
 import time
 from typing import Callable, List, Optional, Tuple
@@ -51,10 +60,13 @@ from typing import Callable, List, Optional, Tuple
 import numpy as np
 import torch
 
+from raft_tpu_torch.core import serialize as ser
 from raft_tpu_torch.core import tracing
-from raft_tpu_torch.core.resources import Resources
+from raft_tpu_torch.core.errors import IntegrityError
+from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq
 from raft_tpu_torch.obs import explain as obs_explain
+from raft_tpu_torch.obs import metrics as obs_metrics
 from raft_tpu_torch.obs import spans as obs_spans
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops.distance import (DistanceType, dot_fp32,
@@ -652,6 +664,607 @@ def search_ivf_pq(index: ShardedIvfPq, queries, k: int,
         {"n_probes": int(min(params.n_probes, index.indexes[0].n_lists))})
 
 
+# ------------------------------------------------------------ persistence
+#
+# Checkpoint and resume of a sharded index in the JAX package's format:
+# one file per rank (``prefix.rank<r>``), each written atomically, and a
+# manifest (``prefix.manifest``) naming every rank file with its size and
+# whole-file crc32. A rank file is a v2 container (``core.serialize``):
+# the scalars, the presence flags of the fields, the rank, then each
+# present field (a bfloat16 flag and the array; bfloat16 as uint16 bits).
+# The JAX package stacks its ranks [S, ...], so the port writes every rank's
+# blocks at the largest rank's shape (ids padded with -1, rows, codes and
+# norms with 0), and either package reads the other's files. A restore
+# keeps each rank at the shape it finds.
+#
+# Fault model: per-record crc and the footer tell a truncated file from a
+# corrupt one; the manifest names files that are missing outright; and
+# ``deserialize_*_elastic(..., allow_partial=True)`` restores around any of
+# the three, reporting ``coverage`` instead of refusing the checkpoint.
+
+_SHARD_SERIAL_VERSION = 1
+_MANIFEST_VERSION = 1
+
+_CKPT_VERIFY = obs_metrics.REGISTRY.counter(
+    "raft_tpu_checkpoint_verify_total",
+    "verify_checkpoint runs by overall result.", ("result",))
+_CKPT_FILES = obs_metrics.REGISTRY.counter(
+    "raft_tpu_checkpoint_file_status_total",
+    "Rank-file statuses observed by verify_checkpoint.", ("status",))
+_CKPT_RESTORES = obs_metrics.REGISTRY.counter(
+    "raft_tpu_checkpoint_restore_total",
+    "Sharded checkpoint restores by kind and coverage mode.",
+    ("kind", "mode"))
+
+
+class SearchResult(tuple):
+    """(distances, indices) that still unpacks as a 2-tuple but carries
+    ``coverage``: the fraction of indexed rows searched (1.0 for a full
+    index, < 1 after a degraded restore), so that a serving caller can
+    decide per response whether degraded recall is acceptable."""
+
+    def __new__(cls, distances, indices, coverage: float = 1.0):
+        self = super().__new__(cls, (distances, indices))
+        self.coverage = float(coverage)
+        return self
+
+    @property
+    def distances(self):
+        return self[0]
+
+    @property
+    def indices(self):
+        return self[1]
+
+
+def _write_field(w, block: torch.Tensor) -> None:
+    """A bfloat16 flag, then the block (bfloat16 as its uint16 bits, which
+    ``.npy`` can describe)."""
+    is_bf16 = block.dtype == torch.bfloat16
+    w.scalar(1 if is_bf16 else 0, "<i4")
+    if is_bf16:
+        block = block.detach().cpu().contiguous().view(torch.int16).numpy() \
+            .view(np.uint16)
+    w.array(block)
+
+
+def _read_field(r) -> torch.Tensor:
+    """A host tensor of one field written by ``_write_field``."""
+    is_bf16 = bool(r.scalar())
+    a = np.ascontiguousarray(r.array())
+    if is_bf16:
+        return torch.from_numpy(a.view(np.int16)).view(torch.bfloat16)
+    return torch.from_numpy(a)
+
+
+def _common_shape(blocks: List[torch.Tensor], fill) -> List[torch.Tensor]:
+    """Every rank's block padded with ``fill`` to the largest rank's shape."""
+    shape = [max(b.shape[d] for b in blocks) for d in range(blocks[0].dim())]
+    out = []
+    for b in blocks:
+        b = b.detach().cpu()
+        if list(b.shape) != shape:
+            grown = b.new_full(shape, fill)
+            grown[tuple(slice(0, n) for n in b.shape)] = b
+            b = grown
+        out.append(b)
+    return out
+
+
+def _serialize_sharded(prefix: str, kind: str, scalars, fields,
+                       size: int) -> None:
+    """``scalars``: [(value, dtype)]; ``fields``: [(per-rank blocks, fill)
+    or None for an absent field]. Writes one atomic file a rank, then the
+    manifest naming each file and its digest, so that one lost or damaged
+    file costs one rank, not the checkpoint."""
+    present = [f is not None for f in fields]
+    blocks = [(_common_shape(*f) if f is not None else None) for f in fields]
+    entries = {}
+    for r in range(size):
+        path = f"{prefix}.rank{r}"
+        with ser.writer_for(path) as stream:
+            w = ser.IndexWriter(stream, kind, _SHARD_SERIAL_VERSION)
+            for value, dtype in scalars:
+                w.scalar(value, dtype)
+            w.scalar(len(present), "<i4")
+            for p in present:
+                w.scalar(1 if p else 0, "<i4")
+            w.scalar(1, "<i4")  # ranks in this file
+            w.scalar(r, "<i4")
+            for b in blocks:
+                if b is not None:
+                    _write_field(w, b[r])
+            w.finish()
+        entries[os.path.basename(path)] = {
+            "ranks": [r], "bytes": os.path.getsize(path),
+            "crc32": ser.file_crc32(path)}
+    manifest = {"manifest_version": _MANIFEST_VERSION, "kind": kind,
+                "size": size, "files": entries}
+    with ser.writer_for(f"{prefix}.manifest") as stream:
+        stream.write(json.dumps(manifest, indent=1, sort_keys=True).encode())
+
+
+def load_manifest(prefix: str) -> Optional[dict]:
+    """The manifest of a checkpoint prefix, ``prefix.manifest`` merged with
+    any ``prefix.manifest.p<i>`` fragments (one a writing process, as the
+    JAX package's multi-controller runs leave them), or None when there is
+    none."""
+    paths = sorted(glob.glob(glob.escape(prefix) + ".manifest*"))
+    merged: Optional[dict] = None
+    for path in paths:
+        if ".tmp." in path:
+            continue
+        with open(path, "rb") as f:
+            m = json.load(f)
+        if merged is None:
+            merged = m
+        elif (m.get("kind") != merged.get("kind")
+              or m.get("size") != merged.get("size")):
+            raise ValueError(
+                f"{path}: manifest fragment disagrees with others "
+                f"(kind/size) — stale fragments from a previous run?")
+        else:
+            merged["files"].update(m["files"])
+    return merged
+
+
+def verify_checkpoint(prefix: str) -> dict:
+    """Check every rank file against the manifest before a restore: each is
+    ``ok``, ``missing``, ``truncated`` (shorter than recorded) or
+    ``corrupt`` (another size or crc32), and the ranks without a healthy
+    file are listed. Returns ``{"ok", "kind", "size", "files": {name:
+    status}, "missing_ranks", "coverage_ranks"}``; raises
+    FileNotFoundError when there is no manifest."""
+    manifest = load_manifest(prefix)
+    if manifest is None:
+        raise FileNotFoundError(
+            f"{prefix}.manifest not found — pre-manifest checkpoint; "
+            f"re-serialize to get one, or restore with allow_partial "
+            f"validation only")
+    dirname = os.path.dirname(prefix) or "."
+    statuses = {}
+    healthy_ranks: set = set()
+    for name, entry in sorted(manifest["files"].items()):
+        path = os.path.join(dirname, name)
+        if not os.path.exists(path):
+            statuses[name] = "missing"
+            continue
+        nbytes = os.path.getsize(path)
+        if nbytes < entry["bytes"]:
+            statuses[name] = "truncated"
+            continue
+        if nbytes != entry["bytes"] or ser.file_crc32(path) != entry["crc32"]:
+            statuses[name] = "corrupt"
+            continue
+        statuses[name] = "ok"
+        healthy_ranks.update(entry["ranks"])
+    size = int(manifest["size"])
+    missing_ranks = sorted(set(range(size)) - healthy_ranks)
+    for status in statuses.values():
+        _CKPT_FILES.labels(status).inc()
+    ok = not missing_ranks and all(v == "ok" for v in statuses.values())
+    _CKPT_VERIFY.labels("ok" if ok else "unhealthy").inc()
+    return {"ok": ok, "kind": manifest["kind"], "size": size,
+            "files": statuses, "missing_ranks": missing_ranks,
+            "coverage_ranks": sorted(healthy_ranks)}
+
+
+def _read_rank_file(path: str, kind: str, n_scalars: int):
+    """One rank file → (scalars, present, {rank: [host tensors of the
+    present fields]}). Raises IntegrityError (truncated, corrupt) or
+    ValueError; returns only after the whole file, footer included,
+    validated."""
+    with open(path, "rb") as stream:
+        r = ser.IndexReader(stream, kind, _SHARD_SERIAL_VERSION, name=path)
+        scalars = [r.scalar() for _ in range(n_scalars)]
+        present = [bool(r.scalar()) for _ in range(r.scalar())]
+        local = {}
+        for _ in range(r.scalar()):
+            rank = int(r.scalar())
+            local[rank] = [_read_field(r) for p in present if p]
+        r.finish()
+    return scalars, present, local
+
+
+def _deserialize_sharded(prefix: str, kind: str, n_scalars: int,
+                         on_error: str = "raise"):
+    """Read every ``prefix.rank*`` file → (scalars, parts, seen, errors):
+    ``parts`` holds one {rank: host tensor} a field (None for an absent
+    field), ``seen`` maps rank → path and ``errors`` path → exception for
+    the files skipped under ``on_error="skip"`` (the degraded path: a
+    truncated, corrupt or unreadable file contributes nothing). A rank in
+    two files raises even when skipping: stale rank files of an earlier
+    run are mixed in, and picking one could bring back outdated data."""
+    if on_error not in ("raise", "skip"):
+        raise ValueError(f"on_error={on_error!r}: use 'raise' or 'skip'")
+    paths = sorted(p for p in glob.glob(glob.escape(prefix) + ".rank*")
+                   if ".tmp." not in p)
+    if not paths:
+        raise FileNotFoundError(f"no shard files match {prefix}.rank*")
+    scalars, parts = None, None
+    seen: dict = {}
+    errors: dict = {}
+    for path in paths:
+        try:
+            s, present, local = _read_rank_file(path, kind, n_scalars)
+        except (IntegrityError, ValueError, OSError) as e:
+            if on_error == "raise":
+                raise
+            errors[path] = e
+            continue
+        if scalars is None:
+            scalars = s
+            parts = [({} if p else None) for p in present]
+        elif s != scalars:
+            e = ValueError(f"{path}: header disagrees with other rank files")
+            if on_error == "raise":
+                raise e
+            errors[path] = e
+            continue
+        for rank, blocks in local.items():
+            if rank in seen:
+                raise ValueError(
+                    f"shard rank {rank} appears in both {seen[rank]} "
+                    f"and {path} — stale rank files from a previous "
+                    f"run? Remove outdated {prefix}.rank* files")
+            seen[rank] = path
+            it = iter(blocks)
+            for f in parts:
+                if f is not None:
+                    f[rank] = next(it)
+    if scalars is None:
+        raise IntegrityError(
+            f"no readable rank file under {prefix}.rank*: "
+            + "; ".join(f"{p}: {e}" for p, e in errors.items()),
+            path=prefix, reason="corrupt")
+    return scalars, parts, seen, errors
+
+
+def _expected_rank_paths(prefix: str, ranks, manifest=None) -> list:
+    """File paths of missing ranks: the manifest's names where there is
+    one, else the writer's ``prefix.rank<r>``."""
+    if not manifest:
+        return [f"{prefix}.rank{r}" for r in ranks]
+    dirname = os.path.dirname(prefix) or "."
+    named = {}
+    for name, entry in manifest.get("files", {}).items():
+        for r in entry.get("ranks", ()):
+            named[r] = os.path.join(dirname, name)
+    return [named.get(r, f"{prefix}.rank{r}") for r in ranks]
+
+
+def _check_rank_coverage(seen: dict, size: int, prefix: str,
+                         errors=None) -> None:
+    missing = sorted(set(range(size)) - set(seen))
+    if not missing:
+        return
+    try:
+        manifest = load_manifest(prefix)
+    except (OSError, ValueError):
+        manifest = None
+    paths = _expected_rank_paths(prefix, missing, manifest)
+    detail = ""
+    if errors:
+        detail = "; unreadable: " + "; ".join(
+            f"{p} ({e})" for p, e in sorted(errors.items()))
+    raise ValueError(
+        f"{prefix}.rank* files cover only {sorted(seen)} of "
+        f"{size} shard ranks; missing {missing} (expected files: "
+        f"{', '.join(paths)}){detail} — partial checkpoint? Pass "
+        f"allow_partial=True to an elastic restore to serve the "
+        f"surviving shards")
+
+
+def _restore_strict(prefix: str, kind: str, n_scalars: int, comms: Comms):
+    """The strict restore's front half: every rank's file, read and
+    validated, for a communicator of the checkpoint's size."""
+    scalars, parts, seen, _ = _deserialize_sharded(prefix, kind, n_scalars)
+    size = int(scalars[2])
+    if size != comms.size:
+        raise ValueError(
+            f"index was sharded over {size} devices, comms has {comms.size}")
+    _check_rank_coverage(seen, size, prefix)
+    return scalars, parts
+
+
+def _restore_elastic(prefix: str, kind: str, n_scalars: int,
+                     allow_partial: bool):
+    """The elastic restore's front half: every rank file (strict, or
+    skipping the unreadable ones with ``allow_partial``) and the surviving
+    ranks in order → (scalars, parts, survivors, size)."""
+    scalars, parts, seen, errors = _deserialize_sharded(
+        prefix, kind, n_scalars, on_error="skip" if allow_partial else "raise")
+    size = int(scalars[2])
+    if allow_partial:
+        survivors = sorted(r for r in seen if r < size)
+        if not survivors:
+            raise IntegrityError(
+                f"{prefix}: no shard rank survived (of {size})",
+                path=prefix, reason="missing")
+    else:
+        _check_rank_coverage(seen, size, prefix, errors)
+        survivors = list(range(size))
+    return scalars, parts, survivors, size
+
+
+def _elastic_coverage(list_indices, overflow_indices, survivors,
+                      n_rows: int) -> float:
+    """Fraction of indexed rows a restore can search: the valid (>= 0) ids
+    of the surviving ranks' lists and overflow blocks over ``n_rows``."""
+    rows = 0
+    for r in survivors:
+        rows += int((list_indices[r] >= 0).sum())
+        if overflow_indices is not None and r in overflow_indices:
+            rows += int((overflow_indices[r] >= 0).sum())
+    return rows / max(int(n_rows), 1)
+
+
+def _elastic_merge(vs, ids, k: int, minimize: bool):
+    """Per-shard [nq, k] candidates → [nq, k] top-k: concatenated in shard
+    order, invalid ids masked to ±inf, one ``select_k`` (the allgather
+    merge, without the gather: every shard is on one device)."""
+    v = torch.cat(vs, dim=1)
+    i = torch.cat(ids, dim=1)
+    v = torch.where(i < 0, torch.inf if minimize else -torch.inf, v)
+    vm, sel = select_k(v, k, select_min=minimize)
+    return vm, torch.gather(i, 1, sel.long())
+
+
+# -- IVF-Flat
+
+_FLAT_SCALARS = 3  # metric, n_rows, size
+
+
+def serialize_ivf_flat(index: ShardedIvfFlat, prefix: str) -> None:
+    """Write a sharded IVF-Flat index as rank files and a manifest."""
+    idxs = index.indexes
+    has_over = any(i.overflow_indices.shape[0] for i in idxs)
+    scalars = [(int(index.metric), "<i4"), (index.n_rows, "<i8"),
+               (index.comms.size, "<i4")]
+    fields = [([i.centers for i in idxs], 0),
+              ([i.list_data for i in idxs], 0),
+              ([i.list_indices for i in idxs], -1),
+              ([i.list_sizes for i in idxs], 0),
+              ([i.overflow_data for i in idxs], 0) if has_over else None,
+              ([i.overflow_indices for i in idxs], -1) if has_over else None]
+    _serialize_sharded(prefix, "sharded_ivf_flat", scalars, fields,
+                       index.comms.size)
+
+
+def _flat_rank(parts, r: int, metric: DistanceType, n_rows: int,
+               device) -> ivf_flat.Index:
+    centers, data, ids, sizes, o_data, o_ids = (
+        None if p is None else p[r].to(device) for p in parts)
+    params = ivf_flat.IndexParams(n_lists=centers.shape[0], metric=metric)
+    return ivf_flat.Index(params, centers, data, ids, sizes, n_rows, o_data,
+                          o_ids)
+
+
+def deserialize_ivf_flat(prefix: str, comms: Comms) -> ShardedIvfFlat:
+    """Restore a sharded IVF-Flat checkpoint onto ``comms`` (of the size it
+    was written from), rank r on ``comms.devices[r]``; raises naming the
+    missing or damaged file."""
+    (metric, n_rows, size), parts = _restore_strict(
+        prefix, "sharded_ivf_flat", _FLAT_SCALARS, comms)
+    _CKPT_RESTORES.labels("ivf_flat", "strict").inc()
+    bounds = shard_bounds(size, int(n_rows))
+    metric = DistanceType(metric)
+    return ShardedIvfFlat(
+        comms, [_flat_rank(parts, r, metric, int(bounds[r + 1] - bounds[r]),
+                           d) for r, d in enumerate(comms.devices)],
+        metric, n_rows, bounds)
+
+
+class _Elastic:
+    """The surviving ranks of a sharded checkpoint, restored onto one device
+    without their communicator: ``indexes`` holds their single-device
+    indexes in rank order (``shard_ranks``), each searched with the port's
+    single-device search (its kernels), the results merged by one
+    ``select_k``: bitwise the allgather merge of the same ranks. After a
+    degraded restore (``allow_partial=True``) ``coverage`` < 1 is the share
+    of indexed rows still searchable, and each result carries it."""
+
+    def __init__(self, indexes, metric: DistanceType, n_rows: int,
+                 coverage: float = 1.0, shard_ranks=None):
+        self.indexes = list(indexes)
+        self.metric = metric
+        self.n_rows = int(n_rows)
+        self.coverage = float(coverage)
+        self.shard_ranks = (list(range(len(self.indexes)))
+                            if shard_ranks is None
+                            else [int(r) for r in shard_ranks])
+
+    @property
+    def n_shards(self) -> int:
+        return len(self.indexes)
+
+    @property
+    def device(self) -> torch.device:
+        return self.indexes[0].device
+
+    @property
+    def dim(self) -> int:
+        return self.indexes[0].dim
+
+    def _merge(self, found, k: int) -> SearchResult:
+        v, i = _elastic_merge([f[0] for f in found], [f[1] for f in found],
+                              int(k), is_min_close(self.metric))
+        return SearchResult(v, i, self.coverage)
+
+
+class ElasticIvfFlat(_Elastic):
+    """A sharded IVF-Flat checkpoint restored onto one device (see
+    ``_Elastic``); ``search`` runs ``ivf_flat.search`` on every rank."""
+
+    def search(self, queries, k: int,
+               params: Optional[ivf_flat.SearchParams] = None,
+               res: Optional[Resources] = None) -> SearchResult:
+        return self._merge([ivf_flat.search(idx, queries, int(k), params,
+                                            res=res)
+                            for idx in self.indexes], k)
+
+
+def deserialize_ivf_flat_elastic(prefix: str, allow_partial: bool = False,
+                                 res: Optional[Resources] = None,
+                                 device=None) -> ElasticIvfFlat:
+    """Restore a sharded IVF-Flat checkpoint of any rank count onto one
+    device (``res``'s; CUDA unless the caller asks for the CPU).
+    ``allow_partial=True`` serves the surviving ranks of a damaged
+    checkpoint, skipping missing, truncated and corrupt files, with
+    ``coverage`` = rows available / ``n_rows``; the strict default raises,
+    naming the missing file, or the bad file and record."""
+    dev = ensure_resources(res, device).device
+    (metric, n_rows, _), parts, survivors, size = _restore_elastic(
+        prefix, "sharded_ivf_flat", _FLAT_SCALARS, allow_partial)
+    coverage = (1.0 if len(survivors) == size
+                else _elastic_coverage(parts[2], parts[5], survivors, n_rows))
+    _CKPT_RESTORES.labels(
+        "ivf_flat", "full" if coverage >= 1.0 else "degraded").inc()
+    bounds = shard_bounds(size, int(n_rows))
+    metric = DistanceType(metric)
+    return ElasticIvfFlat(
+        [_flat_rank(parts, r, metric, int(bounds[r + 1] - bounds[r]), dev)
+         for r in survivors], metric, n_rows, coverage, survivors)
+
+
+# -- IVF-PQ
+
+_PQ_SCALARS = 7  # metric, n_rows, size, pq_dim, pq_bits, per_cluster, engine
+
+
+def serialize_ivf_pq(index: ShardedIvfPq, prefix: str) -> None:
+    """Write a sharded IVF-PQ index as rank files and a manifest, with the
+    fields of the memory regime it was built for (the JAX package's
+    layout): the decoded cache and its norms in the cache regime, the
+    codebooks and packed codes in the LUT regime; the overflow blocks
+    decoded, when a rank has one."""
+    idxs = index.indexes
+    lut = index.scan_mode == "lut"
+    if not lut and any(i.list_decoded is None for i in idxs):
+        raise ValueError("a cache-regime index must hold its decoded cache "
+                         "on every rank (ivf_pq.ensure_scan_cache)")
+    if lut and any(i.lists_decoded_only for i in idxs):
+        raise ValueError("a LUT-regime checkpoint needs the packed codes, "
+                         "which this index does not hold")
+    has_over = any(i.overflow_indices.shape[0] for i in idxs)
+    if has_over and any(i.overflow_indices.shape[0]
+                        and i.overflow_decoded is None for i in idxs):
+        raise ValueError("every rank's overflow block must be decoded "
+                         "(ivf_pq.ensure_overflow_decoded)")
+    first = idxs[0]
+    over_dtype = next((i.overflow_decoded.dtype for i in idxs
+                       if i.overflow_decoded is not None), torch.bfloat16)
+
+    def over(name, i, dtype, width=()):
+        t = getattr(i, name)
+        return t if t is not None else torch.zeros((0, *width), dtype=dtype)
+
+    scalars = [(int(index.metric), "<i4"), (index.n_rows, "<i8"),
+               (index.comms.size, "<i4"), (first.pq_dim, "<i4"),
+               (first.pq_bits, "<i4"),
+               (1 if first.params.codebook_kind
+                == ivf_pq.CodebookGen.PER_CLUSTER else 0, "<i4"),
+               (1 if lut else 0, "<i4")]
+    fields = [
+        ([i.centers for i in idxs], 0),
+        ([i.rotation for i in idxs], 0),
+        ([i.list_indices for i in idxs], -1),
+        ([i.list_sizes for i in idxs], 0),
+        None if lut else ([i.list_decoded for i in idxs], 0),
+        None if lut else ([i.decoded_norms for i in idxs], 0),
+        ([i.codebooks for i in idxs], 0) if lut else None,
+        ([i.list_codes for i in idxs], 0) if lut else None,
+        ([over("overflow_decoded", i, over_dtype, (i.rot_dim,))
+          for i in idxs], 0) if has_over else None,
+        ([over("overflow_norms", i, torch.float32) for i in idxs], 0)
+        if has_over else None,
+        ([i.overflow_indices for i in idxs], -1) if has_over else None]
+    _serialize_sharded(prefix, "sharded_ivf_pq", scalars, fields,
+                       index.comms.size)
+
+
+def _pq_rank(parts, r: int, scalars, n_rows: int, device) -> ivf_pq.Index:
+    metric, _, _, pq_dim, pq_bits, per_cluster, _ = scalars
+    (centers, rotation, ids, sizes, decoded, norms, codebooks, codes,
+     o_dec, o_norms, o_ids) = (None if p is None else p[r].to(device)
+                               for p in parts)
+    params = ivf_pq.IndexParams(
+        n_lists=centers.shape[0], metric=DistanceType(metric),
+        pq_bits=int(pq_bits), pq_dim=int(pq_dim),
+        codebook_kind=(ivf_pq.CodebookGen.PER_CLUSTER if per_cluster
+                       else ivf_pq.CodebookGen.PER_SUBSPACE))
+    return ivf_pq.index_from_parts(
+        params, int(pq_dim), centers, rotation, ids, sizes, n_rows,
+        codebooks=codebooks, list_codes=codes, list_decoded=decoded,
+        decoded_norms=norms, overflow_decoded=o_dec, overflow_norms=o_norms,
+        overflow_indices=o_ids)
+
+
+def deserialize_ivf_pq(prefix: str, comms: Comms) -> ShardedIvfPq:
+    """Restore a sharded IVF-PQ checkpoint onto ``comms`` (of the size it
+    was written from), rank r on ``comms.devices[r]``, in the memory
+    regime it was written in; raises naming the missing or damaged file."""
+    scalars, parts = _restore_strict(prefix, "sharded_ivf_pq", _PQ_SCALARS,
+                                     comms)
+    _CKPT_RESTORES.labels("ivf_pq", "strict").inc()
+    metric, n_rows, size = scalars[:3]
+    bounds = shard_bounds(size, int(n_rows))
+    return ShardedIvfPq(
+        comms, [_pq_rank(parts, r, scalars, int(bounds[r + 1] - bounds[r]),
+                         d) for r, d in enumerate(comms.devices)],
+        DistanceType(metric), n_rows, bounds,
+        "lut" if scalars[6] else "cache")
+
+
+class ElasticIvfPq(_Elastic):
+    """A sharded IVF-PQ checkpoint restored onto one device (see
+    ``_Elastic``); ``search`` runs ``ivf_pq.search`` on every rank in the
+    memory regime the checkpoint was written in (``scan_mode``; a
+    request's ``"auto"`` follows it)."""
+
+    def __init__(self, indexes: List[ivf_pq.Index], metric: DistanceType,
+                 n_rows: int, scan_mode: str, coverage: float = 1.0,
+                 shard_ranks=None):
+        if scan_mode not in ("cache", "lut"):
+            raise ValueError(f"unknown scan_mode: {scan_mode!r}")
+        super().__init__(indexes, metric, n_rows, coverage, shard_ranks)
+        self.scan_mode = scan_mode
+
+    def search(self, queries, k: int,
+               params: Optional[ivf_pq.SearchParams] = None,
+               res: Optional[Resources] = None) -> SearchResult:
+        params = params or ivf_pq.SearchParams()
+        mode = _resolve_pq_scan_mode(params, self)
+        local = dataclasses.replace(params, scan_mode="auto")
+        return self._merge([ivf_pq.search(idx, queries, int(k), local,
+                                          res=res, memory_mode=mode)
+                            for idx in self.indexes], k)
+
+
+def deserialize_ivf_pq_elastic(prefix: str, allow_partial: bool = False,
+                               res: Optional[Resources] = None,
+                               device=None) -> ElasticIvfPq:
+    """Restore a sharded IVF-PQ checkpoint of any rank count onto one
+    device (``res``'s; CUDA unless the caller asks for the CPU), in the
+    memory regime it was written in. ``allow_partial=True`` serves the
+    surviving ranks of a damaged checkpoint with ``coverage`` = rows
+    available / ``n_rows``; the strict default raises."""
+    dev = ensure_resources(res, device).device
+    scalars, parts, survivors, size = _restore_elastic(
+        prefix, "sharded_ivf_pq", _PQ_SCALARS, allow_partial)
+    n_rows = scalars[1]
+    coverage = (1.0 if len(survivors) == size
+                else _elastic_coverage(parts[2], parts[10], survivors,
+                                       n_rows))
+    _CKPT_RESTORES.labels(
+        "ivf_pq", "full" if coverage >= 1.0 else "degraded").inc()
+    bounds = shard_bounds(size, int(n_rows))
+    return ElasticIvfPq(
+        [_pq_rank(parts, r, scalars, int(bounds[r + 1] - bounds[r]), dev)
+         for r in survivors], DistanceType(scalars[0]), n_rows,
+        "lut" if scalars[6] else "cache", coverage, survivors)
+
+
 # ------------------------------------------------------------ not ported
 
 
@@ -672,13 +1285,3 @@ build_ivf_pq_from_file = _deferred("build_ivf_pq_from_file",
                                    "the from-file builds")
 build_ivf_pq_from_file_pod = _deferred("build_ivf_pq_from_file_pod",
                                        "the pod build")
-serialize_ivf_flat = _deferred("serialize_ivf_flat", "persistence")
-deserialize_ivf_flat = _deferred("deserialize_ivf_flat", "persistence")
-deserialize_ivf_flat_elastic = _deferred("deserialize_ivf_flat_elastic",
-                                         "elastic restore")
-serialize_ivf_pq = _deferred("serialize_ivf_pq", "persistence")
-deserialize_ivf_pq = _deferred("deserialize_ivf_pq", "persistence")
-deserialize_ivf_pq_elastic = _deferred("deserialize_ivf_pq_elastic",
-                                       "elastic restore")
-verify_checkpoint = _deferred("verify_checkpoint", "persistence")
-load_manifest = _deferred("load_manifest", "persistence")

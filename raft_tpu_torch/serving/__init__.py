@@ -22,10 +22,11 @@ device call failed or hung; cause on ``.cause``), ``Overloaded``
 ``EngineStopped`` and ``DeadlineExceeded`` (the request's budget is
 spent).
 
-Only the ported names are exported. The replica fleet, router,
-autoscaler and remote replicas come with ROADMAP Queue A item 12; the
-elastic, tiered and mutable searchers raise ``NotImplementedError``
-(items 13 and 11).
+Only the ported names are exported. The elastic searcher serves a
+sharded checkpoint restored onto one device, degraded (coverage < 1) or
+full. The replica fleet, router, autoscaler and remote replicas come with
+ROADMAP Queue A item 12; the tiered and mutable searchers raise
+``NotImplementedError`` (item 11).
 """
 
 from raft_tpu_torch.serving.batcher import (Batch, Batcher, DeadlineExceeded,

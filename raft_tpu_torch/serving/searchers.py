@@ -73,17 +73,29 @@ class Searcher:
 
     @property
     def coverage(self) -> float:
-        """Fraction of indexed rows this handle can search: 1.0 for every
-        family the port serves (a degraded elastic restore comes with
-        ROADMAP Queue A item 13)."""
+        """Fraction of indexed rows this handle can search: 1.0 for a full
+        index, < 1 for a degraded elastic restore
+        (``allow_partial=True``). The engine reports it in ``health()`` and
+        its stats, and records its transitions across
+        :meth:`Engine.swap_index`."""
         return float(getattr(self.index, "coverage", 1.0))
 
 
-def brute_force_searcher(index, res=None) -> Searcher:
+def brute_force_searcher(index, res=None, scan_dtype=None,
+                         refine_ratio: float = 4.0,
+                         select_recall: float = 1.0) -> Searcher:
+    """Brute-force handle; ``select_recall`` flows to
+    ``brute_force.search``. ``scan_dtype``, the bf16 fast scan, raises
+    until it is ported, and ``refine_ratio`` (how many of the fast scan's
+    candidates are re-ranked in fp32) has no effect until then: it is
+    taken so that the JAX package's calls run unchanged."""
     from raft_tpu_torch.neighbors import brute_force
 
+    brute_force._check_deferred(scan_dtype)
+
     def search(queries, k: int):
-        return brute_force.search(index, queries, k, res=res)
+        return brute_force.search(index, queries, k, res=res,
+                                  select_recall=select_recall)
 
     return Searcher("brute_force", int(index.dim), index, search)
 
@@ -132,6 +144,30 @@ def cagra_searcher(index, params=None, res=None) -> Searcher:
     return Searcher("cagra", int(index.dim), index, search)
 
 
+def elastic_searcher(index, params=None, res=None) -> Searcher:
+    """Handle over an elastic restore (``parallel.sharded.ElasticIvfFlat``
+    or ``ElasticIvfPq``), the degraded-serving path: a checkpoint restored
+    with ``allow_partial=True`` serves its surviving ranks here with
+    ``searcher.coverage`` < 1, and a later full restore takes its place
+    through :meth:`Engine.swap_index`."""
+    from raft_tpu_torch.parallel import sharded
+
+    if isinstance(index, sharded.ElasticIvfPq):
+        family = "elastic_ivf_pq"
+    elif isinstance(index, sharded.ElasticIvfFlat):
+        family = "elastic_ivf_flat"
+    else:
+        raise TypeError(
+            f"elastic_searcher wants ElasticIvfPq/ElasticIvfFlat, got "
+            f"{type(index).__name__}")
+
+    def search(queries, k: int):
+        r = index.search(queries, k, params, res=res)
+        return r.distances, r.indices
+
+    return Searcher(family, int(index.dim), index, search)
+
+
 def _deferred(name: str, item: str):
     def raise_deferred(index, params=None, res=None) -> Searcher:
         raise NotImplementedError(
@@ -140,8 +176,6 @@ def _deferred(name: str, item: str):
     return raise_deferred
 
 
-elastic_searcher = _deferred("elastic_searcher",
-                             "item 13: elastic restore")
 tiered_ivf_pq_searcher = _deferred("tiered_ivf_pq_searcher",
                                    "item 11: the tiered index")
 mutable_ivf_searcher = _deferred("mutable_ivf_searcher",

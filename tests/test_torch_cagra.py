@@ -417,10 +417,6 @@ def test_deferred_parts_raise(carried, data):
     _, q = data
     with pytest.raises(NotImplementedError, match="scan_dtype"):
         tc.search(carried, q, 10, tc.SearchParams(scan_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.serialize(carried, "unused")
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
-        tc.deserialize("unused")
     with pytest.raises(ValueError, match="scan_mode"):
         tc.search(carried, q, 10, tc.SearchParams(scan_mode="fast"))
     with pytest.raises(ValueError, match="supports"):

@@ -37,7 +37,11 @@ two card fits bitwise equal, labels equal (every E-step of the CPU's fit
 clear of a tie), centres rtol 1e-5. The serving engine on the card:
 IVF-Flat rows bitwise equal to ``solo_reference``, CAGRA rows served with
 the searcher's cached seed tables bitwise equal to a search that draws
-its seeds per call, and no kernel build after ``start()``.
+its seeds per call, and no kernel build after ``start()``. Persistence on
+the card: each family restored from its file searches bitwise like the
+saved index and launches its kernel; a sharded checkpoint's strict restore
+(every rank at the largest rank's pad) bitwise the saved index's ring
+search, and its full elastic restore bitwise the allgather merge.
 """
 
 import pytest
@@ -1319,3 +1323,109 @@ def test_served_cagra_seed_tables_bitwise_per_call_draw_on_the_card(dev):
         assert torch.equal(torch.from_numpy(d_row).view(torch.int32),
                            d[row].cpu().view(torch.int32))
         assert torch.equal(torch.from_numpy(i_row), i[row].cpu())
+
+
+def _bitwise(a, b):
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
+
+
+@pytest.mark.parametrize("family", ["brute_force", "ivf_flat", "ivf_pq_cache",
+                                    "ivf_pq_lut", "cagra", "cagra_no_dataset"])
+def test_restore_onto_the_card_searches_bitwise_as_saved(dev, family,
+                                                         tmp_path):
+    from raft_tpu_torch.neighbors import brute_force
+
+    db = _randn(dev, 20000, 32, seed=80)
+    q = _randn(dev, 300, 32, seed=81)
+    path = tmp_path / "index"
+    res = Resources(device=dev, seed=4)
+    if family == "brute_force":
+        mod, index, kernel = brute_force, brute_force.build(db, res=res), \
+            "fused_l2_topk"
+        search = lambda i, r: mod.search(i, q, 10, res=r)  # noqa: E731
+    elif family == "ivf_flat":
+        mod, kernel = ivf_flat, "fused_ivf_topk"
+        index = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=64), res=res)
+        search = lambda i, r: mod.search(  # noqa: E731
+            i, q, 10, ivf_flat.SearchParams(n_probes=8), res=r)
+    elif family.startswith("ivf_pq"):
+        mod = ivf_pq
+        index = ivf_pq.build(db, ivf_pq.IndexParams(n_lists=64, pq_dim=16),
+                             res=res)
+        lut = family == "ivf_pq_lut"
+        kernel = "fused_pq_topk" if lut else "fused_ivf_topk"
+        mem = sum(ivf_pq.scan_memory_bytes(index)) if lut else None
+        search = lambda i, r: mod.search(  # noqa: E731
+            i, q, 10, ivf_pq.SearchParams(n_probes=8),
+            res=Resources(device=dev, device_memory_bytes=mem))
+    else:
+        mod, kernel = cagra, "fused_cagra_topk"
+        g = torch.Generator(device=dev).manual_seed(82)
+        graph = torch.randint(0, 20000, (20000, 16), generator=g, device=dev,
+                              dtype=torch.int32)
+        index = cagra.Index(cagra.IndexParams(graph_degree=16), db, graph)
+        search = lambda i, r: mod.search(  # noqa: E731
+            i, q, 10, cagra.SearchParams(itopk_size=32), res=r)
+    before = search(index, res)
+    if family == "cagra_no_dataset":
+        mod.serialize(index, path, include_dataset=False)
+        restored = mod.deserialize(path, dataset=db.cpu().numpy(), res=res)
+    else:
+        mod.serialize(index, path)
+        restored = mod.deserialize(path, res=res)
+    assert restored.device == index.device
+    gk.reset_launch_counts()
+    after = search(restored, res)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES[kernel] >= 1
+    assert _bitwise(after, before)
+
+
+def _skewed(dev, n, dim, seed):
+    """Two blobs of very different spread: hot lists spill to the overflow
+    blocks, and the ranks' list pads differ."""
+    g = torch.Generator().manual_seed(seed)
+    a = torch.randn(n // 2, dim, generator=g) * 0.05
+    b = torch.randn(n - n // 2, dim, generator=g) \
+        + torch.randn(n - n // 2, 1, generator=g) * 3.0
+    return torch.cat([a, b])[torch.randperm(n, generator=g)].to(dev)
+
+
+@pytest.mark.parametrize("kind", ["flat", "pq_cache", "pq_lut"])
+def test_sharded_restores_on_the_card_bitwise(dev, kind, tmp_path):
+    from raft_tpu_torch.parallel import comms, sharded
+
+    db = _skewed(dev, 20000, 32, seed=83)
+    q = _randn(dev, 200, 32, seed=84)
+    tc = comms.init_comms([dev] * 4)
+    res = Resources(device=dev, seed=5)
+    prefix = str(tmp_path / "ckpt")
+    if kind == "flat":
+        index = sharded.build_ivf_flat(tc, db, ivf_flat.IndexParams(
+            n_lists=16, list_pad_expansion=1.01), res=res)
+        sp, fam = ivf_flat.SearchParams(n_probes=4), "ivf_flat"
+    else:
+        index = sharded.build_ivf_pq(tc, db, ivf_pq.IndexParams(
+            n_lists=16, pq_dim=16, list_pad_expansion=1.01), res=res,
+            scan_mode=kind[3:])
+        sp, fam = ivf_pq.SearchParams(n_probes=4), "ivf_pq"
+    search = getattr(sharded, f"search_{fam}")
+    ring = search(index, q, 10, sp, merge_mode="ring")
+    gather = search(index, q, 10, sp, merge_mode="allgather")
+    getattr(sharded, f"serialize_{fam}")(index, prefix)
+    assert sharded.verify_checkpoint(prefix)["ok"]
+    strict = getattr(sharded, f"deserialize_{fam}")(prefix, tc)
+    # every rank at the largest rank's pad, the searches bitwise as before
+    pads = {i.list_indices.shape[1] for i in index.indexes}
+    assert len(pads) > 1
+    assert {i.list_indices.shape[1] for i in strict.indexes} == {max(pads)}
+    assert _bitwise(search(strict, q, 10, sp, merge_mode="ring"), ring)
+    full = getattr(sharded, f"deserialize_{fam}_elastic")(prefix,
+                                                         res=Resources(dev))
+    assert full.device.type == "cuda" and full.coverage == 1.0
+    gk.reset_launch_counts()
+    got = full.search(q, 10, sp)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["select_k"] >= 1
+    assert _bitwise(got, gather)

@@ -38,8 +38,20 @@ from raft_tpu_torch.bench import serve_load
 from raft_tpu_torch.obs import (device, diagnostics, explain, httpd, metrics,
                                 quality, slo, spans)
 from raft_tpu_torch.serving import batcher, engine, searchers, stats
+from raft_tpu_torch import native
+from raft_tpu_torch.core import errors, logger, serialize, tracing
+from raft_tpu_torch.neighbors import hnsw
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
+# the native layer loads the port's own build, never the JAX package's
+native.available()
+with open("/proc/self/maps") as f:
+    maps = f.read()
+if "raft_tpu/native/" in maps:
+    bad.append("raft_tpu/native library")
+if native._lib is not None and "build/raft_tpu_torch/native/" not in str(
+        native.library_path()):
+    bad.append(str(native.library_path()))
 print("BAD", bad)
 sys.exit(1 if bad else 0)
 """

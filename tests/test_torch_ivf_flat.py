@@ -194,6 +194,33 @@ def test_extend_into_jax_centers_gives_the_same_layout(data, jindex):
     assert t.size == j.size == len(db)
 
 
+def test_extend_takes_res_as_the_compactor_calls_it(data, jindex):
+    """raft_tpu's Compactor extends a base with ``new_indices=`` and
+    ``res=`` (neighbors/mutable.py): the port takes the same call and gives
+    the same layout; a ``res`` on another device is refused."""
+    from raft_tpu.core.resources import Resources as JResources
+    from raft_tpu_torch.core.resources import Resources
+
+    db, _ = data
+    j, t = _with_metric(jindex, "sqeuclidean")
+    ids = np.arange(10_000, 10_000 + 200, dtype=np.int32)
+    want = jivf.extend(j, db[:200], new_indices=ids, res=JResources(seed=0))
+    got = tivf.extend(t, db[:200], new_indices=ids,
+                      res=Resources(device="cpu", seed=0))
+    for name in ("list_sizes", "list_indices", "list_data",
+                 "overflow_indices", "overflow_data"):
+        np.testing.assert_array_equal(getattr(got, name).numpy(),
+                                      np.asarray(getattr(want, name)),
+                                      err_msg=name)
+    assert got.size == want.size
+
+    class Elsewhere:
+        device = torch.device("meta")
+
+    with pytest.raises(ValueError, match="disagrees"):
+        tivf.extend(t, db[:4], res=Elsewhere())
+
+
 def test_build_recall_within_002_of_jax():
     # clustered data of low intrinsic dimension (the benchmark generator) at
     # recall ~0.93-0.96, where 2000 query-neighbour pairs resolve 0.02
@@ -268,10 +295,6 @@ def test_deferred_pieces_raise(data, jindex):
     _, t = _with_metric(jindex, "sqeuclidean")
     with pytest.raises(NotImplementedError, match="fast scan"):
         tivf.search(t, q, 5, tivf.SearchParams(scan_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="serialize"):
-        tivf.serialize(t, "index.bin")
-    with pytest.raises(NotImplementedError, match="deserialize"):
-        tivf.deserialize("index.bin")
     with pytest.raises(NotImplementedError, match="int8"):
         tivf.build(db.astype(np.int8), tivf.IndexParams(n_lists=4),
                    device="cpu")

@@ -649,10 +649,6 @@ def test_cpu_search_launches_no_kernel(data, jindex):
 def test_deferred_pieces_raise(data, jindex):
     _, q = data
     _, t = _carry(jindex)
-    with pytest.raises(NotImplementedError, match="serialize"):
-        tpq.serialize(t, "index.bin")
-    with pytest.raises(NotImplementedError, match="deserialize"):
-        tpq.deserialize("index.bin")
     with pytest.raises(NotImplementedError, match="helpers"):
         tpq.helpers.unpack_list_codes(t, 0)
     with pytest.raises(ValueError, match="scan_mode"):

@@ -293,6 +293,30 @@ def test_other_families_serve_bitwise_solo(family, flat_pair):
     assert serving.verify_bit_identity(s, list(q), got, K, placements) == 0
 
 
+def test_brute_force_searcher_takes_the_jax_keywords(flat_pair):
+    """``brute_force_searcher`` takes raft_tpu's keywords: ``select_recall``
+    flows to the search (answered exactly, as raft_tpu's CPU path answers
+    it), ``refine_ratio`` is accepted, ``scan_dtype`` raises until the bf16
+    fast scan is ported."""
+    from raft_tpu.neighbors import brute_force as jbf
+
+    db, _, _ = flat_pair
+    q = _queries(8, 6)
+    index = tbf.build(db, device="cpu")
+    s = serving.brute_force_searcher(index, select_recall=0.9,
+                                     refine_ratio=2.0)
+    got = s.search(s.to_device(q), K)
+    want = tbf.search(index, q, K, select_recall=0.9)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    js = jserving.brute_force_searcher(jbf.build(db), select_recall=0.9,
+                                       refine_ratio=2.0)
+    jd, ji = js.search(q, K)
+    assert_topk_close(got, (np.asarray(jd), np.asarray(ji)),
+                      1e-4 * float((db ** 2).sum(1).max()), 1e-5)
+    with pytest.raises(NotImplementedError, match="fast scan"):
+        serving.brute_force_searcher(index, scan_dtype="bfloat16")
+
+
 def test_cagra_seed_table_reused_and_bitwise_per_call_draw(flat_pair):
     db, _, _ = flat_pair
     graph = np.random.default_rng(6).integers(0, db.shape[0],
@@ -419,8 +443,7 @@ def test_unported_pieces_raise(flat_pair):
         serving.Engine(s, serving.EngineConfig(planner=object()))
     with pytest.raises(NotImplementedError, match="item 11"):
         serving.Engine(s).writer()
-    for name, item in (("elastic_searcher", "item 13"),
-                       ("tiered_ivf_pq_searcher", "item 11"),
+    for name, item in (("tiered_ivf_pq_searcher", "item 11"),
                        ("mutable_ivf_searcher", "item 11")):
         with pytest.raises(NotImplementedError, match=item):
             getattr(serving, name)(t)

@@ -391,9 +391,7 @@ def test_plan_cache_round_trip():
 
 
 @pytest.mark.parametrize("name", ["build_cagra", "search_cagra",
-                                  "build_ivf_pq_from_file",
-                                  "serialize_ivf_flat",
-                                  "deserialize_ivf_pq_elastic"])
+                                  "build_ivf_pq_from_file"])
 def test_deferred_parts_raise(name):
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         getattr(tsh, name)()
