@@ -136,6 +136,30 @@ seed, 10,000 queries, k=10, L2) it
    ``fused_ivf_topk``, ``fused_pq_topk``, ``fused_cagra_topk``,
    ``select_k``) must launch, counted per step; the kernels line gains
    ``persist_launches``. Each 6c line carries the card's name and limit;
+6d. narrow data and the bf16 fast scan: IVF-Flat over uint8 rows (phase
+   3's rows and queries mapped affinely onto 0-255 and rounded, SIFT's and
+   BIGANN's range), int8 rows at SPACEV-1B's shape (1,000,000 × 100,
+   ``datagen`` rows mapped onto -127..127) and phase 3's rows cast to
+   fp16, each built with 1024 lists and searched (10,000 queries, k=10,
+   ``fused_ivf_topk``) at 32 probes, doubling until recall@10 against the
+   exact search of the rows as f32 is >= 0.90; a twin index, the same
+   lists cast to f32, searched alike and asserted bitwise equal; for uint8
+   the filtered search (phase 5d's filter, ``ivf_scan``) bitwise its
+   twin's with no removed id. The fast scan: brute force
+   (``scan_dtype="bfloat16"``, ``refine_ratio=4``) recall@10 >= 0.99
+   against phase 3, its distances at agreeing ids within rtol 1e-5 (atol
+   1e-6·max‖x‖²) of the exact fp32 distances of those ids and within
+   phase 3's tolerance of phase 3's; IVF-Flat at phase 4's probes within
+   0.01 of phase 4's recall; CAGRA at itopk 64 on 1,000 queries >= 0.90.
+   Then the uint8 index served to 8 submitters on 2,000 queries (float32
+   batches; 0 builds after ``start()``, 0 ``solo_reference`` mismatches
+   on 256 samples). Each
+   narrow kernel (``fused_ivf_topk`` for uint8, int8 and fp16,
+   ``ivf_scan`` for uint8) is held against its plain version, bitwise
+   against the f32 kernel on the twin's lists, and timed beside both (a
+   row of the kernels line; launches from 6d's steps). Lines ``narrow``,
+   ``narrow_filtered``, ``fast_scan`` and ``narrow_serving``, each with
+   the card's name and limit;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -202,6 +226,10 @@ SERVE_FAMILIES = ("raft_tpu_serving_requests_total",
                   "raft_tpu_serving_batches_total",
                   "raft_tpu_serving_total_seconds",
                   "raft_tpu_dispatch_total", "raft_tpu_kernel_build_total")
+#: phase 6d: SPACEV-1B's row width (int8), the fast scan's refine ratio
+#: and its recall floors (brute force against phase 3; IVF-Flat within this
+#: much of phase 4's recall)
+SPACEV_DIM, FAST_REFINE, FAST_BF_FLOOR, FAST_IVF_SLACK = 100, 4, 0.99, 0.01
 #: the TPU kernel each CUDA kernel replaces
 REPLACES = {name: f"raft_tpu/ops/pallas_kernels.py:{line}" for name, line in (
     ("fused_l2_argmin", 88), ("ivf_scan", 328), ("select_k", 428),
@@ -639,6 +667,320 @@ def persistence_phase(*, smi, dev, queries, gt_i, dataset, bf, flat,
         if totals[name] < 1:
             raise AssertionError(f"phase 6c launched no {name}")
     return totals
+
+
+def narrow_phase(*, smi, dev, seed, dataset, queries, gt_v, gt_i, bf, flat,
+                 flat_probes, keep_t, filt, cg_index, launch_counts, bound,
+                 scale) -> list:
+    """Phase 6d: narrow IVF-Flat lists (uint8, int8 at SPACEV's width,
+    fp16) through the kernels, each against a twin over the same lists cast
+    to f32; the bf16 fast scan of brute force, IVF-Flat and CAGRA on the
+    earlier phases' indexes; the uint8 index served. Returns the kernels
+    line's rows of the narrow kernels (each step's launch counts set to 0
+    just before it and read just after)."""
+    import numpy as np
+    import torch
+
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.bench.datagen import low_rank_clusters
+    from raft_tpu_torch.bench.serve_load import BatchSink, closed_loop, \
+        summarize
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat
+    from raft_tpu_torch.ops import gpu_kernels as gk
+    from raft_tpu_torch.ops.distance import gathered_distances, row_norms_sq
+    from raft_tpu_torch.stats import neighborhood_recall
+    from raft_tpu_torch.testing import assert_topk_close
+
+    def counted(fn):
+        gk.reset_launch_counts()
+        out = fn()
+        torch.cuda.synchronize()
+        return out, launch_counts()
+
+    def twin_of(index):
+        """The same index with its lists (and overflow rows) cast to f32."""
+        return ivf_flat.Index(
+            index.params, index.centers, index.list_data.float(),
+            index.list_indices, index.list_sizes, index.n_rows,
+            index.overflow_data.float(), index.overflow_indices)
+
+    def index_bytes(index):
+        return sum(t.numel() * t.element_size() for t in (
+            index.centers, index.list_data, index.list_indices,
+            index.list_sizes, index.overflow_data, index.overflow_indices))
+
+    def kernel_row(name, label, shape, fn, twin_fn, plain_fn, args,
+                   twin_args, n_bytes, n_ops, launches, tol_scale, reps=5):
+        """The narrow kernel against the f32 kernel on the twin's lists
+        (bitwise) and against its plain version (values within
+        1e-4·tol_scale + 1e-5·|v|, tol_scale the largest squared norm of
+        the rows and queries); ms of all three."""
+        got, twin = fn(*args), twin_fn(*twin_args)
+        got_t = got if isinstance(got, tuple) else (got,)
+        twin_t = twin if isinstance(twin, tuple) else (twin,)
+        if not all(torch.equal(a.view(torch.int32), b.view(torch.int32))
+                   for a, b in zip(got_t, twin_t)):
+            raise AssertionError(f"{name} ({label}): not bitwise the f32 "
+                                 "kernel on the same lists")
+        want = plain_fn(*args)
+        if isinstance(got, tuple):
+            err = assert_topk_close(got, want, 1e-4 * tol_scale, 1e-5,
+                                    f"{name} ({label})")["max_abs_err"]
+        else:
+            diff = (got - want).abs()
+            err = float(diff.max())
+            if bool((diff > 1e-4 * tol_scale + 1e-5 * want.abs()).any()):
+                raise AssertionError(f"{name} ({label}): differs from the "
+                                     f"plain version by up to {err}")
+        torch.cuda.synchronize()
+        row = dict(name=name, route="cuda",
+                   source=f"raft_tpu_torch/csrc/{name}.cu",
+                   replaces=REPLACES[name], shape=shape, row_type=label,
+                   launches=launches, bitwise_f32_twin=True,
+                   agrees_with_plain=True, max_abs_err=err,
+                   ms=cuda_ms(lambda: fn(*args), reps),
+                   twin_f32_ms=cuda_ms(lambda: twin_fn(*twin_args), reps),
+                   plain_ms=cuda_ms(lambda: plain_fn(*args), 1, False),
+                   library_ms=None, card=smi, **bound(n_bytes, n_ops))
+        emit({"phase": "kernel_check", **row})
+        return row
+
+    rows_out = []
+    lo = float(torch.minimum(dataset.min(), queries.min()))
+    hi = float(torch.maximum(dataset.max(), queries.max()))
+
+    def to_u8(x):
+        return torch.round((x - lo) * (255.0 / (hi - lo))).to(torch.uint8)
+
+    sp_rows = low_rank_clusters(np.random.default_rng(seed + 2),
+                                N_ROWS + N_QUERIES, SPACEV_DIM)
+    amax = float(np.abs(sp_rows).max())
+    sp_rows = np.round(sp_rows * (127.0 / amax)).astype(np.int8)
+    cases = [("uint8", to_u8(dataset), to_u8(queries)),
+             ("int8", torch.from_numpy(sp_rows[:N_ROWS]).to(dev),
+              torch.from_numpy(sp_rows[N_ROWS:]).to(dev)),
+             ("fp16", dataset.half(), queries.half())]
+    del sp_rows
+    u8 = None
+    for label, rows, qs in cases:
+        # the ground truth: exact search of the rows as f32
+        exact = brute_force.build(rows.float(), metric="sqeuclidean")
+        _, n_gt = brute_force.search(exact, qs.float(), K)
+        del exact
+        index, build_s = timed(lambda: ivf_flat.build(
+            rows, ivf_flat.IndexParams(n_lists=N_LISTS)))
+        twin = twin_of(index)
+        n_probes = N_PROBES
+        while True:
+            params = ivf_flat.SearchParams(n_probes=n_probes)
+            _, first_s = timed(lambda: ivf_flat.search(index, qs, K, params))
+            ((nv, ni), search_s), launches = counted(lambda: timed(
+                lambda: ivf_flat.search(index, qs, K, params)))
+            recall = float(neighborhood_recall(ni, n_gt))
+            if recall >= RECALL_FLOOR or n_probes >= N_LISTS:
+                break
+            n_probes *= 2
+        device_ms = cuda_ms(lambda: ivf_flat.search(index, qs, K, params), 3)
+        twin_out = ivf_flat.search(twin, qs, K, params)
+        bitwise = bitwise_equal((nv, ni), twin_out)
+        emit({"phase": "narrow", "card": smi, "row_type": label,
+              "rows": rows.shape[0], "dim": rows.shape[1],
+              "n_lists": N_LISTS, "n_probes": n_probes,
+              "list_pad": index.list_data.shape[1],
+              "list_bytes": index.list_data.numel()
+              * index.list_data.element_size(),
+              "index_bytes": index_bytes(index),
+              "twin_index_bytes": index_bytes(twin),
+              "build_seconds": build_s, "first_call_seconds": first_s,
+              "search_seconds": search_s, "search_cuda_ms": device_ms,
+              "qps": N_QUERIES / search_s, "recall_at_10": recall,
+              "bitwise_f32_twin": bitwise, "launches": launches})
+        if recall < RECALL_FLOOR:
+            raise AssertionError(f"narrow {label}: recall {recall} < "
+                                 f"{RECALL_FLOOR}")
+        if not bitwise:
+            raise AssertionError(f"narrow {label}: the search differs from "
+                                 "its f32 twin's")
+        if launches["fused_ivf_topk"] < 1:
+            raise AssertionError(f"narrow {label}: no fused_ivf_topk launch")
+        if not bool(torch.isfinite(nv).all()) or bool((ni < 0).any()):
+            raise AssertionError(f"narrow {label}: result not complete")
+
+        # the kernel at the search's inputs, as the fused search builds them
+        qf = qs.to(torch.float32)
+        scores, _ = ivf_flat._coarse_scores(qf, index.centers, index.metric)
+        _, probes = gk.streaming_select_k(scores.contiguous(), n_probes)
+        rot = index.dim
+        qv = qf[:, None, :].expand(N_QUERIES, n_probes, rot).contiguous()
+        qn = row_norms_sq(qf)[:, None].expand(N_QUERIES,
+                                              n_probes).contiguous()
+        norms, ids = index.ensure_row_norms(), index.safe_ids()
+        pad = index.list_data.shape[1]
+        elem = index.list_data.element_size()
+        n_scale = float(torch.maximum(norms.max(), qn.max()))
+        rows_scanned = int(index.list_sizes[probes.long()].sum())
+        n_probed = torch.unique(probes.long()).numel()
+        rows_out.append(kernel_row(
+            "fused_ivf_topk", label,
+            f"ivf_flat {label}: {N_QUERIES} queries x {n_probes} probes, "
+            f"pad {pad}, rot {rot}, clamp",
+            gk.fused_ivf_topk, gk.fused_ivf_topk, gk.fused_ivf_topk_plain,
+            (probes, qv, qn, index.list_data, norms, ids, K),
+            (probes, qv, qn, twin.list_data, norms, ids, K),
+            4 * (probes.numel() + qv.numel() + qn.numel())
+            + n_probed * pad * (rot * elem + 8) + 8 * N_QUERIES * K,
+            2 * rot * rows_scanned, launches["fused_ivf_topk"], n_scale))
+        del qv, qn, scores
+
+        if label == "uint8":
+            u8 = (index, qs, n_probes, n_gt)
+            # the filtered search: ivf_scan over the uint8 lists
+            fparams = ivf_flat.SearchParams(n_probes=n_probes)
+            ((fv, fi), f_s), f_launches = counted(lambda: timed(
+                lambda: ivf_flat.search(index, qs, K, fparams, filter=filt)))
+            f_twin = ivf_flat.search(twin, qs, K, fparams, filter=filt)
+            f_bitwise = bitwise_equal((fv, fi), f_twin)
+            leaked = int((~keep_t[fi.clamp_min(0).long()] | (fi < 0)).sum())
+            emit({"phase": "narrow_filtered", "card": smi,
+                  "row_type": label, "n_probes": n_probes,
+                  "search_seconds": f_s, "qps": N_QUERIES / f_s,
+                  "bitwise_f32_twin": f_bitwise, "removed_ids_returned":
+                  leaked, "launches": f_launches})
+            if not f_bitwise or leaked:
+                raise AssertionError(f"narrow filtered: bitwise {f_bitwise}, "
+                                     f"{leaked} removed or missing ids")
+            if f_launches["ivf_scan"] < 1 or f_launches["fused_ivf_topk"]:
+                raise AssertionError("narrow filtered: not on ivf_scan")
+            # one query tile of it, as _search_core builds it
+            tile = ivf_flat.plan_scan_tiles(
+                n_probes, pad, rot, Resources().workspace_limit_bytes)
+            qt = qf[:tile]
+            sc, _ = ivf_flat._coarse_scores(qt, index.centers, index.metric)
+            _, t_pr = gk.streaming_select_k(sc.contiguous(), n_probes)
+            t_qv = qt[:, None, :].expand(-1, n_probes, -1).contiguous()
+            slots = t_pr.numel() * pad
+            t_probed = torch.unique(t_pr.long()).numel()
+            rows_out.append(kernel_row(
+                "ivf_scan", label,
+                f"ivf_flat {label} filtered: one tile of {qt.shape[0]} "
+                f"queries x {n_probes} probes, pad {pad}, rot {rot}",
+                gk.ivf_scan, gk.ivf_scan, gk.ivf_scan_plain,
+                (t_pr, t_qv, index.list_data, norms),
+                (t_pr, t_qv, twin.list_data, norms),
+                4 * (t_pr.numel() + t_qv.numel()) + t_probed * pad
+                * (rot * elem + 4) + 4 * slots, 2 * rot * slots,
+                f_launches["ivf_scan"], n_scale))
+        else:
+            del index
+        del twin, rows
+        torch.cuda.empty_cache()
+
+    # ---- the bf16 fast scan on the earlier phases' indexes
+    (fb, fb_s), fb_launches = counted(lambda: timed(lambda: brute_force.search(
+        bf, queries, K, scan_dtype="bfloat16", refine_ratio=FAST_REFINE)))
+    fb_recall = float(neighborhood_recall(fb[1], gt_i))
+    agree = fb[1] == gt_i
+    # the re-ranked distances against the exact fp32 distances of the same
+    # ids (rtol 1e-5, atol 1e-6·max‖x‖², fp32's rounding of the expanded
+    # form's terms), then against phase 3's within its tolerance
+    exact = gathered_distances(queries, dataset[fb[1].clamp_min(0).long()],
+                               bf.metric)
+    ex_diff = (fb[0] - exact).abs()
+    fb_exact_err = float(ex_diff[agree].max())
+    fb_exact_rel = float((ex_diff / exact.abs().clamp_min(1e-30))[agree].max())
+    fb_exact_ok = bool((ex_diff <= 1e-6 * scale + 1e-5 * exact.abs())
+                       [agree].all())
+    del exact, ex_diff
+    diff = (fb[0] - gt_v).abs()
+    fb_err = float(diff[agree].max())
+    fb_rel = float((diff / gt_v.abs().clamp_min(1e-30))[agree].max())
+    fb_ok = bool((diff <= 1e-4 * scale + 1e-5 * gt_v.abs())[agree].all())
+    (ff, ff_s), ff_launches = counted(lambda: timed(lambda: ivf_flat.search(
+        flat, queries, K, ivf_flat.SearchParams(
+            n_probes=flat_probes, scan_dtype="bfloat16",
+            refine_ratio=FAST_REFINE))))
+    _, flat_i = ivf_flat.search(flat, queries, K,
+                                ivf_flat.SearchParams(n_probes=flat_probes))
+    flat_recall = float(neighborhood_recall(flat_i, gt_i))
+    ff_recall = float(neighborhood_recall(ff[1], gt_i))
+    nq_cg = CAGRA_GLUE_QUERIES
+    cg_sp = cagra.SearchParams(itopk_size=CAGRA_ITOPK, search_width=1,
+                               scan_dtype="bfloat16")
+    cg_plan = cagra.plan_search(cg_index, K, cg_sp)
+    (fc, fc_s), fc_launches = counted(lambda: timed(lambda: cagra.search(
+        cg_index, queries[:nq_cg], K, cg_sp)))
+    fc_recall = float(neighborhood_recall(fc[1], gt_i[:nq_cg]))
+    emit({"phase": "fast_scan", "card": smi, "refine_ratio": FAST_REFINE,
+          "brute_force": {"seconds": fb_s, "qps": N_QUERIES / fb_s,
+                          "recall_at_10": fb_recall,
+                          "max_abs_err_vs_exact_fp32": fb_exact_err,
+                          "max_rel_err_vs_exact_fp32": fb_exact_rel,
+                          "max_abs_err_at_agreeing_ids": fb_err,
+                          "max_rel_err_at_agreeing_ids": fb_rel,
+                          "launches": fb_launches},
+          "ivf_flat": {"n_probes": flat_probes, "seconds": ff_s,
+                       "qps": N_QUERIES / ff_s, "recall_at_10": ff_recall,
+                       "fp32_recall_at_10": flat_recall,
+                       "launches": ff_launches},
+          "cagra": {"itopk": CAGRA_ITOPK, "queries": nq_cg,
+                    "engine": cg_plan.engine, "reason": cg_plan.reason,
+                    "seconds": fc_s, "recall_at_10": fc_recall,
+                    "scan_dataset_bytes": cg_index.ensure_scan_dataset()
+                    .numel() * 2, "launches": fc_launches}})
+    if fb_recall < FAST_BF_FLOOR or not fb_ok or not fb_exact_ok:
+        raise AssertionError(f"fast-scan brute force: recall {fb_recall}, "
+                             f"distances off by up to {fb_exact_err} from "
+                             f"the exact fp32 ones, {fb_err} from phase 3")
+    if ff_recall < flat_recall - FAST_IVF_SLACK:
+        raise AssertionError(f"fast-scan IVF-Flat recall {ff_recall} against "
+                             f"{flat_recall}")
+    if fc_recall < CAGRA_RECALL_FLOOR or cg_plan.engine != "xla":
+        raise AssertionError(f"fast-scan CAGRA recall {fc_recall} "
+                             f"({cg_plan.engine})")
+    for launches in (fb_launches, ff_launches, fc_launches):
+        if launches["fused_l2_topk"] or launches["fused_ivf_topk"] \
+                or launches["ivf_scan"] or launches["fused_cagra_topk"]:
+            raise AssertionError("a fast scan launched a fused kernel")
+
+    # ---- the uint8 index served
+    index, qs, n_probes, n_gt = u8
+    q_host = qs[:SERVE_DEGRADED_QUERIES].cpu().numpy()
+    sample = np.random.default_rng(seed).choice(
+        SERVE_DEGRADED_QUERIES, SERVE_SAMPLE, replace=False)
+    searcher = serving.ivf_flat_searcher(
+        index, ivf_flat.SearchParams(n_probes=n_probes))
+    sink = BatchSink()
+    eng = serving.Engine(searcher, serving.EngineConfig(
+        max_batch=64, max_wait_us=2000, max_inflight=2, warm_ks=(K,),
+        span_sink=sink))
+    eng.start()
+    try:
+        builds0 = serving.compile_count()
+        run, s_launches = counted(lambda: closed_loop(
+            eng, q_host, K, SERVE_LOADS[0]))
+        builds = serving.compile_count() - builds0
+        line = summarize(run, sink.take())
+        mismatches = serving.verify_bit_identity(
+            searcher, [q_host[j] for j in sample],
+            [(run["distances"][j], run["ids"][j]) for j in sample], K,
+            [run["placements"][j] for j in sample])
+    finally:
+        eng.stop()
+    s_recall = float(neighborhood_recall(
+        torch.from_numpy(run["ids"]).to(dev), n_gt[:SERVE_DEGRADED_QUERIES]))
+    emit({"phase": "narrow_serving", "card": smi, "row_type": "uint8",
+          "query_dtype": str(searcher.query_dtype),
+          "submitters": SERVE_LOADS[0], **line,
+          "builds_after_start": builds, "solo_mismatches": mismatches,
+          "solo_sampled": SERVE_SAMPLE, "recall_at_10": s_recall,
+          "launches": s_launches})
+    if builds or mismatches:
+        raise AssertionError(f"narrow serving: {builds} builds after start(),"
+                             f" {mismatches} rows differ from solo_reference")
+    if s_launches["fused_ivf_topk"] < 1:
+        raise AssertionError("narrow serving launched no fused_ivf_topk")
+    return rows_out
 
 
 def main() -> int:
@@ -2213,6 +2555,17 @@ def main() -> int:
           "launches": persist_launches})
     for row in kernels:
         row["persist_launches"] = persist_launches.get(row["name"], 0)
+
+    # ---- 6d. narrow data and the bf16 fast scan
+    narrow_rows, narrow_s = timed(lambda: narrow_phase(
+        smi=smi, dev=dev, seed=opts.seed, dataset=dataset, queries=queries,
+        gt_v=gt_v, gt_i=gt_i, bf=bf, flat=index, flat_probes=n_probes,
+        keep_t=keep_t, filt=filt, cg_index=cg_index,
+        launch_counts=launch_counts, bound=bound, scale=scale))
+    emit({"phase": "narrow_total", "card": smi, "seconds": narrow_s})
+    for row in narrow_rows:
+        row["persist_launches"] = persist_launches.get(row["name"], 0)
+    kernels.extend(narrow_rows)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

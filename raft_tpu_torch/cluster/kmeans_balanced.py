@@ -375,3 +375,11 @@ def predict(centers, x, params: Optional[KMeansBalancedParams] = None
     params = params or KMeansBalancedParams()
     x = torch.as_tensor(x).to(centers.device)
     return _predict_labels(x, centers, params.metric)
+
+
+def fit_predict(generator, x, n_clusters: int,
+                params: Optional[KMeansBalancedParams] = None):
+    """``fit`` and then ``predict`` on the same rows → (centers
+    [n_clusters, dim] fp32, labels [n] int32)."""
+    centers = fit(generator, x, n_clusters, params)
+    return centers, predict(centers, x, params)

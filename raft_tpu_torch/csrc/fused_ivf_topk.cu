@@ -21,7 +21,8 @@
 //      64-slot chunks, and runs ivf_scan's slab tile (ivf_group.cuh): the
 //      chunks stream through shared memory once by cp.async, double
 //      buffered, each pair's distances from its own qres vector (IVF-PQ's
-//      residuals differ per probe) in fp32 from f32 or bf16 rows. Chunks
+//      residuals differ per probe) in fp32 from f32, bf16, fp16, int8 or
+//      uint8 rows (ivfg::RowType). Chunks
 //      past the run's last filled slot are not read. The epilogue of a
 //      chunk compares each distance with its pair's k-th value in
 //      registers. Up to k = 16 a pair's carry lives in the registers of its
@@ -480,7 +481,8 @@ template <typename T>
 cudaError_t launch_grouped(const GroupArgs& a, long long n_pairs,
                            cudaStream_t s) {
   // the widest copies the rows allow: four elements (16 bytes of f32, 8 of
-  // bf16) and float4 query loads when every row starts on such a boundary
+  // bf16 or fp16, 4 of int8 or uint8) and float4 query loads when every
+  // row starts on such a boundary
   const bool vec =
       a.rot % 4 == 0 && reinterpret_cast<uintptr_t>(a.qres) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(a.list_data) % (4 * sizeof(T)) == 0;
@@ -524,15 +526,15 @@ cudaError_t run_grouped(const int32_t* probes, GroupArgs a, int nq,
 }  // namespace
 
 // probes [nq, P] int32, qres [nq, P, rot] f32, qn [nq, P] f32, list_data
-// [n_lists, pad, rot] f32 (data_is_bf16 = 0) or bf16, row_norms [n_lists,
-// pad] f32, list_ids [n_lists, pad] int32 → out_v [nq, k] f32, out_i [nq, k]
+// [n_lists, pad, rot] of the row type `row_type` (ivfg::RowType: f32, bf16,
+// fp16, int8, uint8), row_norms [n_lists, pad] f32, list_ids [n_lists, pad] int32 → out_v [nq, k] f32, out_i [nq, k]
 // int32. route 0: the grouped route, in runs of chunks_per_run 64-slot
 // chunks, with int32 scratch `groups` of ivfg::group_scratch(nq·P,
 // n_lists) and the partials part_v/part_i [nq, P, runs, k]; route 1: the
 // per-query route (no scratch).
 extern "C" int fused_ivf_topk(const void* probes, const void* qres,
                               const void* qn, const void* list_data,
-                              int data_is_bf16, const void* row_norms,
+                              int row_type, const void* row_norms,
                               const void* list_ids, int nq, int n_probes,
                               int n_lists, int pad, int rot, int k, int clamp,
                               int route, int chunks_per_run, void* groups,
@@ -575,17 +577,15 @@ extern "C" int fused_ivf_topk(const void* probes, const void* qres,
     a.part_v = static_cast<float*>(part_v);
     a.part_i = static_cast<int32_t*>(part_i);
     auto* g = static_cast<int32_t*>(groups);
-    err = data_is_bf16
-              ? run_grouped<__nv_bfloat16>(p, a, nq, n_probes, g, ov, oi, s)
-              : run_grouped<float>(p, a, nq, n_probes, g, ov, oi, s);
+    err = ivfg::with_row_type(row_type, [&](auto tag) {
+      return run_grouped<decltype(tag)>(p, a, nq, n_probes, g, ov, oi, s);
+    });
   } else {
-    err = data_is_bf16
-              ? launch_per_query<__nv_bfloat16>(p, qr, qnf, list_data, rn, li,
-                                                nq, n_probes, n_lists, pad,
-                                                rot, k, clamp, ov, oi, s)
-              : launch_per_query<float>(p, qr, qnf, list_data, rn, li, nq,
-                                        n_probes, n_lists, pad, rot, k, clamp,
-                                        ov, oi, s);
+    err = ivfg::with_row_type(row_type, [&](auto tag) {
+      return launch_per_query<decltype(tag)>(p, qr, qnf, list_data, rn, li,
+                                             nq, n_probes, n_lists, pad, rot,
+                                             k, clamp, ov, oi, s);
+    });
   }
   return static_cast<int>(err);
 }

@@ -3,7 +3,9 @@
 //
 // Both kernels compute, for (query, probe) pairs and the slots of the
 // probed lists, row_norms − 2·list_data[list, slot]·qres[pair] in fp32 over
-// f32 or bf16 rows. Reading each probed slab once per (query, probe) makes
+// rows of f32, bf16, fp16, int8 or uint8 (RowType; every value of the
+// three narrow types is exact in f32, so a narrow list gives bitwise the
+// distances of the same list cast to f32). Reading each probed slab once per (query, probe) makes
 // the slab reads the whole cost, so both first order the pairs by list on
 // the device (launch_group: a stable counting sort in three passes, with no
 // read back to the host) and give a block one work item: a list, a group of
@@ -12,8 +14,8 @@
 // grid is the host's bound ⌈pairs/kGroupPairs⌉ + n_lists + 1, and blocks
 // past the last group exit). It stages the group's
 // query vectors and streams its chunks of kS slab rows through two
-// shared-memory buffers by cp.async (copy_slab; 16 or 8 bytes a copy where
-// the rows allow), the next chunk in flight while the current one is
+// shared-memory buffers by cp.async (copy_slab; four elements a copy, 16,
+// 8 or 4 bytes, where the rows allow), the next chunk in flight while the current one is
 // multiplied (tile_product: 4 pairs × 4 slots a thread, four features a
 // shared-memory read, features in increasing order, so that every output
 // has one writer and one order of summation).
@@ -21,6 +23,7 @@
 
 #include <cstdint>
 #include <cuda_bf16.h>
+#include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
 namespace ivfg {
@@ -28,12 +31,37 @@ namespace ivfg {
 constexpr int kGroupPairs = 32;  // pairs a work item
 constexpr int kS = 64;   // slots per chunk
 constexpr int kR = 128;  // features staged per step
-constexpr int kRS = kR + 4;  // elements a staged row takes: 16-byte (f32) or
-                             // 8-byte (bf16) aligned, and conflict-free reads
+constexpr int kRS = kR + 4;  // elements a staged row takes: 16-byte (f32),
+                             // 8-byte (bf16, fp16) or 4-byte (int8, uint8)
+                             // aligned, and conflict-free reads
+
+// the list rows' element type, as the wrappers pass it
+// (gpu_kernels.ROW_TYPES)
+enum RowType : int { kF32 = 0, kBF16 = 1, kF16 = 2, kI8 = 3, kU8 = 4 };
+
+// f(T{}) for the row type `code`; an unknown code is refused
+template <typename F>
+cudaError_t with_row_type(int code, F&& f) {
+  switch (code) {
+    case kF32: return f(float{});
+    case kBF16: return f(__nv_bfloat16{});
+    case kF16: return f(__half{});
+    case kI8: return f(int8_t{});
+    case kU8: return f(uint8_t{});
+    default: return cudaErrorInvalidValue;
+  }
+}
 
 __device__ __forceinline__ float to_f32(float v) { return v; }
 __device__ __forceinline__ float to_f32(__nv_bfloat16 v) {
   return __bfloat162float(v);
+}
+__device__ __forceinline__ float to_f32(__half v) { return __half2float(v); }
+__device__ __forceinline__ float to_f32(int8_t v) {
+  return static_cast<float>(v);
+}
+__device__ __forceinline__ float to_f32(uint8_t v) {
+  return static_cast<float>(v);
 }
 
 // four consecutive features of a staged row
@@ -47,6 +75,20 @@ __device__ __forceinline__ float4 load4(const __nv_bfloat16* p) {
   const float2 b =
       __bfloat1622float2(*reinterpret_cast<const __nv_bfloat162*>(&u.y));
   return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const __half* p) {
+  const uint2 u = *reinterpret_cast<const uint2*>(p);
+  const float2 a = __half22float2(*reinterpret_cast<const __half2*>(&u.x));
+  const float2 b = __half22float2(*reinterpret_cast<const __half2*>(&u.y));
+  return make_float4(a.x, a.y, b.x, b.y);
+}
+__device__ __forceinline__ float4 load4(const int8_t* p) {
+  const char4 c = *reinterpret_cast<const char4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
+}
+__device__ __forceinline__ float4 load4(const uint8_t* p) {
+  const uchar4 c = *reinterpret_cast<const uchar4*>(p);
+  return make_float4(c.x, c.y, c.z, c.w);
 }
 
 template <int BYTES>
@@ -70,8 +112,9 @@ __device__ __forceinline__ void cp_async_wait() {
 
 // Copy features [r0, r0 + rc) of slab rows [0, rows) into buf [kS][kRS],
 // V elements a copy, NT threads: asynchronously when a copy is 4, 8 or 16
-// bytes, else (single bf16 elements) by plain loads. Rows past `rows` are
-// left as they are: their products are never used.
+// bytes (4 is cp.async's smallest), else (single elements of 1 or 2 bytes:
+// a row width that is not a multiple of 4) by plain loads. Rows past
+// `rows` are left as they are: their products are never used.
 template <typename T, int V, int NT>
 __device__ __forceinline__ void copy_slab(T* buf, const T* slab, int rot,
                                           int rows, int r0, int rc) {

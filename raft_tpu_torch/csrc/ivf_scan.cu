@@ -3,7 +3,8 @@
 // Replaces raft_tpu/ops/pallas_kernels.py:ivf_scan (_ivf_scan_kernel): for
 // each (query, probe) pair and every slot of the probed list,
 //   out[q, p, slot] = row_norms[list, slot] − 2·list_data[list, slot]·qres[q, p]
-// with list = probes[q, p], in fp32 over f32 or bf16 list rows; a probe
+// with list = probes[q, p], in fp32 over f32, bf16, fp16, int8 or uint8
+// list rows (ivfg::RowType); a probe
 // outside [0, n_lists) writes +inf. The [nq, P, pad, rot] gather never exists
 // in device memory; the [nq, P, pad] partials go to a separate select_k, and
 // the caller adds the query's norm and masks the unfilled slots (all pad
@@ -162,7 +163,8 @@ cudaError_t launch(const float* qres, const void* list_data,
 }
 
 // the widest copies the rows allow: four elements (16 bytes of f32, 8 of
-// bf16) when every row starts on such a boundary, else one element
+// bf16 or fp16, 4 of int8 or uint8) when every row starts on such a
+// boundary, else one element
 template <typename T>
 cudaError_t dispatch(const float* q, const void* data, const float* rn,
                      const int32_t* ord, const int32_t* ls, const int32_t* lc,
@@ -196,12 +198,13 @@ extern "C" int ivf_scan_group(const void* probes, long long n_pairs,
 }
 
 // probes [n_pairs] int32, qres [n_pairs, rot] f32 (the (query, probe) pairs
-// in row-major order), list_data [n_lists, pad, rot] f32 (data_is_bf16 = 0)
-// or bf16, row_norms [n_lists, pad] f32 → out [n_pairs, pad] f32. `groups`
+// in row-major order), list_data [n_lists, pad, rot] of the row type
+// `row_type` (ivfg::RowType: f32, bf16, fp16, int8, uint8), row_norms
+// [n_lists, pad] f32 → out [n_pairs, pad] f32. `groups`
 // is int32 scratch of ivfg::group_scratch(n_pairs, n_lists) for the
 // grouping. A block scans chunks_per_block chunks of 64 slots.
 extern "C" int ivf_scan(const void* probes, const void* qres,
-                        const void* list_data, int data_is_bf16,
+                        const void* list_data, int row_type,
                         const void* row_norms, void* groups,
                         long long n_pairs, int n_lists, int pad, int rot,
                         int chunks_per_block, void* out, void* stream) {
@@ -222,13 +225,10 @@ extern "C" int ivf_scan(const void* probes, const void* qres,
   const cudaError_t gerr = ivfg::launch_group(
       static_cast<const int32_t*>(probes), n_pairs, n_lists, ord, s);
   if (gerr != cudaSuccess) return static_cast<int>(gerr);
-  const cudaError_t err =
-      data_is_bf16
-          ? dispatch<__nv_bfloat16>(q, list_data, rn, ord, ls, lc, ge,
-                                    n_pairs, n_lists, pad, rot,
-                                    chunks_per_block, o, s)
-          : dispatch<float>(q, list_data, rn, ord, ls, lc, ge, n_pairs,
-                            n_lists, pad, rot, chunks_per_block, o, s);
+  const cudaError_t err = ivfg::with_row_type(row_type, [&](auto tag) {
+    return dispatch<decltype(tag)>(q, list_data, rn, ord, ls, lc, ge, n_pairs,
+                                   n_lists, pad, rot, chunks_per_block, o, s);
+  });
   return static_cast<int>(err);
 }
 

@@ -7,9 +7,14 @@ serves: L2 or L2Sqrt, no filter, no fast scan, k <= 1024. Other requests
 take the tiled path: a distance tile per (query tile, database tile), a
 ``select_k`` per tile, and one more ``select_k`` over the tiles' survivors.
 ``scan_mode="xla"`` keeps its name from the JAX package and forces the
-tiled path. Every search records its engine and why
-(``obs.explain.record_dispatch``; ``explain=True`` returns the record).
-``serialize``/``deserialize`` write and read the JAX package's file format.
+tiled path. The bf16 fast scan (``scan_dtype="bfloat16"``, an fp32
+dataset) runs the tiled path's products in bf16 with fp32 sums
+(``ops.distance.dot_bf16``), keeps ``refine_ratio·k`` candidates a tile,
+and re-ranks the survivors exactly in fp32. Every search records its
+engine and why (``obs.explain.record_dispatch``; ``explain=True`` returns
+the record). ``serialize``/``deserialize`` write and read the JAX
+package's file format; ``make_batch_k_query`` walks each query's
+neighbours a batch at a time.
 """
 
 from __future__ import annotations
@@ -26,10 +31,12 @@ from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops.distance import (PORTED_METRICS, DistanceType,
-                                         cosine_expanded, is_min_close,
+                                         cosine_expanded, dot_bf16,
+                                         gathered_distances, is_min_close,
                                          l2_expanded, pairwise_core,
                                          resolve_metric, row_norms_sq)
-from raft_tpu_torch.ops.select_k import select_k, select_k_maybe_approx
+from raft_tpu_torch.ops.select_k import (refine_multiplier, select_k,
+                                         select_k_maybe_approx)
 from raft_tpu_torch.utils.shape import (as_query_array, balanced_tile,
                                         query_bucket)
 
@@ -89,21 +96,56 @@ def _choose_tiles(n_queries: int, n_db: int, dim: int, k: int, budget: int
     return q_tile, balanced_tile(n_db, db_tile, 128)
 
 
+def planned_peak_bytes(n_queries: int, n_db: int, dim: int, k: int,
+                       budget: int) -> int:
+    """The peak the tiled path's solve (``_choose_tiles``) plans for: one
+    dataset-sized copy plus the five fp32 distance tiles of the
+    expanded-L2 chain at the planned (query tile, database tile)."""
+    q_tile, db_tile = _choose_tiles(n_queries, n_db, dim, k, budget)
+    return n_db * dim * 4 + 5 * q_tile * db_tile * 4
+
+
+def _fast_scan_tile(qt, qn, db_t, db_norms, metric: DistanceType):
+    """The fast scan's screen of one tile: the bf16 product with the exact
+    fp32 norms, squared for both L2 metrics (the ranking is the same)."""
+    dots = dot_bf16(qt, db_t)
+    if metric == DistanceType.InnerProduct:
+        return dots
+    if metric == DistanceType.CosineExpanded:
+        denom = torch.sqrt(qn[:, None] * db_norms[None, :])
+        return 1.0 - dots / torch.clamp_min(denom,
+                                            torch.finfo(torch.float32).tiny)
+    return torch.clamp_min((qn[:, None] + db_norms[None, :]) - 2.0 * dots,
+                           0.0)
+
+
 def _knn_tiled(queries, index: Index, filter_words, k: int, q_tile: int,
-               db_tile: int, select_recall: float):
+               db_tile: int, select_recall: float, fast_scan: bool = False,
+               refine_mult: int = 1):
+    """The tiled path; with ``fast_scan`` each tile keeps its
+    ``refine_mult·k`` best by the bf16 screen, and the query tile's
+    survivors are re-ranked by their exact fp32 distances."""
     metric = index.metric
     minimize = is_min_close(metric)
     bad_fill = torch.inf if minimize else -torch.inf
     dataset, ndb = index.dataset, index.size
     use_norms = index.norms is not None
+    db_norms = index.norms
+    if fast_scan and db_norms is None and metric != DistanceType.InnerProduct:
+        db_norms = row_norms_sq(dataset)
+    k_scan = min(refine_mult * k, db_tile) if fast_scan else k
     out_v, out_i = [], []
     for qs in range(0, queries.shape[0], q_tile):
         qt = queries[qs:qs + q_tile]
-        qn = row_norms_sq(qt) if use_norms else None
+        qn = row_norms_sq(qt) if use_norms or fast_scan else None
         tile_v, tile_i = [], []
         for t0 in range(0, ndb, db_tile):
             db_t = dataset[t0:t0 + db_tile]
-            if metric == DistanceType.CosineExpanded:
+            if fast_scan:
+                d = _fast_scan_tile(
+                    qt, qn, db_t, None if db_norms is None
+                    else db_norms[t0:t0 + db_tile], metric)
+            elif metric == DistanceType.CosineExpanded:
                 d = cosine_expanded(qt, db_t, qn, index.norms[t0:t0 + db_tile])
             elif use_norms:
                 d = l2_expanded(qt, db_t,
@@ -116,11 +158,27 @@ def _knn_tiled(queries, index: Index, filter_words, k: int, q_tile: int,
                 ids = torch.arange(t0, t0 + db_t.shape[0], device=d.device)
                 d = torch.where(filter_mask(ids, filter_words)[None, :], d,
                                 bad_fill)
-            v, i = select_k_maybe_approx(d, min(k, db_t.shape[0]), minimize,
-                                         select_recall)
+            v, i = select_k_maybe_approx(d, min(k_scan, db_t.shape[0]),
+                                         minimize, select_recall)
             tile_v.append(v)
             tile_i.append(i + t0)
         all_v, all_i = torch.cat(tile_v, dim=1), torch.cat(tile_i, dim=1)
+        if fast_scan:
+            # the exact fp32 re-rank of the screen's survivors; rows the
+            # filter clears are masked again (their gathered distance is
+            # real)
+            _, sel = select_k_maybe_approx(
+                all_v, min(max(k_scan, k), all_v.shape[1]), minimize,
+                select_recall)
+            cand_i = torch.gather(all_i, 1, sel.long())
+            exact = gathered_distances(qt, dataset[cand_i.long()], metric)
+            if filter_words is not None:
+                exact = torch.where(filter_mask(cand_i, filter_words), exact,
+                                    bad_fill)
+            v, sel = select_k(exact, k, select_min=minimize)
+            out_v.append(v)
+            out_i.append(torch.gather(cand_i, 1, sel.long()))
+            continue
         v, sel = select_k(all_v, k, select_min=minimize)
         out_v.append(v)
         out_i.append(torch.gather(all_i, 1, sel.long()))
@@ -150,10 +208,23 @@ def fused_ineligible_reason(metric, dtype: torch.dtype, k: int,
     return None
 
 
-def _check_deferred(scan_dtype) -> None:
-    if scan_dtype is not None:
-        raise NotImplementedError(
-            "the bf16 fast scan (scan_dtype) is not ported yet (ROADMAP)")
+def fast_scan_requested(scan_dtype) -> bool:
+    """Whether ``scan_dtype`` asks for the bf16 fast scan (None: no); any
+    type other than bfloat16 (a name, a torch dtype, or a dtype object such
+    as the JAX package's) raises ``ValueError`` as the JAX package does."""
+    if scan_dtype is None:
+        return False
+    if isinstance(scan_dtype, torch.dtype):
+        name = str(scan_dtype).replace("torch.", "")
+    elif isinstance(scan_dtype, str):
+        name = scan_dtype
+    else:
+        name = getattr(scan_dtype, "name", None) or getattr(
+            scan_dtype, "__name__", str(scan_dtype))
+    if name != "bfloat16":
+        raise ValueError(
+            f"scan_dtype={scan_dtype!r}: only bfloat16 is supported")
+    return True
 
 
 def fused_dispatch_reason(scan_mode: str) -> str:
@@ -178,17 +249,23 @@ def explained(result, cap, explain: bool):
 @tracing.range("brute_force.search")
 def search(index: Index, queries, k: int, filter=None,
            res: Optional[Resources] = None, scan_dtype=None,
-           select_recall: float = 1.0, scan_mode: str = "auto",
-           explain: bool = False):
+           refine_ratio: float = 4.0, select_recall: float = 1.0,
+           scan_mode: str = "auto", explain: bool = False):
     """Exact kNN → ``(distances [nq, k] f32, ids [nq, k] i32)``.
 
     ``filter`` is an optional :class:`~raft_tpu_torch.core.bitset.Bitset`
     over dataset rows; cleared rows are never returned. ``scan_mode``:
     ``"auto"`` and ``"pallas"`` take the fused kernel for every eligible
-    request, ``"xla"`` forces the tiled path. The search runs on the index's
+    request, ``"xla"`` forces the tiled path. ``scan_dtype="bfloat16"``
+    (an fp32 dataset) takes the tiled path with the bf16 screen and re-ranks
+    the best ``refine_ratio·k`` of each tile exactly in fp32: distances are
+    exact, and a neighbour is missed only where the screen's rounding
+    pushes it out of a tile's survivors. The search runs on the index's
     device. ``explain=True`` returns ``(distances, ids, ExplainRecord)``.
     """
-    _check_deferred(scan_dtype)
+    fast_scan = fast_scan_requested(scan_dtype)
+    if fast_scan and index.dataset.dtype != torch.float32:
+        raise ValueError("scan_dtype requires an fp32 dataset")
     if scan_mode not in ("auto", "xla", "pallas"):
         raise ValueError(
             f"scan_mode={scan_mode!r}: expected 'auto', 'xla' or 'pallas'")
@@ -200,7 +277,8 @@ def search(index: Index, queries, k: int, filter=None,
     k = int(min(k, index.size))
     nq = queries.shape[0]
     ineligible = fused_ineligible_reason(
-        index.metric, index.dataset.dtype, k, filter is not None, False)
+        index.metric, index.dataset.dtype, k, filter is not None, fast_scan)
+    refine_mult = refine_multiplier(refine_ratio, fast_scan)
     ex_params = {"k": k, "nq": nq, "bucket": query_bucket(nq),
                  "n_db": index.size, "dim": index.dim,
                  "metric": index.metric.name}
@@ -219,26 +297,37 @@ def search(index: Index, queries, k: int, filter=None,
         else:
             q_tile, db_tile = _choose_tiles(nq, index.size, index.dim, k,
                                             res.workspace_limit_bytes)
+            if fast_scan:
+                # the re-rank's gather [q_tile, k_refine, dim] fp32 within
+                # the workspace too
+                per_row = max(min(refine_mult * k, db_tile), k) * index.dim * 4
+                q_cap = max(8, res.workspace_limit_bytes // (4 * per_row))
+                q_tile = min(q_tile, q_cap - q_cap % 8 or 8)
             obs_explain.record_dispatch(
                 "brute_force", scan_mode, "xla",
                 "forced" if scan_mode == "xla" else ineligible,
-                params=ex_params, plan={"q_tile": q_tile, "db_tile": db_tile})
+                params=ex_params, plan={
+                    "q_tile": q_tile, "db_tile": db_tile,
+                    "predicted_peak_bytes": planned_peak_bytes(
+                        nq, index.size, index.dim, k,
+                        res.workspace_limit_bytes)})
             words = filter.words.to(index.device) if filter is not None \
                 else None
             v, i = _knn_tiled(queries, index, words, k, q_tile, db_tile,
-                              float(select_recall))
+                              float(select_recall), fast_scan, refine_mult)
     return explained((v, i), cap, explain)
 
 
 @tracing.range("brute_force.knn")
 def knn(queries, dataset, k: int, metric="euclidean", metric_arg: float = 2.0,
         res: Optional[Resources] = None, scan_dtype=None,
-        select_recall: float = 1.0, scan_mode: str = "auto",
-        explain: bool = False, device=None):
+        refine_ratio: float = 4.0, select_recall: float = 1.0,
+        scan_mode: str = "auto", explain: bool = False, device=None):
     """One-shot exact kNN: ``search(build(dataset), queries, k)``."""
     return search(build(dataset, metric, metric_arg, res, device), queries, k,
-                  res=res, scan_dtype=scan_dtype, select_recall=select_recall,
-                  scan_mode=scan_mode, explain=explain)
+                  res=res, scan_dtype=scan_dtype, refine_ratio=refine_ratio,
+                  select_recall=select_recall, scan_mode=scan_mode,
+                  explain=explain)
 
 
 _SERIAL_VERSION = 1
@@ -271,3 +360,27 @@ def deserialize(file, res: Optional[Resources] = None, device=None) -> Index:
         norms = ser.to_tensor(r.array(), res.device) if r.scalar() else None
         r.finish()
     return Index(dataset, metric, float(metric_arg), norms)
+
+
+def make_batch_k_query(index: Index, queries, batch_size: int,
+                       res: Optional[Resources] = None):
+    """Each query's neighbours in batches of ``batch_size``: the first
+    yield holds the nearest ``batch_size``, the next the following ones, and
+    so on to the dataset's end. The searched k grows geometrically (at
+    least four batches, then doubling) and several batches are sliced from
+    each search, so n neighbours cost O(log(n / batch_size)) searches."""
+    if batch_size < 1:
+        raise ValueError(f"batch_size must be >= 1, got {batch_size}")
+
+    def _iter():
+        offset, k = 0, 0
+        d = i = None
+        while offset < index.size:
+            if offset + batch_size > k:
+                k = min(max(4 * batch_size, 2 * k), index.size)
+                d, i = search(index, queries, k, res=res)
+            end = min(offset + batch_size, index.size)
+            yield d[:, offset:end], i[:, offset:end]
+            offset = end
+
+    return _iter()

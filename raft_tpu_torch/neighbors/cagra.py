@@ -18,13 +18,16 @@ Counterpart of ``raft_tpu.neighbors.cagra``.
   itopk <= 1024; and ``search_core``, the glue engine in PyTorch, for
   every request (inner product, filters). ``scan_mode``: ``"auto"`` and
   ``"pallas"`` take the kernel wherever it is eligible, ``"xla"`` forces
-  the glue engine.
+  the glue engine. The bf16 fast scan (``scan_dtype="bfloat16"``, an fp32
+  dataset) takes the glue engine: the walk gathers rows from a cached
+  bf16 copy of the dataset (``Index.ensure_scan_dataset``, half the
+  gathered bytes) and scores them against the bf16-rounded queries, then
+  the final beam is re-ranked exactly in fp32.
 
 Every search records its engine and why (``obs.explain.record_dispatch``;
 ``explain=True`` returns the record). ``serialize``/``deserialize`` write
-and read the JAX package's file format. Not ported yet: the bf16 fast scan
-(``scan_dtype``) raises ``NotImplementedError``; the serving batch bucket
-is not needed (a query's seeds depend only on its row).
+and read the JAX package's file format. The serving batch bucket is not
+needed (a query's seeds depend only on its row).
 """
 
 from __future__ import annotations
@@ -43,13 +46,15 @@ from raft_tpu_torch.core import tracing
 from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors.brute_force import (explained,
+                                                  fast_scan_requested,
                                                   fused_dispatch_reason,
                                                   fused_ineligible_reason,
                                                   kernel_plan)
 from raft_tpu_torch.neighbors.nn_descent import scatter_last_wins
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
-from raft_tpu_torch.ops.distance import DistanceType, resolve_metric
+from raft_tpu_torch.ops.distance import (DistanceType, gathered_distances,
+                                         resolve_metric)
 from raft_tpu_torch.ops.rng import cagra_seed_offsets
 from raft_tpu_torch.ops.select_k import (merge_topk_dedup_flagged,
                                          topk_lowest_first)
@@ -82,8 +87,9 @@ class IndexParams:
 
 @dataclasses.dataclass
 class SearchParams:
-    """``max_iterations`` 0 applies the auto heuristic. ``scan_dtype`` (the
-    bf16 fast scan) is not ported yet and must stay None."""
+    """``max_iterations`` 0 applies the auto heuristic. ``scan_dtype``:
+    None scores in fp32; ``"bfloat16"`` walks over the bf16 copy of the
+    dataset and re-ranks the final beam exactly in fp32."""
 
     itopk_size: int = 64
     search_width: int = 1
@@ -105,6 +111,14 @@ class Index:
         self.dataset = dataset
         self.graph = graph
         self.build_seconds: dict = {}
+        self._dataset_bf16 = None  # the fast scan's copy, made at first use
+
+    def ensure_scan_dataset(self) -> torch.Tensor:
+        """The bf16 copy of the dataset that the fast scan gathers from
+        (made once, kept on the index)."""
+        if self._dataset_bf16 is None:
+            self._dataset_bf16 = self.dataset.to(torch.bfloat16)
+        return self._dataset_bf16
 
     @property
     def metric(self) -> DistanceType:
@@ -334,13 +348,34 @@ def _distances_to(queries, q_norms, dataset, ids, metric: DistanceType,
     return d
 
 
+def _rerank(queries, dataset, buf_d, buf_ids, metric: DistanceType):
+    """The fast scan's exact fp32 re-rank of the final beam (the minimised
+    distance, as the walk's): entries with no id, or at +inf in the walk
+    (filtered out), stay at +inf and last."""
+    inner = (DistanceType.L2Expanded
+             if metric == DistanceType.L2SqrtExpanded else metric)
+    ex = gathered_distances(queries, dataset[buf_ids.clamp_min(0)], inner)
+    if metric == DistanceType.InnerProduct:
+        ex = -ex
+    ex = torch.where((buf_ids < 0) | ~torch.isfinite(buf_d), torch.inf, ex)
+    v, pos = topk_lowest_first(ex, ex.shape[1], select_min=True)
+    return v, torch.gather(buf_ids, 1, pos)
+
+
 def _search_glue(queries, dataset, graph, seed_ids, filter_words,
-                 metric: DistanceType, itopk: int, width: int, max_iter: int):
-    """One chunk of queries through the glue engine; returns the beam."""
-    qn = gk.beam_norms(queries)
+                 metric: DistanceType, itopk: int, width: int, max_iter: int,
+                 scan_dataset=None):
+    """One chunk of queries through the glue engine; returns the beam. With
+    ``scan_dataset`` (the bf16 copy) the walk scores the bf16-rounded
+    queries against its rows and the beam is re-ranked in fp32."""
+    q_scan = (queries if scan_dataset is None
+              else queries.to(torch.bfloat16).to(torch.float32))
+    scan_rows = dataset if scan_dataset is None else scan_dataset
+    qn = gk.beam_norms(q_scan)
 
     def score(ids):
-        return _distances_to(queries, qn, dataset, ids, metric, filter_words)
+        return _distances_to(q_scan, qn, scan_rows, ids, metric,
+                             filter_words)
 
     buf_ids, buf_d, buf_fl = merge_topk_dedup_flagged(
         seed_ids, score(seed_ids), torch.zeros_like(seed_ids, dtype=torch.bool),
@@ -362,25 +397,30 @@ def _search_glue(queries, dataset, graph, seed_ids, filter_words,
         done = done | ~active
         if not bool(active.any()):
             break
+    if scan_dataset is not None:
+        return _rerank(queries, dataset, buf_d, buf_ids, metric)
     return buf_d, buf_ids
 
 
 @tracing.range("cagra.search_core")
 def search_core(queries, dataset, graph, seed_ids, filter_words,
                 metric: DistanceType, k: int, itopk: int, width: int,
-                max_iter: int, q_tile: Optional[int] = None):
+                max_iter: int, q_tile: Optional[int] = None,
+                scan_dataset: Optional[torch.Tensor] = None):
     """The glue engine (the JAX package's ``search_core``): seeds merged by
     ``merge_topk_dedup_flagged``, then at most ``max_iter`` hops; a query
     whose pick finds no unexpanded finite entry freezes, and the loop ends
     when every query has. ``filter_words`` (None: no filter) are a bitset's
     words: cleared rows never enter the beam as candidates. Queries run in
     chunks of ``q_tile``; a query's result does not depend on its chunk.
-    Returns ``(distances [nq, k], ids [nq, k])`` in the metric's units."""
+    ``scan_dataset`` (the bf16 copy) is the fast scan. Returns
+    ``(distances [nq, k], ids [nq, k])`` in the metric's units."""
     nq = queries.shape[0]
     q_tile = nq if q_tile is None else max(int(q_tile), 1)
     outs = [_search_glue(queries[s:s + q_tile], dataset, graph,
                          seed_ids[s:s + q_tile], filter_words, metric, itopk,
-                         width, max_iter) for s in range(0, nq, q_tile)]
+                         width, max_iter, scan_dataset)
+            for s in range(0, nq, q_tile)]
     if not outs:
         outs = [(queries.new_empty((0, itopk)),
                  queries.new_empty((0, itopk), dtype=torch.int32))]
@@ -456,10 +496,13 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
                                                           index.size)
     plan = {"itopk": itopk, "search_width": width, "max_iter": max_iter,
             "n_seeds": n_seeds}
+    fast_scan = fast_scan_requested(params.scan_dtype)
+    if fast_scan and index.dataset.dtype != torch.float32:
+        raise ValueError("scan_dtype requires an fp32 dataset")
     if params.scan_mode == "xla":
         return SearchPlan("xla", "scan_mode_xla", plan)
     reason = fused_ineligible_reason(index.metric, index.dataset.dtype, itopk,
-                                     has_filter, False)
+                                     has_filter, fast_scan)
     if reason is None and gk.cagra_topk_smem_bytes(
             itopk, index.dim, width, index.graph_degree) > gk.SMEM_LIMIT:
         reason = "smem"
@@ -481,9 +524,7 @@ def search(index: Index, queries, k: int,
     beforehand (the serving searcher keeps one a bucket); None draws it
     here, on the host."""
     params = params or SearchParams()
-    if params.scan_dtype is not None:
-        raise NotImplementedError(
-            "the bf16 fast scan (scan_dtype) is not ported yet (ROADMAP)")
+    fast_scan = fast_scan_requested(params.scan_dtype)
     res = ensure_resources(res, index.device)
     if isinstance(queries, torch.Tensor) and queries.dim() == 1:
         queries = queries[None]
@@ -505,7 +546,7 @@ def search(index: Index, queries, k: int,
                          f"({nq}, {sp.plan['n_seeds']})")
     ex_params = {"k": int(k), "nq": nq, "bucket": query_bucket(nq),
                  "metric": index.metric.name,
-                 "graph_degree": index.graph_degree, "fast_scan": False}
+                 "graph_degree": index.graph_degree, "fast_scan": fast_scan}
     if sp.engine == "pallas":
         reason = fused_dispatch_reason(params.scan_mode)
         ex_plan = {**sp.plan, **kernel_plan(index.device,
@@ -530,7 +571,9 @@ def search(index: Index, queries, k: int,
             q_tile = max(1, res.workspace_limit_bytes // per_q)
             out = search_core(queries, index.dataset, index.graph, seeds,
                               words, index.metric, int(k), itopk, width,
-                              max_iter, q_tile)
+                              max_iter, q_tile,
+                              index.ensure_scan_dataset() if fast_scan
+                              else None)
     return explained(out, cap, explain)
 
 

@@ -9,6 +9,11 @@ Build: balanced k-means on a trainset subsample, then ``extend``: predict
 labels and pack the lists (host-side numpy for a fresh index, a device
 scatter when appending).
 
+List rows are float32, bfloat16, float16, int8 or uint8 (BIGANN's and
+SPACEV's uint8 and int8 rows take a quarter of float32's memory); the
+kernels read them as they are and compute in fp32, and every value of the
+narrow types is exact there.
+
 Search: coarse scores (queries × centers, one fp32 matrix product) and a
 ``select_k`` pick the probed lists. Eligible requests (L2/L2Sqrt, no
 filter, no fast scan, k <= 1024) then take the fused kernel
@@ -21,13 +26,16 @@ per query tile the coarse selection, the probed slots' partial distances
 which reads each probed slab where it lies), the metric's distances from
 them, and one ``select_k``. ``scan_mode="xla"`` forces the tiled path with
 the gather of the probed lists per query tile in place of the scan kernel.
+The bf16 fast scan (``scan_dtype="bfloat16"``, float32 lists) takes the
+tiled path with the gather: the probed slots' bf16 screen
+(``ops.distance.gathered_dot_bf16``) keeps ``refine_ratio·k`` candidates,
+which are re-ranked exactly in fp32; neither kernel serves it, as in the
+JAX package.
 
 Every search records its engine and why (``obs.explain.record_dispatch``;
 ``explain=True`` returns the record). ``serialize``/``deserialize`` write
-and read the JAX package's file format.
-
-Not ported yet (each raises ``NotImplementedError``): the bf16 fast scan
-(``scan_dtype``) and int8/uint8 list data.
+and read the JAX package's file format; ``helpers`` reads and rewrites one
+list.
 """
 
 from __future__ import annotations
@@ -49,15 +57,17 @@ from raft_tpu_torch.core.bitset import filter_mask as bitset_filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors import list_packing
 from raft_tpu_torch.neighbors.brute_force import (
-    _check_deferred, explained, fused_dispatch_reason, fused_ineligible_reason,
-    kernel_plan)
+    explained, fast_scan_requested, fused_dispatch_reason,
+    fused_ineligible_reason, kernel_plan)
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops import rng as rrng
-from raft_tpu_torch.ops.distance import (DistanceType, dot_fp32,
-                                         resolve_metric, row_norms_sq)
-from raft_tpu_torch.ops.select_k import (SelectAlgo, select_k,
-                                         select_k_maybe_approx)
+from raft_tpu_torch.ops.distance import (DistanceType, dot_bf16, dot_fp32,
+                                         gathered_distances,
+                                         gathered_dot_bf16, resolve_metric,
+                                         row_norms_sq)
+from raft_tpu_torch.ops.select_k import (SelectAlgo, refine_multiplier,
+                                         select_k, select_k_maybe_approx)
 from raft_tpu_torch.utils.shape import as_query_array, query_bucket
 
 
@@ -87,8 +97,10 @@ class SearchParams:
     every eligible request and the scan kernel for the others, ``"xla"``
     forces the tiled path with its gather.
     ``select_recall`` < 1 asks for approximate selection, which the port
-    answers exactly. ``scan_dtype``/``refine_ratio`` belong to the bf16 fast
-    scan, not ported yet."""
+    answers exactly. ``scan_dtype="bfloat16"`` (float32 lists) asks for the
+    bf16 fast scan, which re-ranks ``refine_ratio·k`` candidates a query
+    exactly in fp32; a wider ratio buys recall where bf16's rounding of the
+    inputs pushes true neighbours out of the screen."""
 
     n_probes: int = 20
     scan_dtype: Optional[object] = None
@@ -159,11 +171,18 @@ class Index:
         return self.centers.device
 
 
-def _check_list_dtype(dtype: torch.dtype) -> None:
-    if dtype not in (torch.float32, torch.bfloat16):
-        raise NotImplementedError(
-            f"{dtype} list data is not ported yet (ROADMAP: int8/uint8 "
-            "lists); the port keeps float32 or bfloat16 lists")
+def _as_rows(x, device: torch.device) -> torch.Tensor:
+    """Rows for the lists on ``device``: float64 becomes float32 (as a JAX
+    array without 64-bit types does); a type the IVF kernels cannot read
+    raises."""
+    x = _as_tensor(x, device)
+    if x.dtype == torch.float64:
+        x = x.to(torch.float32)
+    if x.dtype not in gk.ROW_TYPES:
+        raise TypeError(f"ivf_flat list rows must be one of "
+                        f"{sorted(str(t) for t in gk.ROW_TYPES)}, got "
+                        f"{x.dtype}")
+    return x
 
 
 def _pack_lists(dataset: np.ndarray, labels: np.ndarray, n_lists: int,
@@ -212,8 +231,7 @@ def build(dataset, params: Optional[IndexParams] = None,
     otherwise."""
     params = params or IndexParams()
     res = ensure_resources(res, device)
-    dataset = _as_tensor(dataset, res.device)
-    _check_list_dtype(dataset.dtype)
+    dataset = _as_rows(dataset, res.device)
     n_rows = dataset.shape[0]
     if params.n_lists > n_rows:
         raise ValueError(f"n_lists={params.n_lists} > n_rows={n_rows}")
@@ -236,16 +254,18 @@ def extend(index: Index, new_vectors, new_indices=None,
            res: Optional[Resources] = None) -> Index:
     """Add vectors (with ids, or ids past every existing one) on the index's
     device and return the new index; ``adaptive_centers`` recomputes the
-    centers as list means. ``res``, when given, must be on the index's
+    centers as list means. The rows are labelled as given and stored in the
+    index's row type. ``res``, when given, must be on the index's
     device."""
     dev = index.device
     if res is not None:
         ensure_resources(res, dev)
-    new_vectors = _as_tensor(new_vectors, dev)
-    _check_list_dtype(new_vectors.dtype)
+    new_vectors = _as_rows(new_vectors, dev)
     km_params = KMeansBalancedParams(metric=index.metric)
     labels = kmeans_balanced.predict(index.centers, new_vectors,
                                      km_params).cpu().numpy()
+    if index.list_data is not None:
+        new_vectors = new_vectors.to(index.list_data.dtype)
     new_np = _host(new_vectors)
     dt = new_vectors.dtype
     if new_indices is None:
@@ -327,10 +347,12 @@ def _coarse_scores(queries, centers, metric: DistanceType):
 
 
 def _overflow_scan(qf, o_f32, o_norms, o_ok_base, overflow_indices,
-                   filter_words, metric: DistanceType, bad_fill):
+                   filter_words, metric: DistanceType, bad_fill,
+                   fast_scan: bool = False):
     """Distances of a query tile to every overflow row: ([t, O] distances,
-    [t, O] ids, [t, O] validity), ready to join the final select_k."""
-    dots = dot_fp32(qf, o_f32)
+    [t, O] ids, [t, O] validity), ready to join the final select_k; with
+    ``fast_scan`` the product is the bf16 screen's."""
+    dots = dot_bf16(qf, o_f32) if fast_scan else dot_fp32(qf, o_f32)
     if metric == DistanceType.InnerProduct:
         od = dots
     elif metric == DistanceType.CosineExpanded:
@@ -352,12 +374,16 @@ def _overflow_scan(qf, o_f32, o_norms, o_ok_base, overflow_indices,
 
 def _search_core(queries, index: Index, filter_words, k: int, n_probes: int,
                  q_tile: int, select_recall: float = 1.0,
-                 use_scan: bool = False):
+                 use_scan: bool = False, fast_scan: bool = False,
+                 refine_mult: int = 1):
     """Tiled search: per query tile, score every probed slot and select over
     the probed slots plus the overflow block. With ``use_scan`` the slots'
     partials ``‖row‖² − 2·q·row`` come from ``gk.ivf_scan`` (the JAX
     package's ``use_pallas`` arithmetic), else from a gather of the probed
-    lists [t, P, pad, dim] and one product."""
+    lists [t, P, pad, dim] and one product. With ``fast_scan`` (which
+    ``search`` never combines with ``use_scan``) that product is bf16 with
+    the exact row norms, the best ``max(refine_mult·k, k + 8)`` candidates
+    are kept, and their exact fp32 distances decide the top k."""
     metric = index.metric
     list_data, list_indices = index.list_data, index.list_indices
     list_pad = list_data.shape[1]
@@ -395,6 +421,15 @@ def _search_core(queries, index: Index, filter_words, k: int, n_probes: int,
             vn2 = row_norms[probes]
             dots = None if is_l2 else 0.5 * (vn2 - part)
             l2 = qn2 + part if is_l2 else None
+        elif fast_scan:
+            # the bf16 screen; the rows' norms stay exact fp32
+            g_data = list_data[probes]  # [t, P, pad, dim]
+            dots = gathered_dot_bf16(
+                qt, g_data.reshape(t, n_probes * list_pad, -1)).reshape(
+                    t, n_probes, list_pad)
+            vn2 = (None if metric == DistanceType.InnerProduct
+                   else index.ensure_row_norms()[probes])
+            l2 = (qn2 + vn2) - 2.0 * dots if is_l2 else None
         else:
             g_data = list_data[probes].to(torch.float32)  # [t, P, pad, dim]
             dots = torch.einsum("td,tpld->tpl", qf, g_data)
@@ -415,17 +450,45 @@ def _search_core(queries, index: Index, filter_words, k: int, n_probes: int,
         if filter_words is not None:
             ok = ok & bitset_filter_mask(g_idx, filter_words)
         d = torch.where(ok, d, bad_fill)
-        flat_d = d.reshape(t, n_probes * list_pad)
-        flat_i = g_idx.reshape(t, n_probes * list_pad)
+        n_main = n_probes * list_pad
+        flat_d = d.reshape(t, n_main)
+        flat_i = g_idx.reshape(t, n_main)
+        flat_ok = ok.reshape(t, n_main)
         if has_overflow:
-            od, oi, _ = _overflow_scan(qf, o_f32, o_norms, o_ok_base,
-                                       index.overflow_indices, filter_words,
-                                       metric, bad_fill)
+            od, oi, o_ok = _overflow_scan(qf, o_f32, o_norms, o_ok_base,
+                                          index.overflow_indices,
+                                          filter_words, metric, bad_fill,
+                                          fast_scan)
             flat_d = torch.cat([flat_d, od], dim=1)
             flat_i = torch.cat([flat_i, oi], dim=1)
+            flat_ok = torch.cat([flat_ok, o_ok], dim=1)
         kk = min(k, flat_d.shape[1])
-        v, sel = select_k_maybe_approx(flat_d, kk, minimize, select_recall)
-        i_out = torch.gather(flat_i, 1, sel.long())
+        if fast_scan:
+            # the exact fp32 re-rank of the screen's best, masked again by
+            # the slots' validity (pad and filter) rather than by the
+            # screen's value
+            k_ref = min(max(refine_mult * k, k + 8), flat_d.shape[1])
+            _, sel = select_k_maybe_approx(flat_d, k_ref, minimize,
+                                           select_recall)
+            sel = sel.long()
+            cand_i = torch.gather(flat_i, 1, sel)
+            cand_ok = torch.gather(flat_ok, 1, sel)
+            cand_list = torch.gather(
+                probes, 1, torch.clamp_max(sel // list_pad, n_probes - 1))
+            cand_vecs = list_data[cand_list, sel % list_pad].to(torch.float32)
+            if has_overflow:
+                o_idx = torch.clamp(sel - n_main, 0, o_f32.shape[0] - 1)
+                cand_vecs = torch.where((sel < n_main)[:, :, None],
+                                        cand_vecs, o_f32[o_idx])
+            exact = torch.where(cand_ok,
+                                gathered_distances(qf, cand_vecs, metric),
+                                bad_fill)
+            v, sel2 = select_k(exact, kk, select_min=minimize)
+            i_out = torch.gather(cand_i, 1, sel2.long())
+        else:
+            v, sel = select_k_maybe_approx(flat_d, kk, minimize,
+                                           select_recall)
+            i_out = torch.gather(flat_i, 1, sel.long())
         if kk < k:
             v = torch.cat([v, v.new_full((t, k - kk), bad_fill)], dim=1)
             i_out = torch.cat([i_out, i_out.new_full((t, k - kk), -1)], dim=1)
@@ -486,13 +549,17 @@ def search(index: Index, queries, k: int,
            filter: Optional[Bitset] = None,
            res: Optional[Resources] = None, explain: bool = False):
     """Search → ``(distances [nq, k] f32, ids [nq, k] i32)``; ids are source
-    row ids, -1 where fewer than k valid candidates were probed. Runs on
-    the index's device. ``explain=True`` returns a third element, the
+    row ids, -1 where fewer than k valid candidates were probed. Queries
+    keep their type (the products are fp32 whatever the lists' row type),
+    as in the JAX package, whose IVF-Flat does not cast them to the lists'
+    type. Runs on the index's device. ``explain=True`` returns a third element, the
     search's ``ExplainRecord``."""
     params = params or SearchParams()
-    _check_deferred(params.scan_dtype)
     if index.list_data is None:
         raise ValueError("index has no data; call extend() first")
+    fast_scan = fast_scan_requested(params.scan_dtype)
+    if fast_scan and index.list_data.dtype != torch.float32:
+        raise ValueError("scan_dtype requires fp32 list data")
     if params.scan_mode not in ("auto", "xla", "pallas"):
         raise ValueError(f"scan_mode={params.scan_mode!r}: expected 'auto', "
                          "'xla' or 'pallas'")
@@ -506,7 +573,7 @@ def search(index: Index, queries, k: int,
     scan_mode = params.scan_mode
     ineligible = fused_ineligible_reason(
         index.metric, index.list_data.dtype, int(k), filter is not None,
-        False, require_float=False)
+        fast_scan, require_float=False)
     ex_params = {"k": int(k), "nq": nq, "bucket": query_bucket(nq),
                  "n_probes": n_probes, "n_lists": index.n_lists,
                  "list_pad": list_pad, "dim": index.dim,
@@ -520,7 +587,8 @@ def search(index: Index, queries, k: int,
                 plan=kernel_plan(index.device, "fused_ivf_topk"))
             out = _search_fused_core(queries, index, int(k), n_probes)
         else:
-            use_scan = scan_mode != "xla"
+            # the fast scan keeps off the scan kernel, as in the JAX package
+            use_scan = scan_mode != "xla" and not fast_scan
             q_tile = plan_scan_tiles(n_probes, list_pad, index.dim,
                                      res.workspace_limit_bytes)
             plan = {"q_tile": q_tile, "unfused_ivf_scan": use_scan,
@@ -530,13 +598,15 @@ def search(index: Index, queries, k: int,
                 plan.update(kernel_plan(index.device, "ivf_scan"))
             obs_explain.record_dispatch(
                 "ivf_flat", scan_mode, "xla",
-                ineligible if use_scan else "forced", params=ex_params,
-                plan=plan)
+                "forced" if scan_mode == "xla" else ineligible,
+                params=ex_params, plan=plan)
             words = filter.words.to(index.device) if filter is not None \
                 else None
             out = _search_core(queries, index, words, int(k), n_probes,
                                q_tile, float(params.select_recall),
-                               use_scan=use_scan)
+                               use_scan=use_scan, fast_scan=fast_scan,
+                               refine_mult=refine_multiplier(
+                                   params.refine_ratio, fast_scan))
     return explained(out, cap, explain)
 
 
@@ -590,3 +660,51 @@ def deserialize(file, res: Optional[Resources] = None, device=None) -> Index:
         r.finish()
     return Index(params, centers, data, idxs, sizes, n_rows, over_rows,
                  over_ids)
+
+
+class helpers:
+    """One list's rows and ids (the JAX package's ``ivf_flat.helpers``).
+    The lists are padded dense blocks, so packing and unpacking place rows;
+    the results are host arrays, and ``pack_list_data`` returns a new index
+    on the old one's device."""
+
+    @staticmethod
+    def unpack_list_data(index: Index, label: int) -> np.ndarray:
+        """The rows of list ``label``, [size, dim] in the index's row type
+        (bfloat16 as its int16 bits)."""
+        size = int(index.list_sizes[label])
+        return _host(index.list_data[label, :size])
+
+    @staticmethod
+    def unpack_list_ids(index: Index, label: int) -> np.ndarray:
+        size = int(index.list_sizes[label])
+        return index.list_indices[label, :size].cpu().numpy()
+
+    @staticmethod
+    def pack_list_data(index: Index, label: int, vectors,
+                       ids=None) -> Index:
+        """A new index whose list ``label`` holds ``vectors`` (cast to the
+        row type) and ``ids`` (kept from the old list where None), with the
+        slots after them cleared (rows 0, ids -1); the overflow block is
+        kept."""
+        dev = index.device
+        vectors = torch.as_tensor(np.asarray(vectors)).to(
+            device=dev, dtype=index.list_data.dtype)
+        n_new = vectors.shape[0]
+        pad = index.list_data.shape[1]
+        if n_new > pad:
+            raise ValueError(f"{n_new} vectors exceed list capacity {pad}")
+        data = index.list_data.clone()
+        idxs = index.list_indices.clone()
+        sizes = index.list_sizes.clone()
+        data[label, :n_new] = vectors
+        data[label, n_new:] = 0
+        if ids is not None:
+            idxs[label, :n_new] = torch.as_tensor(
+                np.asarray(ids, np.int32)).to(dev)
+        idxs[label, n_new:] = -1
+        old = int(sizes[label])
+        sizes[label] = n_new
+        return Index(index.params, index.centers, data, idxs, sizes,
+                     index.n_rows - old + n_new, index.overflow_data,
+                     index.overflow_indices)

@@ -40,9 +40,8 @@ one ``select_k``.
 
 Every search records its engine and why (``obs.explain.record_dispatch``;
 ``explain=True`` returns the record). ``serialize``/``deserialize`` write
-and read the JAX package's file format.
-
-Not ported yet (raises ``NotImplementedError``): ``helpers``.
+and read the JAX package's file format; ``helpers`` unpacks, packs and
+reconstructs one list.
 """
 
 from __future__ import annotations
@@ -1442,11 +1441,61 @@ def deserialize(file, res: Optional[Resources] = None, device=None) -> Index:
 
 
 class helpers:
-    """Code access utilities (``unpack_list_codes``, ``pack_list_codes``,
-    ``reconstruct_list_data``): not ported yet."""
+    """One list's codes (the JAX package's ``ivf_pq.helpers``): unpacked
+    and packed again, and the rows they approximate. Results are host
+    arrays; ``pack_list_codes`` returns a new index on the old one's
+    device."""
 
     @staticmethod
-    def _deferred(*_args, **_kwargs):
-        raise NotImplementedError("ivf_pq.helpers is not ported yet (ROADMAP)")
+    def unpack_list_codes(index: Index, label: int) -> np.ndarray:
+        """The codes of list ``label``'s rows, [size, pq_dim] uint8."""
+        size = int(index.list_sizes[label])
+        return _unpack_codes(index.list_codes[label, :size], index.pq_dim,
+                             index.pq_bits).to(torch.uint8).cpu().numpy()
 
-    unpack_list_codes = pack_list_codes = reconstruct_list_data = _deferred
+    @staticmethod
+    def pack_list_codes(index: Index, label: int, codes,
+                        ids=None) -> Index:
+        """A new index whose list ``label`` holds the unpacked ``codes``
+        [n, pq_dim] and ``ids`` (kept from the old list where None), with
+        the slots after them cleared (codes 0, ids -1); the overflow block
+        is kept."""
+        packed = _pack_codes_np(np.asarray(codes, np.uint8), index.pq_bits)
+        pad = index.list_codes.shape[1]
+        if len(packed) > pad:
+            raise ValueError(f"{len(packed)} codes exceed list capacity {pad}")
+        dev = index.device
+        data = index.list_codes.clone()
+        idxs = index.list_indices.clone()
+        sizes = index.list_sizes.clone()
+        data[label, :len(packed)] = torch.from_numpy(packed).to(dev)
+        data[label, len(packed):] = 0
+        if ids is not None:
+            idxs[label, :len(packed)] = torch.as_tensor(
+                np.asarray(ids, np.int32)).to(dev)
+        idxs[label, len(packed):] = -1
+        old = int(sizes[label])
+        sizes[label] = len(packed)
+        return Index(index.params, index.pq_dim, index.centers,
+                     index.rotation, index.codebooks, data, idxs, sizes,
+                     index.n_rows - old + len(packed), index.overflow_codes,
+                     index.overflow_labels, index.overflow_indices)
+
+    @staticmethod
+    def reconstruct_list_data(index: Index, label: int) -> np.ndarray:
+        """The rows list ``label``'s codes approximate, [size, dim] fp32:
+        the center plus the decoded residual rotated back."""
+        codes = torch.from_numpy(
+            helpers.unpack_list_codes(index, label)).long()
+        cbs = index.codebooks.cpu()
+        if index.params.codebook_kind == CodebookGen.PER_CLUSTER:
+            dec = cbs[label][codes.reshape(-1)]
+        else:
+            flat = cbs.reshape(index.pq_dim * index.pq_book_size,
+                               index.pq_len)
+            offs = codes + torch.arange(index.pq_dim)[None, :] \
+                * index.pq_book_size
+            dec = flat[offs.reshape(-1)]
+        dec = dec.reshape(len(codes), index.rot_dim)
+        center = index.centers[label].cpu()
+        return (center[None, :] + dec @ index.rotation.cpu()).numpy()

@@ -122,6 +122,34 @@ def einsum_fp32(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     return torch.einsum(equation, *(o.to(torch.float32) for o in operands))
 
 
+def _bf16_f32(t: torch.Tensor) -> torch.Tensor:
+    """The bf16 rounding of ``t``, as fp32 values."""
+    return t.to(torch.bfloat16).to(torch.float32)
+
+
+def dot_bf16(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
+    """x @ yᵀ over bf16 operands with fp32 sums and an fp32 result: the
+    bf16 fast scan's screen (the JAX package's bf16 ``dot_general`` with
+    ``preferred_element_type=float32``). On the card one bf16 matrix
+    product with an fp32 output; on the CPU the same function as an fp32
+    product of the bf16-rounded operands (each product is exact in fp32)."""
+    if x.device.type == "cuda":
+        return torch.mm(x.to(torch.bfloat16), y.to(torch.bfloat16).T,
+                        out_dtype=torch.float32)
+    return torch.matmul(_bf16_f32(x), _bf16_f32(y).T)
+
+
+def gathered_dot_bf16(queries: torch.Tensor, vecs: torch.Tensor
+                      ) -> torch.Tensor:
+    """Each query [t, d] against its own candidates [t, c, d] → [t, c], as
+    :func:`dot_bf16` computes a product."""
+    if queries.device.type == "cuda":
+        return torch.bmm(vecs.to(torch.bfloat16),
+                         queries.to(torch.bfloat16)[:, :, None],
+                         out_dtype=torch.float32)[:, :, 0]
+    return torch.einsum("td,tcd->tc", _bf16_f32(queries), _bf16_f32(vecs))
+
+
 def row_norms_sq(x: torch.Tensor) -> torch.Tensor:
     """Squared L2 row norms in fp32."""
     xf = x.to(torch.float32)

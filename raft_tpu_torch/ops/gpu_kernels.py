@@ -446,6 +446,14 @@ def _ptr(t: Optional[torch.Tensor]) -> Optional[int]:
     return None if t is None else t.data_ptr()
 
 
+#: the list row types of the IVF scans (``fused_ivf_topk``, ``ivf_scan``),
+#: by the code their C entries take (``ivfg::RowType`` in ivf_group.cuh).
+#: Every value of the narrow types is exact in fp32, so a narrow list gives
+#: bitwise the result of the same list cast to fp32.
+ROW_TYPES = {torch.float32: 0, torch.bfloat16: 1, torch.float16: 2,
+             torch.int8: 3, torch.uint8: 4}
+
+
 # ------------------------------------------------------ fused_ivf_topk
 
 
@@ -586,8 +594,8 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
     """Fused probe gather + scan + top-k for the IVF families.
 
     probes [nq, P] int32; qres [nq, P, rot] f32 (the query, or its residual
-    per probe); qres_norms [nq, P] f32; list_data [L, pad, rot] f32 or bf16
-    (fp32 accumulation); row_norms [L, pad] f32; list_indices [L, pad] int32
+    per probe); qres_norms [nq, P] f32; list_data [L, pad, rot] of a type of
+    ``ROW_TYPES`` (f32, bf16, fp16, int8, uint8; fp32 accumulation); row_norms [L, pad] f32; list_indices [L, pad] int32
     with -1 at unfilled slots. Returns ``(distances [nq, k], ids [nq, k])``
     ascending; ``clamp`` applies max(d, 0). On the card the route and its
     sizes come from ``plan_fused_ivf``; the grouped route takes int32 and
@@ -604,7 +612,7 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
     _check("probes", probes, torch.int32, 2, dev)
     _check("qres", qres, torch.float32, 3, dev)
     _check("qres_norms", qres_norms, torch.float32, 2, dev)
-    _check("list_data", list_data, (torch.float32, torch.bfloat16), 3, dev)
+    _check("list_data", list_data, tuple(ROW_TYPES), 3, dev)
     _check("row_norms", row_norms, torch.float32, 2, dev)
     _check("list_indices", list_indices, torch.int32, 2, dev)
     if (tuple(qres.shape) != (nq, n_probes, rot)
@@ -646,7 +654,7 @@ def fused_ivf_topk(probes, qres, qres_norms, list_data, row_norms,
             rc = lib.fused_ivf_topk(
                 probes[r0:r1].data_ptr(), qres[r0:r1].data_ptr(),
                 qres_norms[r0:r1].data_ptr(), list_data.data_ptr(),
-                int(list_data.dtype == torch.bfloat16), row_norms.data_ptr(),
+                ROW_TYPES[list_data.dtype], row_norms.data_ptr(),
                 list_indices.data_ptr(), r1 - r0, n_probes, n_lists, pad, rot,
                 k, int(bool(clamp)), int(not grouped), plan.chunks_per_run,
                 _ptr(groups), _ptr(part_v),
@@ -1548,8 +1556,8 @@ def ivf_scan(probes, qres, list_data, row_norms):
     out[q, p, s] = row_norms[l, s] − 2·list_data[l, s]·qres[q, p], l =
     probes[q, p] (+inf for a probe outside [0, n_lists)). probes [nq, P]
     int32; qres [nq, P, rot] f32 (the query replicated per probe, or its
-    residual); list_data [n_lists, pad, rot] f32 or bf16 (fp32
-    accumulation); row_norms [n_lists, pad] f32. Every slot is written; the
+    residual); list_data [n_lists, pad, rot] of a type of ``ROW_TYPES``
+    (f32, bf16, fp16, int8, uint8; fp32 accumulation); row_norms [n_lists, pad] f32. Every slot is written; the
     caller adds the query's norm and masks unfilled slots. On the card the
     pairs are grouped by list first (``ivf_scan_groups``, into int32
     scratch of ``ivf_group_scratch(nq·P, n_lists)``), so that each probed
@@ -1564,7 +1572,7 @@ def ivf_scan(probes, qres, list_data, row_norms):
     n_lists, pad, rot = list_data.shape
     _check("probes", probes, torch.int32, 2, dev)
     _check("qres", qres, torch.float32, 3, dev)
-    _check("list_data", list_data, (torch.float32, torch.bfloat16), 3, dev)
+    _check("list_data", list_data, tuple(ROW_TYPES), 3, dev)
     _check("row_norms", row_norms, torch.float32, 2, dev)
     if (tuple(qres.shape) != (nq, n_probes, rot)
             or tuple(row_norms.shape) != (n_lists, pad)):
@@ -1586,7 +1594,7 @@ def ivf_scan(probes, qres, list_data, row_norms):
     with torch.cuda.device(dev):
         rc = lib.ivf_scan(
             probes.data_ptr(), qres.data_ptr(), list_data.data_ptr(),
-            int(list_data.dtype == torch.bfloat16), row_norms.data_ptr(),
+            ROW_TYPES[list_data.dtype], row_norms.data_ptr(),
             groups.data_ptr(), n_pairs, n_lists, pad, rot,
             IVF_SCAN_CHUNKS_PER_BLOCK, out.data_ptr(), _stream(dev))
     _check_rc("ivf_scan", rc)

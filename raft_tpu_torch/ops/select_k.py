@@ -10,10 +10,16 @@
   package's approximate PartialReduce engine and its certified-threshold
   screen are TPU answers to a slow ``lax.top_k``; the port selects exactly.
 
-``AUTO`` picks ``DIRECT`` or ``TWO_PHASE`` by row width from the JAX
-package's builtin default crossover table. A crossover table measured on
-the H100, and the SELECT_K_TABLE / TOPK_PAD artifact scanners, are later
-work.
+``AUTO`` picks ``DIRECT`` or ``TWO_PHASE`` by row width from a crossover
+table of the platform the values lie on (``"cuda"`` or ``"cpu"``), else
+from the JAX package's builtin default table. ``set_auto_table`` installs
+a platform's table and ``set_pad_rules`` its k-pad rules (a selection
+asked for k takes the top k' >= k and keeps the first k, which is exact);
+the port ships neither for its platforms, and the JAX package's builtins
+are the TPU's. Tables measured on the H100, and the SELECT_K_TABLE /
+TOPK_PAD artifact scanners, are later work. ``select_k_plan`` says what a
+selection would resolve to, and ``select_k_filtered`` folds a bitset
+filter into a selection.
 
 Both glue engines return ``lax.top_k``'s order exactly (``topk_lowest_first``):
 values in IEEE total order (-0.0 before +0.0), ties by lowest position, so
@@ -26,10 +32,11 @@ The graph merges of NN-descent and CAGRA (``merge_topk_dedup``,
 from __future__ import annotations
 
 import enum
-from typing import Optional, Tuple
+from typing import Dict, List, Optional, Tuple
 
 import torch
 
+from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.utils.shape import cdiv
@@ -47,25 +54,108 @@ class SelectAlgo(enum.Enum):
 _TILE = 16384
 #: k_max → row width from which TWO_PHASE is chosen over DIRECT
 _DEFAULT_TABLE = {"32": 65536, "256": 65536, "inf": 131072}
+#: crossover tables by platform, installed by ``set_auto_table``; a
+#: platform without one takes "default"
+_AUTO_TABLES: Dict[str, dict] = {"default": dict(_DEFAULT_TABLE)}
+#: k-pad rules by platform, installed by ``set_pad_rules``
+_PAD_RULES: Dict[str, List[dict]] = {}
+#: False while no table or pad rule is installed: ``select_k`` then takes
+#: the default crossovers, parsed once, and pads nothing
+_INSTALLED = False
+
+
+def _sorted_bands(table: dict) -> List[Tuple[float, int]]:
+    return sorted((float(km) if km != "inf" else float("inf"), w)
+                  for km, w in table.items())
+
+
+_DEFAULT_BANDS = _sorted_bands(_DEFAULT_TABLE)
+
+
+def _note_installed() -> None:
+    global _INSTALLED
+    _INSTALLED = bool(_PAD_RULES) or \
+        _AUTO_TABLES != {"default": _DEFAULT_TABLE}
+
+
+def platform_key(device=None) -> str:
+    """The tables' key for a device: ``"cuda"`` or ``"cpu"``; with no
+    device, the card when there is one."""
+    if device is None:
+        return "cuda" if torch.cuda.is_available() else "cpu"
+    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+
+
+def set_auto_table(platform: str, crossovers: Optional[dict]) -> None:
+    """Install (or with None, drop) a platform's crossover table:
+    ``{"<k_max>"|"inf": min_two_phase_width}``, or the nested form
+    ``{"two_phase": {...}, "screen": {...}}``."""
+    if crossovers is None:
+        _AUTO_TABLES.pop(platform, None)
+        _AUTO_TABLES.setdefault("default", dict(_DEFAULT_TABLE))
+    else:
+        _AUTO_TABLES[platform] = dict(crossovers)
+    _note_installed()
+
+
+def set_pad_rules(platform: str, rules: Optional[list]) -> None:
+    """Install (or with None, drop) a platform's k-pad rules:
+    ``[{"n": width, "k": requested_k, "k_pad": padded_k}, ...]``."""
+    if rules is None:
+        _PAD_RULES.pop(platform, None)
+    else:
+        _PAD_RULES[platform] = [dict(r) for r in rules]
+    _note_installed()
 
 
 def _band(table: dict, k: int) -> Optional[int]:
     """Width threshold of the smallest k-band covering ``k``."""
-    for k_max, width in sorted(
-            ((float(km) if km != "inf" else float("inf"), w)
-             for km, w in table.items())):
+    for k_max, width in _sorted_bands(table):
         if k <= k_max:
             return width
     return None
 
 
-def _resolve_auto(n: int, k: int) -> SelectAlgo:
+def _pad_k(n: int, k: int, platform: str) -> int:
+    """The k to select at row width n: the platform's rule for this k whose
+    width is nearest within ×1.25, else k."""
+    best = None
+    for r in _PAD_RULES.get(platform, []):
+        if r["k"] != k:
+            continue
+        ratio = max(n, r["n"]) / max(1, min(n, r["n"]))
+        if ratio <= 1.25 and (best is None or ratio < best[0]):
+            best = (ratio, r["k_pad"])
+    return min(n, best[1]) if best else k
+
+
+def _resolve_auto(n: int, k: int, floating: bool = True,
+                  platform: Optional[str] = None) -> SelectAlgo:
+    table = _AUTO_TABLES.get(platform or platform_key(),
+                             _AUTO_TABLES["default"])
+    nested = "screen" in table or "two_phase" in table
+    screen_tab = table.get("screen")
+    tp_tab = table.get("two_phase", {}) if nested else table
     if k * 4 > n:
         return SelectAlgo.DIRECT
-    band = _band(_DEFAULT_TABLE, k)
+    if screen_tab and floating:
+        band = _band(screen_tab, k)
+        if band is not None and n >= band:
+            return SelectAlgo.SCREEN
+    band = _band(tp_tab, k)
     if band is None or n < band:
         return SelectAlgo.DIRECT
     return SelectAlgo.TWO_PHASE
+
+
+def _resolve_default(n: int, k: int) -> SelectAlgo:
+    """``_resolve_auto`` over the default table, with no table installed."""
+    if k * 4 <= n:
+        for k_max, width in _DEFAULT_BANDS:
+            if k <= k_max:
+                return SelectAlgo.TWO_PHASE if n >= width \
+                    else SelectAlgo.DIRECT
+    return SelectAlgo.DIRECT
 
 
 def _order_keys(values: torch.Tensor, select_min: bool) -> torch.Tensor:
@@ -106,9 +196,12 @@ def topk_lowest_first(values: torch.Tensor, k: int, select_min: bool = True
     return torch.gather(values, 1, sel), sel
 
 
-def _direct(values: torch.Tensor, k: int, select_min: bool):
-    v, i = topk_lowest_first(values, k, select_min)
-    return v, i.to(torch.int32)
+def _direct(values: torch.Tensor, k: int, select_min: bool,
+            k_pad: int = 0):
+    # exact: the first k of a larger selection are the selection of k
+    v, i = topk_lowest_first(values, min(values.shape[-1], max(k, k_pad)),
+                             select_min)
+    return v[:, :k], i[:, :k].to(torch.int32)
 
 
 def _two_phase(values: torch.Tensor, k: int, select_min: bool):
@@ -131,15 +224,19 @@ def _two_phase(values: torch.Tensor, k: int, select_min: bool):
 
 def select_k(values, k: int, select_min: bool = True,
              indices: Optional[torch.Tensor] = None,
-             algo: SelectAlgo = SelectAlgo.AUTO
+             algo: SelectAlgo = SelectAlgo.AUTO,
+             recall_target: float = 0.95, pad_rules: bool = True
              ) -> Tuple[torch.Tensor, torch.Tensor]:
     """Select the k smallest (or largest) entries per row of values
     [batch, len] → ``(values [batch, k], positions [batch, k] int32)``.
     With ``indices`` the positions are relabelled through it, keeping -1
-    null markers. Every algorithm here is exact."""
+    null markers. Every algorithm here is exact, so ``recall_target``
+    (APPROX's in the JAX package) changes nothing; ``pad_rules=False``
+    skips the platform's k-pad rules."""
     values = torch.as_tensor(values)
     if values.dim() == 1:
-        v, i = select_k(values[None], k, select_min, None, algo)
+        v, i = select_k(values[None], k, select_min, None, algo,
+                        recall_target, pad_rules)
         v, i = v[0], i[0]
         if indices is not None:
             idx = torch.as_tensor(indices, device=values.device)
@@ -147,11 +244,20 @@ def select_k(values, k: int, select_min: bool = True,
         return v, i
     if k > values.shape[-1]:
         raise ValueError(f"k={k} > row length {values.shape[-1]}")
-    if algo == SelectAlgo.AUTO:
-        algo = _resolve_auto(values.shape[-1], int(k))
+    k_pad = 0
+    if not _INSTALLED:
+        if algo == SelectAlgo.AUTO:
+            algo = _resolve_default(values.shape[-1], int(k))
+    else:
+        platform = platform_key(values.device)
+        if algo == SelectAlgo.AUTO:
+            algo = _resolve_auto(values.shape[-1], int(k),
+                                 values.dtype.is_floating_point, platform)
+        if pad_rules and algo in (SelectAlgo.DIRECT, SelectAlgo.SCREEN):
+            k_pad = _pad_k(values.shape[-1], int(k), platform)
     # capture-only explain note (never the dispatch counter): the resolved
     # algorithm rides the record of the search that selects here
-    obs_explain.note_select_k(values.shape[-1], int(k), algo.name)
+    obs_explain.note_select_k(values.shape[-1], int(k), algo.name, k_pad)
     if algo == SelectAlgo.PALLAS:
         v, out_i = gk.streaming_select_k(values.to(torch.float32).contiguous(),
                                          int(k), bool(select_min))
@@ -159,12 +265,52 @@ def select_k(values, k: int, select_min: bool = True,
     elif algo == SelectAlgo.TWO_PHASE:
         out_v, out_i = _two_phase(values, int(k), bool(select_min))
     else:  # DIRECT, and the exact stand-ins for APPROX and SCREEN
-        out_v, out_i = _direct(values, int(k), bool(select_min))
+        out_v, out_i = _direct(values, int(k), bool(select_min), k_pad)
     if indices is not None:
         relabeled = torch.gather(torch.as_tensor(indices, device=values.device),
                                  1, out_i.clamp_min(0).long())
         out_i = torch.where(out_i < 0, -1, relabeled.to(torch.int32))
     return out_v, out_i
+
+
+def select_k_filtered(values, k: int, ids, filter_words,
+                      select_min: bool = True,
+                      algo: SelectAlgo = SelectAlgo.AUTO,
+                      recall_target: float = 0.95, pad_rules: bool = True):
+    """``select_k`` over candidates ``values`` [batch, len] labelled by
+    ``ids`` ([batch, len], or [len] for every row; -1 marks padding) with a
+    bitset filter folded in: an id whose bit in ``filter_words`` is clear is
+    never selected. Returns ``(values [batch, k], ids [batch, k],
+    n_filtered)``, ``n_filtered`` a 0-d int32 tensor: the live candidates
+    (valid id, finite value) that the filter removed."""
+    values = torch.as_tensor(values)
+    ids = torch.as_tensor(ids, device=values.device)
+    if ids.dim() == values.dim() - 1:
+        ids = ids[None, :].expand(values.shape)
+    valid = ids >= 0
+    if values.dtype.is_floating_point:
+        valid = valid & torch.isfinite(values)
+    allowed = filter_mask(ids, torch.as_tensor(filter_words,
+                                               device=values.device))
+    n_filtered = (valid & ~allowed).sum().to(torch.int32)
+    keep = valid & allowed
+    sentinel = torch.inf if select_min else -torch.inf
+    v, i = select_k(torch.where(keep, values, sentinel), k, select_min,
+                    indices=torch.where(keep, ids, -1), algo=algo,
+                    recall_target=recall_target, pad_rules=pad_rules)
+    return v, i, n_filtered
+
+
+def select_k_plan(n: int, k: int, floating: bool = True,
+                  pad_rules: bool = True, device=None) -> dict:
+    """What ``select_k`` would resolve to for rows of n values at this k on
+    ``device``'s platform (``platform_key``), without running it:
+    ``{"algo", "k_pad"}``."""
+    platform = platform_key(device)
+    algo = _resolve_auto(int(n), int(k), bool(floating), platform)
+    k_pad = _pad_k(int(n), int(k), platform) if pad_rules and algo in (
+        SelectAlgo.DIRECT, SelectAlgo.SCREEN) else 0
+    return {"algo": algo.name, "k_pad": int(k_pad)}
 
 
 def select_k_maybe_approx(values, k: int, select_min: bool,

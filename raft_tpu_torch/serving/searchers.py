@@ -81,26 +81,37 @@ class Searcher:
         return float(getattr(self.index, "coverage", 1.0))
 
 
+def _host_dtype(dtype: torch.dtype) -> np.dtype:
+    """The numpy type of a batch for rows of ``dtype``: the narrow types
+    as they are, float32 for the rest (numpy has no bfloat16)."""
+    narrow = {torch.float16: np.float16, torch.int8: np.int8,
+              torch.uint8: np.uint8}
+    return np.dtype(narrow.get(dtype, np.float32))
+
+
 def brute_force_searcher(index, res=None, scan_dtype=None,
                          refine_ratio: float = 4.0,
                          select_recall: float = 1.0) -> Searcher:
-    """Brute-force handle; ``select_recall`` flows to
-    ``brute_force.search``. ``scan_dtype``, the bf16 fast scan, raises
-    until it is ported, and ``refine_ratio`` (how many of the fast scan's
-    candidates are re-ranked in fp32) has no effect until then: it is
-    taken so that the JAX package's calls run unchanged."""
+    """Brute-force handle; ``scan_dtype`` (the bf16 fast scan),
+    ``refine_ratio`` and ``select_recall`` flow to ``brute_force.search``.
+    Batches travel in the dataset's type, as the search casts them."""
     from raft_tpu_torch.neighbors import brute_force
-
-    brute_force._check_deferred(scan_dtype)
 
     def search(queries, k: int):
         return brute_force.search(index, queries, k, res=res,
+                                  scan_dtype=scan_dtype,
+                                  refine_ratio=refine_ratio,
                                   select_recall=select_recall)
 
-    return Searcher("brute_force", int(index.dim), index, search)
+    return Searcher("brute_force", int(index.dim), index, search,
+                    _host_dtype(index.dataset.dtype))
 
 
 def ivf_flat_searcher(index, params=None, res=None) -> Searcher:
+    """IVF-Flat handle; ``params`` (the fast scan's ``scan_dtype`` and
+    ``refine_ratio`` too) flow to ``ivf_flat.search``. Batches travel in
+    float32 whatever the lists' row type, as in the JAX package: the search
+    keeps the queries' type, and the kernel is chosen by the row type."""
     from raft_tpu_torch.neighbors import ivf_flat
 
     params = params or ivf_flat.SearchParams()
@@ -124,7 +135,8 @@ def ivf_pq_searcher(index, params=None, res=None) -> Searcher:
 
 def cagra_searcher(index, params=None, res=None) -> Searcher:
     """CAGRA handle with a seed table per (bucket, k): drawn on the first
-    search of that shape (the engine's warm-up) and reused."""
+    search of that shape (the engine's warm-up) and reused. ``params``
+    (the fast scan's ``scan_dtype`` too) flow to ``cagra.search``."""
     from raft_tpu_torch.neighbors import cagra
 
     params = params or cagra.SearchParams()

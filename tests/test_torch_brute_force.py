@@ -113,8 +113,13 @@ def test_rejects_bad_requests(data):
         tbf.search(index, q, 5, scan_mode="mosaic")
     with pytest.raises(ValueError, match="query dim"):
         tbf.search(index, q[:, :8], 5)
-    with pytest.raises(NotImplementedError, match="fast scan"):
-        tbf.search(index, q, 5, scan_dtype="bfloat16")
+    # the fast scan takes bfloat16 over an fp32 dataset, as raft_tpu's does
+    for search, build in ((tbf.search, lambda x: tbf.build(x, device="cpu")),
+                          (jbf.search, jbf.build)):
+        with pytest.raises(ValueError, match="only bfloat16"):
+            search(build(db), q, 5, scan_dtype="float16")
+        with pytest.raises(ValueError, match="fp32 dataset"):
+            search(build(db.astype(np.float16)), q, 5, scan_dtype="bfloat16")
     with pytest.raises(NotImplementedError, match="ROADMAP"):
         tbf.build(db, metric="l1", device="cpu")
 

@@ -413,10 +413,15 @@ def test_plan_search_reasons(carried, data):
         jc.resolve_search_plan(jc.SearchParams(), 100, 3000)
 
 
-def test_deferred_parts_raise(carried, data):
+def test_deferred_parts_raise(carried, jbuilt, data):
+    """What still raises: a fast scan of another type than bfloat16 (as in
+    raft_tpu; the bf16 fast scan itself is held to raft_tpu's in
+    tests/test_torch_fast_scan.py), an unknown scan mode, another metric."""
     _, q = data
-    with pytest.raises(NotImplementedError, match="scan_dtype"):
-        tc.search(carried, q, 10, tc.SearchParams(scan_dtype="bfloat16"))
+    with pytest.raises(ValueError, match="only bfloat16"):
+        tc.search(carried, q, 10, tc.SearchParams(scan_dtype="float16"))
+    with pytest.raises(ValueError, match="only bfloat16"):
+        jc.search(jbuilt, q, 10, jc.SearchParams(scan_dtype="float16"))
     with pytest.raises(ValueError, match="scan_mode"):
         tc.search(carried, q, 10, tc.SearchParams(scan_mode="fast"))
     with pytest.raises(ValueError, match="supports"):

@@ -42,6 +42,16 @@ the card: each family restored from its file searches bitwise like the
 saved index and launches its kernel; a sharded checkpoint's strict restore
 (every rank at the largest rank's pad) bitwise the saved index's ring
 search, and its full elastic restore bitwise the allgather merge.
+Narrow list rows (int8, uint8, fp16) on the card: ``fused_ivf_topk`` and
+``ivf_scan`` bitwise equal to the f32 kernel over the same lists cast to
+f32 (every narrow value is exact in f32, and the kernels' arithmetic does
+not depend on the row type), and to the plain version within the
+tolerances above, on both routes of ``fused_ivf_topk``, the 100-byte int8
+row and widths that are not a multiple of 4; two narrow IVF-Flat builds
+bitwise equal. The bf16 fast scan on the card (one bf16 product with an
+fp32 result) against the CPU's (an fp32 product of the bf16-rounded
+operands): ids at least 99% equal and distances within the tolerances
+above where they agree.
 """
 
 import pytest
@@ -1429,3 +1439,162 @@ def test_sharded_restores_on_the_card_bitwise(dev, kind, tmp_path):
     torch.cuda.synchronize()
     assert gk.LAUNCHES["select_k"] >= 1
     assert _bitwise(got, gather)
+
+
+# ------------------------------------------- narrow list rows, fast scan
+
+
+def _narrow(dev, shape, dtype, seed):
+    """Rows of a narrow type over its range (fp16: normal, std 4)."""
+    g = torch.Generator(device=dev).manual_seed(seed)
+    if dtype == torch.uint8:
+        return torch.randint(0, 256, shape, generator=g, device=dev).to(dtype)
+    if dtype == torch.int8:
+        return torch.randint(-127, 128, shape, generator=g,
+                             device=dev).to(dtype)
+    return (4 * torch.randn(shape, generator=g, device=dev)).to(dtype)
+
+
+_NARROW = [torch.uint8, torch.int8, torch.float16]
+
+
+# both routes (registers, shared memory, per query), SPACEV's 100-byte int8
+# row, widths that are not a multiple of 4 (the element copies), two
+# feature steps a chunk
+@pytest.mark.parametrize("dtype", _NARROW)
+@pytest.mark.parametrize("rot,k,route", [
+    (128, 10, "grouped"), (100, gk.IVF_TOPK_REG_MAX_K + 1, "grouped"),
+    (128, gk.IVF_TOPK_GROUPED_MAX_K + 1, "per_query"), (98, 10, "grouped"),
+    (3, 10, "grouped"), (200, 10, "grouped")])
+def test_narrow_fused_ivf_topk_is_bitwise_the_f32_kernel(dev, dtype, rot, k,
+                                                        route):
+    L, pad, nq, P = 7, 301, 40, 5
+    data = _narrow(dev, (L, pad, rot), dtype, seed=90)
+    probes, qres, qn, _, _, ids = _ivf_inputs(dev, L, pad, rot, nq, P,
+                                              torch.float32, seed=91)
+    norms = (data.float() ** 2).sum(-1)
+    args = (probes, qres, qn, data, norms, ids, k)
+    assert _ivf_route(args, k) == route
+    before = gk.LAUNCHES["fused_ivf_topk"]
+    got = gk.fused_ivf_topk(*args)
+    twin = gk.fused_ivf_topk(probes, qres, qn, data.float(), norms, ids, k)
+    again = gk.fused_ivf_topk(*args)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_ivf_topk"] == before + 3
+    assert _bitwise_equal(got, twin) and _bitwise_equal(got, again)
+    scale = float(torch.maximum(norms.max(), qn.max()))
+    assert_topk_close(got, gk.fused_ivf_topk_plain(*args), 1e-4 * scale,
+                      1e-5)
+
+
+@pytest.mark.parametrize("dtype", _NARROW)
+@pytest.mark.parametrize("case", ["repeats", "out_of_range"])
+@pytest.mark.parametrize("rot", [128, 100, 98, 3])
+def test_narrow_ivf_scan_is_bitwise_the_f32_kernel(dev, dtype, case, rot):
+    probes, qres, _, _ = _scan_case(dev, case, torch.float32, rot)
+    data = _narrow(dev, (7, 301, rot), dtype, seed=92)
+    norms = (data.float() ** 2).sum(-1)
+    before = gk.LAUNCHES["ivf_scan"]
+    got = gk.ivf_scan(probes, qres, data, norms)
+    twin = gk.ivf_scan(probes, qres, data.float(), norms)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["ivf_scan"] == before + 2
+    assert torch.equal(got.view(torch.int32), twin.view(torch.int32))
+    want = gk.ivf_scan_plain(probes, qres, data, norms)
+    assert torch.equal(torch.isinf(got), torch.isinf(want))
+    scale = float(torch.maximum(norms.max(), (qres ** 2).sum(-1).max()))
+    torch.testing.assert_close(got, want, rtol=1e-5, atol=1e-4 * scale)
+
+
+def test_narrow_wrappers_refuse_other_row_types(dev):
+    data = torch.zeros(3, 8, 16, dtype=torch.int16, device=dev)
+    norms = torch.zeros(3, 8, device=dev)
+    probes = torch.zeros(2, 2, dtype=torch.int32, device=dev)
+    qres = _randn(dev, 2, 2, 16)
+    with pytest.raises(TypeError, match="dtype"):
+        gk.ivf_scan(probes, qres, data, norms)
+    with pytest.raises(TypeError, match="dtype"):
+        gk.fused_ivf_topk(probes, qres, (qres ** 2).sum(-1), data, norms,
+                          torch.zeros(3, 8, dtype=torch.int32, device=dev), 4)
+
+
+@pytest.mark.parametrize("dtype", [torch.uint8, torch.int8])
+def test_narrow_ivf_flat_on_the_card_builds_bitwise_and_matches_the_cpu(
+        dev, dtype):
+    db = _narrow(dev, (6000, 100), dtype, seed=93)
+    q = _narrow(dev, (300, 100), dtype, seed=94)
+    params = ivf_flat.IndexParams(n_lists=24)
+    a = ivf_flat.build(db, params, res=Resources(device=dev, seed=3))
+    b = ivf_flat.build(db, params, res=Resources(device=dev, seed=3))
+    for name in ("centers", "list_data", "list_indices", "list_sizes",
+                 "overflow_data", "overflow_indices"):
+        assert torch.equal(getattr(a, name), getattr(b, name)), name
+    assert a.list_data.dtype == dtype
+    sp = ivf_flat.SearchParams(n_probes=6)
+    gk.reset_launch_counts()
+    got = ivf_flat.search(a, q, 10, sp)
+    filt = Bitset.from_mask(torch.arange(6000, device=dev) % 7 != 0)
+    got_f = ivf_flat.search(a, q, 10, sp, filter=filt)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_ivf_topk"] == 1 and gk.LAUNCHES["ivf_scan"] >= 1
+    cpu = interop.ivf_flat_index_from_numpy(
+        a.params, a.centers.cpu(), a.list_data.cpu(), a.list_indices.cpu(),
+        a.list_sizes.cpu(), a.n_rows, a.overflow_data.cpu(),
+        a.overflow_indices.cpu(), device="cpu")
+    scale = float((db.float() ** 2).sum(-1).max() + (q.float() ** 2).sum(-1)
+                  .max())
+    assert_topk_close(got, ivf_flat.search(cpu, q.cpu(), 10, sp),
+                      1e-4 * scale, 1e-5)
+    assert_topk_close(got_f, ivf_flat.search(
+        cpu, q.cpu(), 10, sp, filter=Bitset.from_mask(
+            torch.arange(6000) % 7 != 0)), 1e-4 * scale, 1e-5)
+
+
+def _agree_99(got, want, scale):
+    """ids at least 99% equal, distances close where they agree."""
+    same = got[1].cpu() == want[1]
+    assert float(same.float().mean()) >= 0.99
+    diff = (got[0].cpu() - want[0]).abs()
+    assert bool((diff <= 1e-4 * scale + 1e-5 * want[0].abs())[same].all())
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean",
+                                    "inner_product", "cosine"])
+def test_fast_scan_brute_force_on_the_card_matches_the_cpu(dev, metric):
+    from raft_tpu_torch.neighbors import brute_force
+
+    db, q = _randn(dev, 5000, 64, seed=95), _randn(dev, 200, 64, seed=96)
+    index = brute_force.build(db, metric=metric)
+    got = brute_force.search(index, q, 10, scan_dtype="bfloat16")
+    want = brute_force.search(brute_force.build(db.cpu(), metric=metric,
+                                                device="cpu"), q.cpu(), 10,
+                              scan_dtype="bfloat16")
+    _agree_99(got, want, float((db ** 2).sum(-1).max()
+                               + (q ** 2).sum(-1).max()))
+
+
+def test_fast_scan_ivf_flat_and_cagra_on_the_card_match_the_cpu(dev):
+    db, q = _randn(dev, 6000, 32, seed=97), _randn(dev, 200, 32, seed=98)
+    scale = float((db ** 2).sum(-1).max() + (q ** 2).sum(-1).max())
+    index = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=16),
+                           res=Resources(device=dev, seed=4))
+    cpu = interop.ivf_flat_index_from_numpy(
+        index.params, index.centers.cpu(), index.list_data.cpu(),
+        index.list_indices.cpu(), index.list_sizes.cpu(), index.n_rows,
+        index.overflow_data.cpu(), index.overflow_indices.cpu(), device="cpu")
+    sp = ivf_flat.SearchParams(n_probes=4, scan_dtype="bfloat16")
+    gk.reset_launch_counts()
+    got = ivf_flat.search(index, q, 10, sp)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["fused_ivf_topk"] == 0 and gk.LAUNCHES["ivf_scan"] == 0
+    _agree_99(got, ivf_flat.search(cpu, q.cpu(), 10, sp), scale)
+    graph = torch.randint(0, 6000, (6000, 16), generator=torch.Generator()
+                          .manual_seed(99), dtype=torch.int32)
+    cparams = cagra.IndexParams(graph_degree=16, intermediate_graph_degree=32)
+    c_dev = interop.cagra_index_from_numpy(cparams, db.cpu(), graph,
+                                           device=dev)
+    c_cpu = interop.cagra_index_from_numpy(cparams, db.cpu(), graph,
+                                           device="cpu")
+    csp = cagra.SearchParams(itopk_size=32, scan_dtype="bfloat16")
+    _agree_99(cagra.search(c_dev, q, 10, csp),
+              cagra.search(c_cpu, q.cpu(), 10, csp), scale)

@@ -32,6 +32,7 @@ from raft_tpu_torch.neighbors import brute_force, ivf_flat, ivf_pq, list_packing
 from raft_tpu_torch.neighbors import cagra, nn_descent, refine
 from raft_tpu_torch.bench import breakdown
 from raft_tpu_torch.ops import fused_l2_nn, gpu_kernels, rng, select_k
+from raft_tpu_torch.ops import distance, select_k_filtered
 from raft_tpu_torch.parallel import comms, sharded
 from raft_tpu_torch import obs, serving
 from raft_tpu_torch.bench import serve_load

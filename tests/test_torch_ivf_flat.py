@@ -291,13 +291,23 @@ def test_grow_pad_and_append_lists_match_jax():
 
 
 def test_deferred_pieces_raise(data, jindex):
+    """What still raises, as raft_tpu raises it: a fast scan of another
+    type than bfloat16 or over narrow lists, an unknown scan mode. int8
+    lists, once deferred, now build (tests/test_torch_narrow.py holds
+    their searches to raft_tpu's)."""
     db, q = data
     _, t = _with_metric(jindex, "sqeuclidean")
-    with pytest.raises(NotImplementedError, match="fast scan"):
-        tivf.search(t, q, 5, tivf.SearchParams(scan_dtype="bfloat16"))
-    with pytest.raises(NotImplementedError, match="int8"):
-        tivf.build(db.astype(np.int8), tivf.IndexParams(n_lists=4),
-                   device="cpu")
+    with pytest.raises(ValueError, match="only bfloat16"):
+        tivf.search(t, q, 5, tivf.SearchParams(scan_dtype="float16"))
+    narrow = tivf.build(db.astype(np.int8), tivf.IndexParams(n_lists=4),
+                        device="cpu")
+    assert narrow.list_data.dtype == torch.int8
+    jnarrow = jivf.build(db.astype(np.int8), jivf.IndexParams(n_lists=4))
+    for search, index, params in (
+            (tivf.search, narrow, tivf.SearchParams),
+            (jivf.search, jnarrow, jivf.SearchParams)):
+        with pytest.raises(ValueError, match="fp32 list data"):
+            search(index, q, 5, params(scan_dtype="bfloat16"))
     with pytest.raises(ValueError, match="scan_mode"):
         tivf.search(t, q, 5, tivf.SearchParams(scan_mode="mosaic"))
 

@@ -242,6 +242,36 @@ def test_served_rows_bitwise_equal_direct_batch_search(flat_pair):
         assert np.array_equal(ir, i[f.placement[0]].numpy())
 
 
+@pytest.mark.parametrize("row_type", [np.uint8, np.float16])
+def test_narrow_ivf_flat_serves_float32_queries_unchanged(row_type):
+    """A narrow IVF-Flat index is served float32 batches, as raft_tpu's
+    searcher sends them: a fractional query is neither truncated to the
+    uint8 rows' type nor rounded to fp16, so the served rows are bitwise
+    ``ivf_flat.search`` on the float32 queries of the same bucket."""
+    rng = np.random.default_rng(12)
+    rows = rng.uniform(0, 255, (1200, DIM))
+    index = tivf.build(rows.astype(row_type), tivf.IndexParams(n_lists=8),
+                       device="cpu")
+    assert index.list_data.dtype == {np.uint8: torch.uint8,
+                                     np.float16: torch.float16}[row_type]
+    q = (rows[:8] + rng.uniform(-0.5, 0.5, (8, DIM))).astype(np.float32)
+    ts = serving.ivf_flat_searcher(index, tivf.SearchParams(n_probes=3))
+    assert ts.query_dtype == np.float32
+    with _engine(ts, max_wait_us=10_000_000) as eng:
+        futs = [eng.submit(row, K) for row in q]
+        rows_out = [f.result(timeout=T) for f in futs]
+    assert {f.placement[1] for f in futs} == {8}  # one full bucket
+    batch = np.zeros((8, DIM), np.float32)
+    for f, row in zip(futs, q):
+        batch[f.placement[0]] = row
+    d, i = tivf.search(index, batch, K, tivf.SearchParams(n_probes=3))
+    for f, (dr, ir) in zip(futs, rows_out):
+        assert np.array_equal(dr, d[f.placement[0]].numpy())
+        assert np.array_equal(ir, i[f.placement[0]].numpy())
+    assert serving.verify_bit_identity(
+        ts, list(q), rows_out, K, [f.placement for f in futs]) == 0
+
+
 def test_spans_carry_explain_briefs_and_builds_stay_zero(flat_pair):
     _, _, t = flat_pair
     from raft_tpu_torch import obs
@@ -296,8 +326,9 @@ def test_other_families_serve_bitwise_solo(family, flat_pair):
 def test_brute_force_searcher_takes_the_jax_keywords(flat_pair):
     """``brute_force_searcher`` takes raft_tpu's keywords: ``select_recall``
     flows to the search (answered exactly, as raft_tpu's CPU path answers
-    it), ``refine_ratio`` is accepted, ``scan_dtype`` raises until the bf16
-    fast scan is ported."""
+    it), and ``scan_dtype`` with ``refine_ratio`` serve the bf16 fast scan:
+    its rows are the search's, and raft_tpu's fast-scan searcher's within
+    the fast-scan tests' bounds (ids at least 99% equal)."""
     from raft_tpu.neighbors import brute_force as jbf
 
     db, _, _ = flat_pair
@@ -313,8 +344,22 @@ def test_brute_force_searcher_takes_the_jax_keywords(flat_pair):
     jd, ji = js.search(q, K)
     assert_topk_close(got, (np.asarray(jd), np.asarray(ji)),
                       1e-4 * float((db ** 2).sum(1).max()), 1e-5)
-    with pytest.raises(NotImplementedError, match="fast scan"):
-        serving.brute_force_searcher(index, scan_dtype="bfloat16")
+    fast = serving.brute_force_searcher(index, scan_dtype="bfloat16",
+                                        refine_ratio=2.0)
+    got = fast.search(fast.to_device(q), K)
+    want = tbf.search(index, q, K, scan_dtype="bfloat16", refine_ratio=2.0)
+    assert torch.equal(got[0], want[0]) and torch.equal(got[1], want[1])
+    jfast = jserving.brute_force_searcher(jbf.build(db), scan_dtype="bfloat16",
+                                          refine_ratio=2.0)
+    jd, ji = jfast.search(q, K)
+    same = got[1].numpy() == np.asarray(ji)
+    assert same.mean() >= 0.99
+    np.testing.assert_allclose(got[0].numpy()[same], np.asarray(jd)[same],
+                               rtol=1e-5,
+                               atol=1e-4 * float((db ** 2).sum(1).max()))
+    with pytest.raises(ValueError, match="only bfloat16"):
+        bad = serving.brute_force_searcher(index, scan_dtype="float16")
+        bad.search(bad.to_device(q), K)
 
 
 def test_cagra_seed_table_reused_and_bitwise_per_call_draw(flat_pair):
