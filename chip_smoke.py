@@ -160,6 +160,32 @@ seed, 10,000 queries, k=10, L2) it
    row of the kernels line; launches from 6d's steps). Lines ``narrow``,
    ``narrow_filtered``, ``fast_scan`` and ``narrow_serving``, each with
    the card's name and limit;
+6e. the write path and the tiers (``raft_tpu_torch/bench/write_tiers.py``;
+   every file under ``build/chip_smoke_6e``, deleted at the end): phase
+   4's IVF-Flat as the base of a ``MutableIvf`` takes 20,000 adds, 10,000
+   upserts and 10,000 deletes in calls of 64 (acknowledged rows/s, ack
+   p50/p99), is searched against the exact search of its live set (recall
+   >= 0.90, no deleted id, every distance its id's live row's), compacted
+   once (the live ids equal, recall >= 0.90), checkpointed and reopened
+   (bitwise), and a child writer is killed with SIGKILL mid-stream and
+   mid-compaction (recovery bitwise a never-crashed writer); an
+   inner-product IVF-Flat base (``ivf_scan``) and an IVF-PQ base in the
+   LUT regime (``fused_pq_topk``) with writes; the writer served to 8
+   submitters while a writer thread streams and a background compactor
+   publishes (the generation +1 a compaction; 0 of 256 mismatches, 0
+   builds); phase 5's IVF-PQ demoted to a 512-slot arena over pinned host
+   memory (its bytes as ``solve_host_tier`` predicts), the queries in
+   chunks of 16 each bitwise the resident cache search, served at
+   ``max_batch=16`` with and without the prefetcher, saved and loaded
+   (bitwise); phase 3's rows as an fbin, IVF-Flat and IVF-PQ built from it
+   (every id once; recall >= 0.90 and 0.80 at 32 probes). Lines
+   ``mutable``, ``mutable_kill9``, ``mutable_variants``,
+   ``mutable_serving``, ``tiered``, ``ooc``, each with the card's name and
+   limit; two more rows in the kernels line (``fused_ivf_topk`` over the
+   arena slabs at bucket 16, bitwise its call over the lists; ``select_k``
+   at the mutable merge's shape, each with the launches of its own 6e
+   step at that shape) and 6e's launches on every row, counted around the
+   main-path calls alone (the references and checks run outside);
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -2566,6 +2592,29 @@ def main() -> int:
     for row in narrow_rows:
         row["persist_launches"] = persist_launches.get(row["name"], 0)
     kernels.extend(narrow_rows)
+
+    # ---- 6e. the write path and the tiers: a mutable IVF-Flat with its
+    # WAL, compaction and kill -9 recovery, served while it takes writes;
+    # the tiered IVF-PQ over pinned host memory, served; the streamed
+    # builds from a file
+    from raft_tpu_torch.bench import write_tiers
+    (wt_rows, wt_launches), wt_s = timed(lambda: write_tiers.phase(
+        smi=smi, dev=dev, seed=opts.seed, dataset=dataset, queries=queries,
+        gt_i=gt_i, flat=index, flat_probes=n_probes, pq_index=pq_index,
+        pq_probes=pq_probes, lut_res=lut_res, lut_probes=lut_probes,
+        ip_index=ip_index, ip_data=ip_data, ip_queries=ip_queries,
+        ip_probes=ip_probes, launch_counts=launch_counts, emit=emit,
+        timed=timed, cuda_ms=cuda_ms, graph_ms=graph_ms, bound=bound,
+        replaces=REPLACES,
+        root=Path(__file__).resolve().parent / "build" / "chip_smoke_6e",
+        repo=Path(__file__).resolve().parent))
+    emit({"phase": "write_tiers_total", "card": smi, "seconds": wt_s,
+          "launches": wt_launches})
+    for row in wt_rows:
+        row["persist_launches"] = persist_launches.get(row["name"], 0)
+    kernels.extend(wt_rows)
+    for row in kernels:
+        row["write_tier_launches"] = wt_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

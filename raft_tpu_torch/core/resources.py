@@ -163,3 +163,43 @@ def solve_merge_bytes(size: int, nq: int, kk: int, k_out: int,
     out["tree"] = tree if size >= 2 and (size & (size - 1)) == 0 \
         else out["allgather"]
     return out
+
+
+def solve_host_tier(n_lists: int, list_pad: int, rot_dim: int,
+                    n_code_bytes: int, workspace_limit_bytes: int,
+                    n_probes: int = 20, max_batch: int = 64,
+                    cache_itemsize: int = 2, arena_fraction: float = 0.5,
+                    host_bw_bytes_per_s: float = 8e9) -> dict:
+    """Byte model of the tiered IVF-PQ index (``neighbors.tiered``), the
+    same as ``raft_tpu.core.resources.solve_host_tier``: the slab arena's
+    size from the workspace budget, the host tier's bytes and a slab
+    fetch's cost.
+
+    One arena slot holds a decoded list:
+    ``slab_bytes = list_pad·(rot_dim·cache_itemsize + 4 + 4) + 4`` (decoded
+    residuals, f32 norms, int32 ids, the int32 size), exactly the ``nbytes``
+    of ``SlabArena``'s four tensors a slot. ``arena_fraction`` of the
+    workspace goes to slots, at least ``n_probes`` (one query's probes) and
+    at most ``n_lists``. The host keeps the packed codes, ids and norms of
+    every list and the sizes. ``worst_batch_distinct`` is what one batch
+    may probe (``max_batch·n_probes`` lists at most), which the arena must
+    hold at once or the resolve raises ``TieredArenaError``."""
+    n_lists = max(int(n_lists), 1)
+    list_pad = max(int(list_pad), 1)
+    slab_bytes = list_pad * (rot_dim * cache_itemsize + 4 + 4) + 4
+    arena_budget = int(max(workspace_limit_bytes, 0) * arena_fraction)
+    floor_slots = min(n_lists, max(int(n_probes), 1))
+    arena_slots = int(np.clip(arena_budget // max(slab_bytes, 1),
+                              floor_slots, n_lists))
+    host_bytes_per_list = list_pad * (n_code_bytes + 4 + 4)
+    fetch_bytes = list_pad * (n_code_bytes + 4 + 4) + 4
+    worst = min(n_lists, int(max_batch) * max(int(n_probes), 1))
+    return {
+        "arena_slots": arena_slots,
+        "slab_bytes": slab_bytes,
+        "arena_bytes": arena_slots * slab_bytes,
+        "host_bytes": n_lists * host_bytes_per_list + 4 * n_lists,
+        "fetch_bytes_per_slab": fetch_bytes,
+        "predicted_fetch_s": fetch_bytes / max(host_bw_bytes_per_s, 1.0),
+        "worst_batch_distinct": worst,
+    }

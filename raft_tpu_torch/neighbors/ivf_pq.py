@@ -849,6 +849,25 @@ def _finish(flat_d, flat_i, k: int, metric: DistanceType, select_recall):
     return v, i_out
 
 
+def _scan_distances(q_rot, probes, list_probes, dots_c, centers_rot,
+                    list_decoded, decoded_norms, metric: DistanceType):
+    """ADC distances [t, P, pad] of a query tile to its probed lists through
+    ``gk.ivf_scan`` (partials ‖dec‖² − 2·q·dec): ``probes`` pick the
+    centres, ``list_probes`` the lists' rows (the same, but for a tiered
+    index's arena slots)."""
+    t, n_probes = probes.shape
+    pr32 = list_probes.to(torch.int32).contiguous()
+    if metric == DistanceType.InnerProduct:
+        qv = q_rot[:, None, :].expand(t, n_probes, -1).contiguous()
+        part = gk.ivf_scan(pr32, qv, list_decoded, decoded_norms)
+        g_n = decoded_norms[list_probes]
+        base = torch.gather(dots_c, 1, probes)
+        return base[:, :, None] + 0.5 * (g_n - part)
+    qr_res = (q_rot[:, None, :] - centers_rot[probes]).contiguous()
+    part = gk.ivf_scan(pr32, qr_res, list_decoded, decoded_norms)
+    return (qr_res * qr_res).sum(-1)[:, :, None] + part
+
+
 def _search_cache_core(queries, index: Index, filter_words, k: int,
                        n_probes: int, q_tile: int,
                        select_recall: float = 1.0, use_scan: bool = False):
@@ -874,19 +893,9 @@ def _search_cache_core(queries, index: Index, filter_words, k: int,
                                  select_recall)
         g_idx = index.list_indices[probes]
         if use_scan:
-            pr32 = probes.to(torch.int32).contiguous()
-            if metric == DistanceType.InnerProduct:
-                qv = q_rot[:, None, :].expand(t, n_probes, -1).contiguous()
-                part = gk.ivf_scan(pr32, qv, index.list_decoded,
-                                   index.decoded_norms)
-                g_n = index.decoded_norms[probes]
-                base = torch.gather(dots_c, 1, probes)
-                d = base[:, :, None] + 0.5 * (g_n - part)
-            else:
-                qr_res = (q_rot[:, None, :] - centers_rot[probes]).contiguous()
-                part = gk.ivf_scan(pr32, qr_res, index.list_decoded,
-                                   index.decoded_norms)
-                d = (qr_res * qr_res).sum(-1)[:, :, None] + part
+            d = _scan_distances(q_rot, probes, probes, dots_c, centers_rot,
+                                index.list_decoded, index.decoded_norms,
+                                metric)
         else:
             g_dec = index.list_decoded[probes]  # [t, P, pad, rot]
             if metric == DistanceType.InnerProduct:
@@ -1061,29 +1070,42 @@ def _fused_merge_overflow(v, i, q_rot, index: Index, k: int):
 
 
 def _fused_finish(v, i, q_rot, index: Index, k: int):
-    if index.overflow_codes.shape[0] > 0:
+    """The overflow rows merged by one select_k, sqrt for L2Sqrt (``index``:
+    an Index or a ``tiered.TieredIvfPq``)."""
+    if index.overflow_indices.shape[0] > 0:
         v, i = _fused_merge_overflow(v, i, q_rot, index, k)
     if index.metric == DistanceType.L2SqrtExpanded:
         v = torch.sqrt(torch.clamp_min(v, 0.0))
     return v, i
 
 
-def _search_fused_cache_core(queries, index: Index, k: int, n_probes: int,
+def fused_cache_q_chunk(n_probes: int, rot_dim: int,
+                        workspace_limit_bytes: int) -> int:
+    """Queries per ``fused_ivf_topk`` launch of the cache regime, so that
+    the residuals and their norms fit the workspace."""
+    per_q = n_probes * (rot_dim * 4 + 4) * 2
+    return max(1, workspace_limit_bytes // per_q)
+
+
+def _search_fused_cache_core(q_rot, centers_rot, probes, list_probes,
+                             list_decoded, decoded_norms, ids, index, k: int,
                              q_chunk: int):
     """Fused scan of the decoded cache (L2 metrics): ``fused_ivf_topk`` over
     the probed cache slabs with each query's residual per probe, unclamped
     (ADC distances, as the unfused cache engine), ``q_chunk`` queries per
-    launch so that the residuals fit the workspace."""
-    q_rot, centers_rot, probes = _coarse_probes_rot(queries, index, n_probes)
+    launch so that the residuals fit the workspace. ``probes`` pick the
+    centres, ``list_probes`` the slabs of ``list_decoded``/``decoded_norms``
+    /``ids`` (the same, but for a tiered index's arena slots); ``index``
+    (an Index or a ``tiered.TieredIvfPq``) gives the overflow rows."""
     out_v, out_i = [], []
     for s in range(0, q_rot.shape[0], q_chunk):
         pr = probes[s:s + q_chunk]
         qr_res = (q_rot[s:s + q_chunk, None, :]
                   - centers_rot[pr.long()]).contiguous()  # [t, P, rot]
         qn = (qr_res * qr_res).sum(-1).contiguous()
-        v, i = gk.fused_ivf_topk(pr, qr_res, qn, index.list_decoded,
-                                 index.decoded_norms, index.safe_ids(), k,
-                                 clamp=False)
+        v, i = gk.fused_ivf_topk(list_probes[s:s + q_chunk].contiguous(),
+                                 qr_res, qn, list_decoded, decoded_norms, ids,
+                                 k, clamp=False)
         out_v.append(v)
         out_i.append(i)
     return _fused_finish(torch.cat(out_v), torch.cat(out_i), q_rot, index, k)
@@ -1355,9 +1377,13 @@ def _search_engine(queries, index: Index, filter: Optional[Bitset], k: int,
         ensure_overflow_decoded(index, params.scan_cache_dtype)
     if plan.engine == "pallas_cache":
         ensure_scan_cache(index, params.scan_cache_dtype)
-        per_q = n_probes * (index.rot_dim * 4 + 4) * 2
-        q_chunk = max(1, res.workspace_limit_bytes // per_q)
-        return _search_fused_cache_core(queries, index, k, n_probes, q_chunk)
+        q_rot, centers_rot, probes = _coarse_probes_rot(queries, index,
+                                                        n_probes)
+        return _search_fused_cache_core(
+            q_rot, centers_rot, probes, probes, index.list_decoded,
+            index.decoded_norms, index.safe_ids(), index, k,
+            fused_cache_q_chunk(n_probes, index.rot_dim,
+                                res.workspace_limit_bytes))
     if plan.engine == "pallas_lut":
         return _search_fused_lut_core(queries, index, k, n_probes)
     words = filter.words.to(index.device) if filter is not None else None

@@ -24,9 +24,11 @@ spent).
 
 Only the ported names are exported. The elastic searcher serves a
 sharded checkpoint restored onto one device, degraded (coverage < 1) or
-full. The replica fleet, router, autoscaler and remote replicas come with
-ROADMAP Queue A item 12; the tiered and mutable searchers raise
-``NotImplementedError`` (item 11).
+full; the tiered searcher an IVF-PQ index whose lists live in pinned host
+memory behind a slab arena; the mutable searcher a ``MutableIvf``, whose
+writes go through ``Engine.writer()`` (``WriteStalled``, ``CompactorCrashed``
+are its typed failures). The replica fleet, router, autoscaler and remote
+replicas come with ROADMAP Queue A item 12.
 """
 
 from raft_tpu_torch.serving.batcher import (Batch, Batcher, DeadlineExceeded,
@@ -44,6 +46,7 @@ from raft_tpu_torch.serving.searchers import (Searcher, brute_force_searcher,
                                               mutable_ivf_searcher,
                                               tiered_ivf_pq_searcher)
 from raft_tpu_torch.serving.stats import ServingStats, percentiles
+from raft_tpu_torch.neighbors.mutable import CompactorCrashed, WriteStalled
 
 __all__ = [
     "Batch",
@@ -51,6 +54,7 @@ __all__ = [
     "Batcher",
     "CircuitBreaker",
     "CircuitOpen",
+    "CompactorCrashed",
     "DeadlineExceeded",
     "Engine",
     "EngineConfig",
@@ -72,4 +76,5 @@ __all__ = [
     "solo_reference",
     "tiered_ivf_pq_searcher",
     "verify_bit_identity",
+    "WriteStalled",
 ]

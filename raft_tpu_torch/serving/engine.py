@@ -451,11 +451,20 @@ class Engine:
         return self._searcher
 
     def writer(self):
-        """The mutable write surface behind the current searcher: not
-        ported yet (the write path is ROADMAP Queue A item 11)."""
-        raise NotImplementedError(
-            "Engine.writer: the write path (MutableIvf) is not ported yet "
-            "(ROADMAP Queue A item 11)")
+        """The mutable write surface behind the current searcher: the index
+        itself when it takes writes (``add``/``upsert``/``delete``, a
+        ``MutableIvf``), else a ``TypeError``. The engine batches reads;
+        writes go straight to the writer, whose WAL and group commit are the
+        durability boundary."""
+        index = self._searcher.index
+        for op in ("add", "upsert", "delete"):
+            if not callable(getattr(index, op, None)):
+                raise TypeError(
+                    f"searcher family {self._searcher.family!r} index "
+                    f"{type(index).__name__} has no write surface "
+                    f"(missing {op!r}); serve a MutableIvf via "
+                    f"mutable_ivf_searcher to take writes")
+        return index
 
     # ------------------------------------------------------------ lifecycle
     def _warm(self, searcher: Searcher) -> None:

@@ -180,18 +180,42 @@ def elastic_searcher(index, params=None, res=None) -> Searcher:
     return Searcher(family, int(index.dim), index, search)
 
 
-def _deferred(name: str, item: str):
-    def raise_deferred(index, params=None, res=None) -> Searcher:
-        raise NotImplementedError(
-            f"serving.{name} is not ported yet (ROADMAP Queue A {item})")
-    raise_deferred.__name__ = name
-    return raise_deferred
+def tiered_ivf_pq_searcher(index, params=None, res=None) -> Searcher:
+    """Handle over a ``neighbors.tiered.TieredIvfPq``: its lists stay in the
+    pinned host tier (inside ``tier``, which :meth:`Searcher.place` does not
+    sweep) and each batch resolves its probes through the slab arena."""
+    from raft_tpu_torch.neighbors import ivf_pq, tiered
+
+    if not isinstance(index, tiered.TieredIvfPq):
+        raise TypeError(f"tiered_ivf_pq_searcher wants TieredIvfPq, got "
+                        f"{type(index).__name__}")
+    params = params or ivf_pq.SearchParams()
+
+    def search(queries, k: int):
+        return index.search(queries, k, params, res=res)
+
+    return Searcher("tiered_ivf_pq", int(index.dim), index, search)
 
 
-tiered_ivf_pq_searcher = _deferred("tiered_ivf_pq_searcher",
-                                   "item 11: the tiered index")
-mutable_ivf_searcher = _deferred("mutable_ivf_searcher",
-                                 "item 11: the write path")
+def mutable_ivf_searcher(index, params=None, res=None) -> Searcher:
+    """Handle over a ``neighbors.mutable.MutableIvf``: its host mirrors (WAL,
+    delta rows, tombstones) are not tensor attributes, so
+    :meth:`Searcher.place` never moves them; a search goes through the
+    writer's merged base + delta path, so a handle the compactor publishes
+    and one over the live writer return the same rows for the same applied
+    prefix."""
+    from raft_tpu_torch.neighbors import mutable
+
+    if not isinstance(index, mutable.MutableIvf):
+        raise TypeError(f"mutable_ivf_searcher wants MutableIvf, got "
+                        f"{type(index).__name__}")
+    params = params if params is not None else index.default_search_params()
+
+    def search(queries, k: int):
+        return index.search(queries, k, params, res=res)
+
+    return Searcher("mutable_ivf", int(index.dim), index, search)
+
 
 _FACTORIES = {
     "brute_force": brute_force_searcher,
@@ -206,7 +230,8 @@ _FACTORIES = {
 
 def make_searcher(family: str, index, **kwargs) -> Searcher:
     """Factory by family name (``brute_force``/``ivf_flat``/``ivf_pq``/
-    ``cagra``); keyword arguments flow to the family constructor."""
+    ``cagra``/``elastic``/``tiered_ivf_pq``/``mutable_ivf``); keyword
+    arguments flow to the family constructor."""
     try:
         factory = _FACTORIES[family]
     except KeyError:

@@ -1,4 +1,9 @@
-"""Comparison of two top-k results, shared by the tests and chip_smoke.py."""
+"""Test support shipped with the port: the comparison of two top-k results
+(shared by the tests and chip_smoke.py), the fault injectors of the write
+path and the serving device path (:mod:`raft_tpu_torch.testing.faults`) and
+the seeded schedule amplifier of the concurrency tests
+(:mod:`raft_tpu_torch.testing.interleave`); counterpart of
+``raft_tpu.testing``."""
 
 from __future__ import annotations
 
@@ -52,3 +57,6 @@ def assert_topk_close(got, want, atol: float, rtol: float,
             raise AssertionError(f"{name}: row {r} differs in a near-tie group")
     return {"max_abs_err": max_err,
             "id_agreement": float((gi == wi).to(torch.float32).mean())}
+
+
+from raft_tpu_torch.testing import faults, interleave  # noqa: E402,F401

@@ -1598,3 +1598,172 @@ def test_fast_scan_ivf_flat_and_cagra_on_the_card_match_the_cpu(dev):
     csp = cagra.SearchParams(itopk_size=32, scan_dtype="bfloat16")
     _agree_99(cagra.search(c_dev, q, 10, csp),
               cagra.search(c_cpu, q.cpu(), 10, csp), scale)
+
+
+# ------------------------------------------------ the write path and tiers
+
+
+def _tiered_index(dev, metric="sqeuclidean", kind=0, expansion=1.5,
+                  seed=70):
+    db = _randn(dev, 6000, 32, seed=seed)
+    return db, ivf_pq.build(db, ivf_pq.IndexParams(
+        n_lists=48, pq_dim=16, metric=metric, codebook_kind=kind,
+        kmeans_n_iters=6, list_pad_expansion=expansion),
+        res=Resources(device=dev, seed=9))
+
+
+@pytest.mark.parametrize("metric,kind,expansion", [
+    ("sqeuclidean", 0, 1.5), ("inner_product", 0, 1.5),
+    ("euclidean", 1, 1.0), ("inner_product", 1, 1.0)])
+def test_tiered_search_bitwise_resident_on_the_card(dev, metric, kind,
+                                                    expansion):
+    from raft_tpu_torch.neighbors import tiered
+
+    _, idx = _tiered_index(dev, metric, kind, expansion)
+    res = Resources(device=dev, seed=0)
+    t = tiered.TieredIvfPq.from_index(idx, res=res, arena_slots=24)
+    ivf_pq.ensure_scan_cache(idx)
+    assert torch.equal(t.tier.norms.view(torch.int32),
+                       idx.decoded_norms.cpu().view(torch.int32))
+    assert t.tier.codes.is_pinned()
+    kernel = "fused_ivf_topk" if metric != "inner_product" else "ivf_scan"
+    params = ivf_pq.SearchParams(n_probes=8)
+    for i in range(10):  # misses, hits and evictions in 24 slots
+        q = _randn(dev, 2, 32, seed=100 + i)
+        before = gk.LAUNCHES[kernel]
+        got = t.search(q, 10, params, res=res)
+        assert gk.LAUNCHES[kernel] > before
+        want = ivf_pq.search(idx, q, 10, params, res=res,
+                             memory_mode="cache")
+        torch.cuda.synchronize()
+        assert _bitwise_equal(got, want), i
+    c = t.arena.snapshot_counts()
+    assert c["evictions"] > 0
+    assert c["evictions"] == c["inserts"] - c["occupancy"]
+
+
+def test_tiered_arena_race_keeps_every_scan_bitwise(dev):
+    """Two threads, each on its own stream, through one 24-slot arena (a
+    batch probes up to 16 lists, so one thread's resolve often waits for
+    the other's scan): a fetch for one thread's batch must never overwrite
+    a slot the other's scan resolved and has not yet read."""
+    import threading
+
+    from raft_tpu_torch.neighbors import tiered
+
+    _, idx = _tiered_index(dev)
+    res = Resources(device=dev, seed=0)
+    params = ivf_pq.SearchParams(n_probes=8)
+    batches = [[_randn(dev, 2, 32, seed=200 + 100 * th + i)
+                for i in range(12)] for th in range(2)]
+    want = [[ivf_pq.search(idx, q, 10, params, res=res, memory_mode="cache")
+             for q in b] for b in batches]
+    t = tiered.TieredIvfPq.from_index(idx, res=res, arena_slots=24)
+    got = [[None] * 12 for _ in range(2)]
+    errors = []
+
+    def run(th):
+        try:
+            with torch.cuda.stream(torch.cuda.Stream(dev)):
+                for rep in range(3):
+                    for i, q in enumerate(batches[th]):
+                        out = t.search(q, 10, params, res=res)
+                        if rep == 2:
+                            got[th][i] = out
+                torch.cuda.current_stream(dev).synchronize()
+        except Exception as e:  # noqa: BLE001 — relayed to the assert
+            errors.append(e)
+
+    threads = [threading.Thread(target=run, args=(th,)) for th in range(2)]
+    for th in threads:
+        th.start()
+    for th in threads:
+        th.join(300)
+    assert not errors, errors
+    for th in range(2):
+        for i in range(12):
+            assert _bitwise_equal(got[th][i], want[th][i]), (th, i)
+    c = t.arena.snapshot_counts()
+    assert c["evictions"] > 0
+    assert c["hits"] + c["misses"] + c["prefetch_hits"] \
+        + c["prefetch_fetches"] == c["resolved"]
+    assert all(p >= 0 for p in t.arena._pins)
+
+
+def test_tiered_two_runs_on_the_card_bitwise_and_against_the_cpu(dev):
+    from raft_tpu_torch.neighbors import tiered
+
+    _, idx = _tiered_index(dev)
+    res = Resources(device=dev, seed=0)
+    q = _randn(dev, 40, 32, seed=300)
+    params = ivf_pq.SearchParams(n_probes=8)
+    runs = [tiered.TieredIvfPq.from_index(idx, res=res, arena_slots=48)
+            .search(q, 10, params, res=res) for _ in range(2)]
+    torch.cuda.synchronize()
+    assert _bitwise_equal(runs[0], runs[1])
+    cpu = Resources(device="cpu", seed=0)
+    idx_cpu = interop.ivf_pq_index_from_numpy(
+        idx.params, idx.pq_dim, idx.centers.cpu().numpy(),
+        idx.rotation.cpu().numpy(), idx.codebooks.cpu().numpy(),
+        idx.list_codes.cpu().numpy(), idx.list_indices.cpu().numpy(),
+        idx.list_sizes.cpu().numpy(), idx.n_rows,
+        idx.overflow_codes.cpu().numpy(), idx.overflow_labels.cpu().numpy(),
+        idx.overflow_indices.cpu().numpy(), device="cpu")
+    t_cpu = tiered.TieredIvfPq.from_index(idx_cpu, res=cpu, arena_slots=48)
+    want = t_cpu.search(q.cpu(), 10, params, res=cpu)
+    scale = float(want[0][torch.isfinite(want[0])].abs().max())
+    agree = assert_topk_close((runs[0][0].cpu(), runs[0][1].cpu()), want,
+                              1e-4 * scale, 1e-5, "tiered card vs cpu")
+    assert agree["id_agreement"] >= 0.9
+
+
+def test_mutable_search_launches_the_merge_kernels_on_the_card(dev,
+                                                               tmp_path):
+    from raft_tpu_torch.neighbors import mutable
+    from raft_tpu_torch.obs import metrics as om
+
+    db = _randn(dev, 8000, 32, seed=80)
+    base = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=32),
+                          res=Resources(device=dev, seed=3))
+    w = mutable.MutableIvf(str(tmp_path / "m"), base=base,
+                           search_params=ivf_flat.SearchParams(n_probes=8),
+                           registry=om.Registry(), group_window_s=0.0)
+    assert w.device.type == "cuda"
+    add = _randn(dev, 100, 32, seed=81).cpu().numpy()
+    w.add(add, ids=torch.arange(10_000, 10_100).numpy())
+    w.upsert(add[:5] + 1.0, torch.arange(0, 5).numpy())
+    w.delete(torch.arange(5, 25).numpy())
+    q = _randn(dev, 64, 32, seed=82)
+    gk.reset_launch_counts()
+    got = w.search(q, 10)
+    torch.cuda.synchronize()
+    counts = dict(gk.LAUNCHES)
+    shapes = dict(gk.SELECT_K_SHAPES)
+    assert counts["fused_ivf_topk"] >= 1
+    cap = w._snapshot().cap
+    assert shapes.get(("select_k", 10 + cap, 10), 0) == 1  # the merge
+    slack = 1 << (25 - 1).bit_length()  # 20 deleted + 5 superseded
+    assert shapes.get(("select_k", 10 + slack, 10), 0) == 1  # the filter
+    ids = got[1].cpu()
+    assert not set(ids.flatten().tolist()) & set(range(5, 25))
+    again = w.search(q, 10)
+    assert _bitwise_equal(got, again)
+    # the same state on the CPU: within the tolerance of the plain versions
+    cpu_base = interop.ivf_flat_index_from_numpy(
+        base.params, base.centers.cpu().numpy(),
+        base.list_data.cpu().numpy(), base.list_indices.cpu().numpy(),
+        base.list_sizes.cpu().numpy(), base.n_rows,
+        base.overflow_data.cpu().numpy(),
+        base.overflow_indices.cpu().numpy(), device="cpu")
+    wc = mutable.MutableIvf(str(tmp_path / "c"), base=cpu_base,
+                            search_params=ivf_flat.SearchParams(n_probes=8),
+                            registry=om.Registry(), group_window_s=0.0)
+    wc.add(add, ids=torch.arange(10_000, 10_100).numpy())
+    wc.upsert(add[:5] + 1.0, torch.arange(0, 5).numpy())
+    wc.delete(torch.arange(5, 25).numpy())
+    want = wc.search(q.cpu(), 10)
+    assert_topk_close((got[0].cpu(), ids), want,
+                      1e-4 * float((db * db).sum(1).max()), 1e-5,
+                      "mutable card vs cpu")
+    w.close()
+    wc.close()

@@ -15,7 +15,7 @@ from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch import interop
 from raft_tpu_torch.cluster import kmeans
 from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
-                                      nn_descent)
+                                      mutable, nn_descent, ooc, tiered)
 from raft_tpu_torch.neighbors.refine import refine
 from raft_tpu_torch.parallel import comms, sharded
 
@@ -42,6 +42,8 @@ from raft_tpu_torch.serving import batcher, engine, searchers, stats
 from raft_tpu_torch import native
 from raft_tpu_torch.core import errors, logger, serialize, tracing
 from raft_tpu_torch.neighbors import hnsw
+from raft_tpu_torch.neighbors import mutable, ooc, tiered
+from raft_tpu_torch.testing import faults, interleave
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
 # the native layer loads the port's own build, never the JAX package's
@@ -75,8 +77,11 @@ def _no_cuda():
                                    "nn_descent.build", "cagra.build",
                                    "cagra.optimize", "cagra.search",
                                    "kmeans.fit", "Resources", "init_comms",
-                                   "sharded.knn"])
-def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
+                                   "sharded.knn", "mutable.MutableIvf",
+                                   "tiered.SlabArena",
+                                   "ooc.build_ivf_flat_from_file"])
+def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
+                                                              tmp_path):
     _no_cuda()
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
     calls = {
@@ -105,6 +110,11 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry):
         # one rank per CUDA device, the default
         "init_comms": lambda: comms.init_comms(),
         "sharded.knn": lambda: sharded.knn(comms.init_comms(), db[:4], db, 3),
+        "mutable.MutableIvf": lambda: mutable.MutableIvf(str(tmp_path),
+                                                         dim=8),
+        "tiered.SlabArena": lambda: tiered.SlabArena(4, 8, 8),
+        "ooc.build_ivf_flat_from_file": lambda: ooc.build_ivf_flat_from_file(
+            str(tmp_path / "none.fbin")),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

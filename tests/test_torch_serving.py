@@ -481,19 +481,48 @@ def test_metrics_scrape_serves_the_serving_families(flat_pair):
         assert family in text
 
 
-def test_unported_pieces_raise(flat_pair):
-    _, _, t = flat_pair
+def test_unported_pieces_raise(flat_pair, tmp_path):
+    """The planner (ROADMAP Queue A item 10) still raises; the write path
+    and the tiers (item 11) are ported: ``Engine.writer()`` of a read-only
+    searcher is raft_tpu's ``TypeError`` word for word, and the mutable and
+    tiered searchers build and search."""
+    db, j, t = flat_pair
     s = serving.ivf_flat_searcher(t)
     with pytest.raises(NotImplementedError, match="item 10"):
         serving.Engine(s, serving.EngineConfig(planner=object()))
-    with pytest.raises(NotImplementedError, match="item 11"):
+    with pytest.raises(TypeError) as got:
         serving.Engine(s).writer()
-    for name, item in (("tiered_ivf_pq_searcher", "item 11"),
-                       ("mutable_ivf_searcher", "item 11")):
-        with pytest.raises(NotImplementedError, match=item):
+    with pytest.raises(TypeError) as want:
+        jserving.Engine(jserving.ivf_flat_searcher(j)).writer()
+    assert str(got.value) == str(want.value)
+    from raft_tpu_torch.core.resources import Resources
+    from raft_tpu_torch.neighbors import mutable, tiered
+    from raft_tpu_torch.obs import metrics as om
+    cpu = Resources(device="cpu", seed=0)
+    q = _queries(3, 5)
+    w = mutable.MutableIvf(str(tmp_path / "m"), base=t, res=cpu,
+                           registry=om.Registry(), group_window_s=0.0)
+    m = serving.mutable_ivf_searcher(w)
+    assert (m.family, m.dim, m.device) == ("mutable_ivf", DIM,
+                                           torch.device("cpu"))
+    assert _bitwise(m.search(m.to_device(q), K),
+                    tivf.search(t, q, K, tivf.SearchParams()))
+    w.close()
+    pq = tpq.build(db, tpq.IndexParams(n_lists=16, pq_dim=8), res=cpu)
+    ti = serving.tiered_ivf_pq_searcher(
+        tiered.TieredIvfPq.from_index(pq, res=cpu), res=cpu)
+    assert _bitwise(ti.search(ti.to_device(q), K),
+                    tpq.search(pq, q, K, res=cpu, memory_mode="cache"))
+    for name in ("tiered_ivf_pq_searcher", "mutable_ivf_searcher"):
+        with pytest.raises(TypeError, match="wants"):
             getattr(serving, name)(t)
     with pytest.raises(ValueError, match="unknown family"):
         serving.make_searcher("hnsw", t)
+
+
+def _bitwise(a, b) -> bool:
+    return (torch.equal(a[0].view(torch.int32), b[0].view(torch.int32))
+            and torch.equal(a[1], b[1]))
 
 
 def test_searcher_places_on_the_index_device(flat_pair):
