@@ -186,6 +186,23 @@ seed, 10,000 queries, k=10, L2) it
    at the mutable merge's shape, each with the launches of its own 6e
    step at that shape) and 6e's launches on every row, counted around the
    main-path calls alone (the references and checks run outside);
+6f. measured dispatch and the adaptive planner
+   (``raft_tpu_torch/bench/planning.py``): the committed
+   ``raft_tpu_torch/artifacts/PALLAS_PROBE_cuda.json`` verdicts printed
+   beside their fused and unfused ms (``dispatch_probe``); each family's
+   ``scan_mode="auto"`` reason as its verdict implies and its result
+   bitwise the forced route's (``dispatch_routing``; phase 2 already
+   asserts that every verdict routes ``auto`` to the fused kernel, which
+   phases 3-6e count); a padded ``select_k`` bitwise the unpadded one
+   (``dispatch_padding``); ``planner.sweep`` over brute force, IVF-Flat,
+   IVF-PQ, CAGRA and tiered IVF-PQ at phase 3's rows, k 10, buckets 8-64,
+   written to ``build/chip_smoke_6f/PARETO_cuda.json`` (``sweep`` lines;
+   every ``roofline_min_ms`` <= ``predicted_ms``); the swept IVF-Flat and
+   IVF-PQ served behind ``EngineConfig(planner=...)`` to 8 submitters,
+   half the requests with a tight ``deadline_ms`` (``planner_serving``:
+   0 builds after ``start()``, 0 of 256 mismatches at each request's
+   params, none below the recall floor, the choices by reason); its loads'
+   launches on every row (``planning_launches``);
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -210,11 +227,6 @@ import sys
 import time
 import urllib.request
 from pathlib import Path
-
-#: H100 SXM peaks (NVIDIA data sheet, dense, at the 700 W limit)
-PEAK_FP32_FLOPS = 67e12
-PEAK_TF32_FLOPS = 495e12
-PEAK_BYTES_PER_S = 3.35e12
 
 N_ROWS, DIM, N_QUERIES, K = 1_000_000, 128, 10_000, 10
 N_LISTS, N_PROBES, RECALL_FLOOR = 1024, 32, 0.90
@@ -1046,6 +1058,10 @@ def main() -> int:
         return 2
     import numpy as np
     from raft_tpu_torch.bench.kernel_ab import graph_ms, select_k_rows
+    from raft_tpu_torch.obs import costs as obs_costs
+
+    #: the bounds' peaks: the H100 SXM data sheet's (``obs.costs``)
+    PEAKS = obs_costs.H100_PEAKS
 
     def launch_counts() -> dict:
         """The launch counts since the last reset, with select_k's launches
@@ -1082,6 +1098,19 @@ def main() -> int:
                                             "fused_cagra_topk",
                                             "fused_l2_argmin", "ivf_scan",
                                             "ring_shift")}})
+    # phases 3-6e search under scan_mode="auto" and count the fused
+    # kernels' launches: the committed verdicts must route auto to them
+    # (a losing verdict sends auto to the unfused route; such a family's
+    # phases would then ask for scan_mode="pallas")
+    routes = {fam: gk.fused_dispatch_explained(fam, "auto", dev)
+              for fam in gk.VERDICT_FAMILIES}
+    emit({"phase": "dispatch", "card": smi,
+          "platform_key": gk.fused_platform_key(dev),
+          "auto_routes": {f: {"fused": u, "reason": r}
+                          for f, (u, r) in routes.items()}})
+    if not all(u for u, _ in routes.values()):
+        raise AssertionError(f"scan_mode='auto' leaves a fused kernel on "
+                             f"this card: {routes}")
 
     # data at SIFT-1M's shape, from the seed (set-up, not timed)
     rng = np.random.default_rng(opts.seed)
@@ -1684,9 +1713,10 @@ def main() -> int:
     # ---- 6. each kernel against its plain version, at the main path's
     # shapes (launches here are not counted in the kernels line)
     def bound(n_bytes, n_ops):
-        t_bytes, t_ops = n_bytes / PEAK_BYTES_PER_S, n_ops / PEAK_FP32_FLOPS
-        return {"bound_ms": 1e3 * max(t_bytes, t_ops),
-                "bound_by": "operations" if t_ops > t_bytes else "bytes"}
+        """The least time of the work on the H100's data-sheet peaks:
+        ``obs.costs.roofline_bound``, the formula the cost report and the
+        sweep's roofline floors use too."""
+        return obs_costs.roofline_bound(n_bytes, n_ops, PEAKS)
 
     def check(entry, kernel, plain, args, atol, rtol, reps):
         """Hold kernel(*args) against plain(*args), time both, add the
@@ -1710,17 +1740,13 @@ def main() -> int:
         """fused_l2_topk's row: the fp32 bound outside the tensor cores (the
         products as FMA at 67 TFLOP/s) and the 3xTF32 bound of the design
         (three TF32 products at 495 TFLOP/s)."""
-        n_bytes = 4 * (m * DIM + n * DIM + m + n) + 8 * m * K
-        tc = 3 * 2 * m * n * DIM / PEAK_TF32_FLOPS
+        work = obs_costs.l2_topk_work(m, n, DIM, K)
         return dict(name="fused_l2_topk", route="cuda",
                     source="raft_tpu_torch/csrc/fused_l2_topk.cu",
                     replaces=REPLACES["fused_l2_topk"],
                     shape=f"{m} x {n} x {DIM}, k={K}", launches=launches,
-                    library_ms=None, **bound(n_bytes, 2 * m * n * DIM),
-                    bound_3xtf32_ms=1e3 * max(tc, n_bytes / PEAK_BYTES_PER_S),
-                    bound_3xtf32_by=("operations (3xTF32)"
-                                     if tc > n_bytes / PEAK_BYTES_PER_S
-                                     else "bytes"),
+                    library_ms=None, **bound(*work),
+                    **obs_costs.tf32_bound(*work, PEAKS),
                     plan=dataclasses.asdict(gk.plan_fused_topk(
                         m, n, DIM, K, n_sm)))
 
@@ -1785,9 +1811,9 @@ def main() -> int:
                    shape=shape, launches=launches, library_ms=None,
                    rows_scanned=rows_scanned, bitwise_repeatable=True,
                    kernel_route=plan.route, plan=dataclasses.asdict(plan),
-                   **bound(4 * (pr.numel() + qr.numel() + qn_.numel())
-                           + n_probed * pad_ * row_bytes + 8 * nq_ * k_,
-                           2 * rot_ * rows_scanned)),
+                   **bound(*obs_costs.ivf_topk_work(
+                       nq_, n_pr, rot_, pad_, elem, k_, n_probed,
+                       rows_scanned))),
               gk.fused_ivf_topk, gk.fused_ivf_topk_plain, args, atol, 1e-5, 5)
 
     # the IVF kernel's inputs, as the fused IVF-Flat search builds them
@@ -1880,13 +1906,9 @@ def main() -> int:
                    bitwise_repeatable=True, kernel_route=plan.route,
                    plan=dataclasses.asdict(plan),
                    bound_smem_ms=1e3 * lookups / (32 * n_sm * sm_clock_hz),
-                   **bound(4 * (pr.numel() + q_rot.numel()
-                                + centers_rot.numel() + codebooks.numel()
-                                + cb_norms.numel())
-                           + n_probed * pq_pad * (PQ_DIM + 4)
-                           + 8 * N_QUERIES * k_,
-                           n_luts * PQ_DIM * 256 * (2 * pq_len + 2)
-                           + lookups)),
+                   **bound(*obs_costs.pq_topk_work(
+                       N_QUERIES, probes_n, q_rot.shape[1], N_LISTS, PQ_DIM,
+                       pq_len, pq_pad, k_, n_probed, rows_scanned))),
               gk.fused_pq_topk, gk.fused_pq_topk_plain, args,
               1e-4 * adc_scale(gk.fused_pq_topk_plain, args), 1e-5, 3)
 
@@ -2014,7 +2036,6 @@ def main() -> int:
             raise AssertionError(f"select_k {key} differs from its plain "
                                  "version")
         del got, want
-        n_in = 4 * vals.numel() * (1 if ids_ is None else 2)
         entry = dict(
             name="select_k", route="cuda",
             source="raft_tpu_torch/csrc/select_k.cu",
@@ -2031,7 +2052,8 @@ def main() -> int:
             library_ms=graph_ms(lambda v=vals, kk=k_sel: torch.topk(
                 v, kk, largest=False), 20),
             ab_case=f"select_k_{key}",
-            **bound(n_in + 8 * N_QUERIES * k_sel, vals.numel()))
+            **bound(*obs_costs.select_k_work(N_QUERIES, n_sel, k_sel,
+                                             ids_ is not None)))
         kernels.append(entry)
         emit({"phase": "kernel_check", **entry})
         del vals, ids_
@@ -2057,13 +2079,12 @@ def main() -> int:
                launches=cagra_launches["fused_cagra_topk"], library_ms=None,
                hops=cg_hops, rows_scored=cg_rows, rows_touched=cg_touched,
                nodes_expanded=cg_expanded, bitwise=True,
-               gather_ms=1e3 * cg_rows * DIM * 4 / PEAK_BYTES_PER_S,
+               gather_ms=1e3 * cg_rows * DIM * 4 / PEAKS.hbm_bytes_per_s,
                kernel_route=cg_kplan.route,
                plan=dataclasses.asdict(cg_kplan),
-               **bound(cg_touched * DIM * 4 + cg_expanded * CAGRA_DEGREE * 4
-                       + 4 * N_QUERIES * (DIM + 1 + n_seeds)
-                       + 8 * N_QUERIES * K,
-                       2 * DIM * (cg_rows + cg_touched))),
+               **bound(*obs_costs.cagra_topk_work(
+                   N_QUERIES, DIM, CAGRA_DEGREE, K, n_seeds, cg_touched,
+                   cg_expanded, cg_rows))),
           lambda *a: gk.fused_cagra_topk(*a, K, itopk, 1, cg_max_iter),
           lambda *a: gk.fused_cagra_topk_plain(*a, K, itopk, 1, cg_max_iter),
           cg_args, 0.0, 0.0, 5)
@@ -2092,8 +2113,7 @@ def main() -> int:
                              "version")
     torch.cuda.synchronize()
     m, n = N_ROWS, KM_CLUSTERS
-    n_bytes = 4 * (m * DIM + n * DIM + m + n) + 8 * m
-    tc = 3 * 2 * m * n * DIM / PEAK_TF32_FLOPS
+    work = obs_costs.l2_argmin_work(m, n, DIM)
     plan = gk.plan_fused_argmin(m, n, DIM)
     ab_cases["fused_l2_argmin"] = ("fused_l2_argmin", args, 5)
     entry = dict(
@@ -2108,10 +2128,7 @@ def main() -> int:
         kernel_route=plan.route, plan=dataclasses.asdict(plan),
         ms=cuda_ms(lambda: gk.fused_l2_argmin(*args), 5),
         plain_ms=cuda_ms(lambda: gk.fused_l2_argmin_plain(*args), 1, False),
-        **bound(n_bytes, 2 * m * n * DIM),
-        bound_3xtf32_ms=1e3 * max(tc, n_bytes / PEAK_BYTES_PER_S),
-        bound_3xtf32_by=("operations (3xTF32)"
-                         if tc > n_bytes / PEAK_BYTES_PER_S else "bytes"))
+        **bound(*work), **obs_costs.tf32_bound(*work, PEAKS))
     kernels.append(entry)
     emit({"phase": "kernel_check", **entry})
     del got_v, got_i, want_v, want_i, top2_v, clear, x_n, args
@@ -2160,9 +2177,8 @@ def main() -> int:
             agrees_with_plain=True, max_abs_err=err,
             ms=cuda_ms(lambda: gk.ivf_scan(*args), reps),
             plain_ms=cuda_ms(lambda: gk.ivf_scan_plain(*args), 1, False),
-            **bound(4 * (probes_t.numel() + qres_t.numel()) + n_probed * pad_
-                    * (rot_ * data_t.element_size() + 4) + 4 * slots,
-                    2 * rot_ * slots))
+            **bound(*obs_costs.ivf_scan_work(
+                t, n_pr, rot_, pad_, data_t.element_size(), n_probed)))
         kernels.append(entry)
         emit({"phase": "kernel_check", **entry})
 
@@ -2253,7 +2269,8 @@ def main() -> int:
         plain_ms=graph_ms(lambda: gk.ring_shift_plain(blocks), 20),
         library_ms=graph_ms(foreach_copy, 20),
         library_copy_loop_ms=graph_ms(copy_loop, 20),
-        ab_case="ring_shift", **bound(2 * N_RANKS * block_bytes, 0))
+        ab_case="ring_shift",
+        **bound(*obs_costs.ring_shift_work(N_RANKS, block_bytes)))
     kernels.append(entry)
     emit({"phase": "kernel_check", **entry})
     del got, want, copies
@@ -2471,7 +2488,7 @@ def main() -> int:
             family, bucket, "select_k",
             lambda v: gk.streaming_select_k(v, k_),
             lambda v: gk._stable_topk(v, k_), (scores_b,), 0.0,
-            4 * scores_b.numel() + 8 * bucket * k_, scores_b.numel(),
+            *obs_costs.select_k_work(bucket, scores_b.shape[1], k_, False),
             f"coarse probes [{bucket} x {scores_b.shape[1]}], k={k_}",
             library=lambda: torch.topk(scores_b, k_, largest=False))
 
@@ -2485,9 +2502,7 @@ def main() -> int:
         serve_rows.append(serve_check(
             "brute_force", bucket, "fused_l2_topk", gk.fused_l2_topk,
             gk.fused_l2_topk_plain, (xb, dataset, K, xbn, bf.norms),
-            1e-4 * scale,
-            4 * (bucket * DIM + N_ROWS * DIM + bucket + N_ROWS)
-            + 8 * bucket * K, 2 * bucket * N_ROWS * DIM,
+            1e-4 * scale, *obs_costs.l2_topk_work(bucket, N_ROWS, DIM, K),
             f"{bucket} x {N_ROWS} x {DIM}, k={K}"))
         # IVF-Flat: the coarse selection, then the grouped scan
         sc, _ = ivf_flat._coarse_scores(xb, index.centers, index.metric)
@@ -2503,8 +2518,9 @@ def main() -> int:
         serve_rows.append(serve_check(
             "ivf_flat", bucket, "fused_ivf_topk", gk.fused_ivf_topk,
             gk.fused_ivf_topk_plain, args, 1e-4 * scale,
-            4 * (pr.numel() * (DIM + 2)) + torch.unique(pr.long()).numel()
-            * pad_b * (DIM * 4 + 8) + 8 * bucket * K, 2 * DIM * rows_b,
+            *obs_costs.ivf_topk_work(bucket, n_probes, DIM, pad_b, 4, K,
+                                     torch.unique(pr.long()).numel(),
+                                     rows_b),
             f"{bucket} queries x {n_probes} probes, pad {pad_b}, f32"))
         # IVF-PQ, cache regime: the rotated residuals through the grouped
         # scan over the bf16 cache
@@ -2526,8 +2542,8 @@ def main() -> int:
                     gk.fused_ivf_topk_plain, args,
                     1e-4 * float(plain_v[torch.isfinite(plain_v)].abs()
                                  .max()),
-                    4 * ppr.numel() * (rot + 2) + n_probed * pq_pad
-                    * (rot * 2 + 8) + 8 * bucket * K, 2 * rot * rows_b,
+                    *obs_costs.ivf_topk_work(bucket, probes_n, rot, pq_pad,
+                                             2, K, n_probed, rows_b),
                     f"{bucket} queries x {probes_n} probes, pad {pq_pad}, "
                     f"rot {rot}, bf16"))
             else:
@@ -2539,11 +2555,9 @@ def main() -> int:
                     gk.fused_pq_topk_plain, args,
                     1e-4 * float(plain_v[torch.isfinite(plain_v)].abs()
                                  .max()),
-                    4 * (ppr.numel() + q_rot.numel() + centers_rot.numel()
-                         + codebooks.numel() + cb_norms.numel())
-                    + n_probed * pq_pad * (PQ_DIM + 4) + 8 * bucket * K,
-                    ppr.numel() * PQ_DIM * 256 * (2 * pq_len + 2)
-                    + rows_b * PQ_DIM,
+                    *obs_costs.pq_topk_work(bucket, probes_n, q_rot.shape[1],
+                                            N_LISTS, PQ_DIM, pq_len, pq_pad,
+                                            K, n_probed, rows_b),
                     f"{bucket} queries x {probes_n} probes, pad {pq_pad}, "
                     f"pq_dim {PQ_DIM}"))
         # CAGRA: the seeds the served searcher draws for this bucket
@@ -2558,10 +2572,9 @@ def main() -> int:
             lambda *a: gk.fused_cagra_topk_plain(*a, K, itopk, 1,
                                                  cg_max_iter),
             cg_b, 0.0,
-            st["rows_touched"] * DIM * 4 + st["nodes_expanded"]
-            * CAGRA_DEGREE * 4 + 4 * bucket * (DIM + 1 + n_seeds)
-            + 8 * bucket * K,
-            2 * DIM * (int(st["rows_scored"].sum()) + st["rows_touched"]),
+            *obs_costs.cagra_topk_work(
+                bucket, DIM, CAGRA_DEGREE, K, n_seeds, st["rows_touched"],
+                st["nodes_expanded"], int(st["rows_scored"].sum())),
             f"{bucket} queries, itopk {itopk}, width 1, {n_seeds} seeds"))
     kernels.extend(row for row in serve_rows if row is not None)
 
@@ -2615,6 +2628,23 @@ def main() -> int:
     kernels.extend(wt_rows)
     for row in kernels:
         row["write_tier_launches"] = wt_launches.get(row["name"], 0)
+
+    # ---- 6f. measured dispatch and the adaptive planner: the committed
+    # probe verdicts and their routes, padding, the sweep to a frontier,
+    # IVF-Flat and IVF-PQ served behind the planner
+    from raft_tpu_torch.bench import planning
+    plan_launches, plan_s = timed(lambda: planning.phase(
+        smi=smi, dev=dev, seed=opts.seed, dataset=dataset, queries=queries,
+        gt_i=gt_i, bf=bf, flat=index, flat_probes=n_probes,
+        pq_index=pq_index, pq_probes=pq_probes, card_res=card_res,
+        cg_index=cg_index, cg_itopk=itopk, filt=filt, emit=emit,
+        root=Path(__file__).resolve().parent / "build" / "chip_smoke_6f"))
+    for name in ("fused_ivf_topk", "select_k"):
+        if plan_launches[name] < 1:
+            raise AssertionError(f"phase 6f's planner loads launched no "
+                                 f"{name}")
+    for row in kernels:
+        row["planning_launches"] = plan_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

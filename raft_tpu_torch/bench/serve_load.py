@@ -16,7 +16,7 @@ from __future__ import annotations
 
 import threading
 import time
-from typing import Dict, List
+from typing import Dict, List, Optional, Sequence
 
 import numpy as np
 
@@ -43,26 +43,42 @@ class BatchSink:
 
 
 def closed_loop(engine, queries: np.ndarray, k: int, n_threads: int,
-                timeout: float = 120.0) -> Dict[str, object]:
+                timeout: float = 120.0,
+                deadlines_ms: Optional[Sequence[Optional[float]]] = None
+                ) -> Dict[str, object]:
     """Serve every row of ``queries`` once, one request at a time per
-    thread (thread t takes rows t, t + n_threads, ...). Returns the wall
-    seconds, per-query latencies (s), result rows and placements."""
+    thread (thread t takes rows t, t + n_threads, ...), row j with
+    ``deadlines_ms[j]`` when given. Returns the wall seconds, per-query
+    latencies (s), result rows, placements, the operating point each
+    request's batch was served with (``params``, None without a planner)
+    and which requests were shed past their deadline (``shed``)."""
+    from raft_tpu_torch.serving.batcher import DeadlineExceeded
+
     n = queries.shape[0]
     lat = np.zeros(n)
     ids = np.zeros((n, k), np.int32)
     dists = np.zeros((n, k), np.float32)
     placements: List[tuple] = [None] * n
+    params: List[Optional[dict]] = [None] * n
+    shed = np.zeros(n, bool)
     errors: List[BaseException] = []
 
     def worker(t: int) -> None:
         try:
             for j in range(t, n, n_threads):
                 t0 = time.perf_counter()
-                fut = engine.submit(queries[j], k)
-                d, i = fut.result(timeout=timeout)
-                lat[j] = time.perf_counter() - t0
+                fut = engine.submit(queries[j], k, deadline_ms=(
+                    None if deadlines_ms is None else deadlines_ms[j]))
+                try:
+                    d, i = fut.result(timeout=timeout)
+                except DeadlineExceeded:
+                    shed[j] = True
+                    continue
+                finally:
+                    lat[j] = time.perf_counter() - t0
                 dists[j], ids[j] = d, i
                 placements[j] = fut.placement
+                params[j] = getattr(fut, "params", None)
         except BaseException as e:  # noqa: B036 — re-raised below
             errors.append(e)
 
@@ -80,7 +96,8 @@ def closed_loop(engine, queries: np.ndarray, k: int, n_threads: int,
     if any(th.is_alive() for th in threads):
         raise RuntimeError("a submitter thread did not finish")
     return {"seconds": seconds, "latencies_s": lat, "ids": ids,
-            "distances": dists, "placements": placements}
+            "distances": dists, "placements": placements, "params": params,
+            "shed": shed}
 
 
 def summarize(run: Dict[str, object], batches: List[dict]) -> dict:

@@ -48,6 +48,8 @@ from pathlib import Path
 import numpy as np
 import torch
 
+from raft_tpu_torch.obs import costs as obs_costs
+
 K = 10
 WRITE_BATCH = 64
 N_ADDS, N_UPSERTS, N_DELETES = 20_000, 10_000, 10_000
@@ -352,7 +354,7 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, flat, flat_probes,
         plain_ms=cuda_ms(lambda: gk._stable_topk(merge, K), 1),
         library_ms=graph_ms(lambda: torch.topk(merge, K, largest=False), 5),
         parent_ms=None, ab_ms=None,
-        **bound(4 * merge.numel() + 8 * nq * K, merge.numel())))
+        **bound(*obs_costs.select_k_work(nq, n, K, False))))
     emit({"phase": "kernel_check", **rows_out[-1]})
     del merge, dv
 
@@ -708,9 +710,9 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, flat, flat_probes,
             ms_eager=cuda_ms(lambda: gk.fused_ivf_topk(*args), 20),
             plain_ms=cuda_ms(lambda: gk.fused_ivf_topk_plain(*args), 3),
             library_ms=None, parent_ms=None, ab_ms=None,
-            **bound(4 * slots.numel() * (rot + 2) + n_probed * pad
-                    * (rot * 2 + 8) + 8 * TIER_CHUNK * K,
-                    2 * rot * rows_b)))
+            **bound(*obs_costs.ivf_topk_work(
+                TIER_CHUNK, slots.shape[1], rot, pad, 2, K, n_probed,
+                rows_b))))
         emit({"phase": "kernel_check", **rows_out[-1]})
     finally:
         t.arena.release(pinned)

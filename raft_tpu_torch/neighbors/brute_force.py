@@ -7,7 +7,8 @@ serves: L2 or L2Sqrt, no filter, no fast scan, k <= 1024. Other requests
 take the tiled path: a distance tile per (query tile, database tile), a
 ``select_k`` per tile, and one more ``select_k`` over the tiles' survivors.
 ``scan_mode="xla"`` keeps its name from the JAX package and forces the
-tiled path. The bf16 fast scan (``scan_dtype="bfloat16"``, an fp32
+tiled path; under ``"auto"`` the kernel serves on the card only where the
+measured verdict says it wins (``ops.gpu_kernels.fused_dispatch_explained``). The bf16 fast scan (``scan_dtype="bfloat16"``, an fp32
 dataset) runs the tiled path's products in bf16 with fp32 sums
 (``ops.distance.dot_bf16``), keeps ``refine_ratio·k`` candidates a tile,
 and re-ranks the survivors exactly in fp32. Every search records its
@@ -227,10 +228,18 @@ def fast_scan_requested(scan_dtype) -> bool:
     return True
 
 
-def fused_dispatch_reason(scan_mode: str) -> str:
-    """The reason code of a search that took its fused kernel: "forced"
-    when ``scan_mode`` named it, "auto_fused" under "auto"."""
-    return "auto_fused" if scan_mode == "auto" else "forced"
+def fused_route(family: str, scan_mode: str, ineligible: Optional[str],
+                device: torch.device) -> Tuple[bool, str]:
+    """``(use_fused, reason)`` of a family's search: ``"xla"`` names the
+    unfused engine (``forced``); an ineligible request keeps off the kernel
+    whatever the verdict, and says why (``fused_ineligible_reason`` comes
+    first); otherwise the measured gate decides
+    (``gpu_kernels.fused_dispatch_explained``)."""
+    if scan_mode == "xla":
+        return False, "forced"
+    if ineligible is not None:
+        return False, ineligible
+    return gk.fused_dispatch_explained(family, scan_mode, device)
 
 
 def kernel_plan(device: torch.device, kernel: str) -> dict:
@@ -255,8 +264,10 @@ def search(index: Index, queries, k: int, filter=None,
 
     ``filter`` is an optional :class:`~raft_tpu_torch.core.bitset.Bitset`
     over dataset rows; cleared rows are never returned. ``scan_mode``:
-    ``"auto"`` and ``"pallas"`` take the fused kernel for every eligible
-    request, ``"xla"`` forces the tiled path. ``scan_dtype="bfloat16"``
+    ``"pallas"`` takes the fused kernel for every eligible request,
+    ``"auto"`` where the measured verdict says it wins on the card (always
+    on the CPU, through its plain version), ``"xla"`` forces the tiled
+    path. ``scan_dtype="bfloat16"``
     (an fp32 dataset) takes the tiled path with the bf16 screen and re-ranks
     the best ``refine_ratio·k`` of each tile exactly in fp32: distances are
     exact, and a neighbour is missed only where the screen's rounding
@@ -282,12 +293,14 @@ def search(index: Index, queries, k: int, filter=None,
     ex_params = {"k": k, "nq": nq, "bucket": query_bucket(nq),
                  "n_db": index.size, "dim": index.dim,
                  "metric": index.metric.name}
+    use_fused, reason = fused_route("brute_force", scan_mode, ineligible,
+                                    index.device)
     with contextlib.ExitStack() as stack:
         cap = stack.enter_context(obs_explain.capture()) if explain else None
-        if scan_mode != "xla" and ineligible is None:
+        if use_fused:
             obs_explain.record_dispatch(
-                "brute_force", scan_mode, "pallas",
-                fused_dispatch_reason(scan_mode), params=ex_params,
+                "brute_force", scan_mode, "pallas", reason,
+                params=ex_params,
                 plan=kernel_plan(index.device, "fused_l2_topk"))
             x = queries.to(torch.float32)
             y = index.dataset.to(torch.float32)
@@ -304,8 +317,7 @@ def search(index: Index, queries, k: int, filter=None,
                 q_cap = max(8, res.workspace_limit_bytes // (4 * per_row))
                 q_tile = min(q_tile, q_cap - q_cap % 8 or 8)
             obs_explain.record_dispatch(
-                "brute_force", scan_mode, "xla",
-                "forced" if scan_mode == "xla" else ineligible,
+                "brute_force", scan_mode, "xla", reason,
                 params=ex_params, plan={
                     "q_tile": q_tile, "db_tile": db_tile,
                     "predicted_peak_bytes": planned_peak_bytes(

@@ -16,8 +16,9 @@ Counterpart of ``raft_tpu.neighbors.cagra``.
   ``fused_cagra_topk`` (the whole walk in one CUDA kernel, one block per
   query; its plain version on the CPU) for L2 metrics, unfiltered,
   itopk <= 1024; and ``search_core``, the glue engine in PyTorch, for
-  every request (inner product, filters). ``scan_mode``: ``"auto"`` and
-  ``"pallas"`` take the kernel wherever it is eligible, ``"xla"`` forces
+  every request (inner product, filters). ``scan_mode``: ``"pallas"``
+  takes the kernel wherever it is eligible, ``"auto"`` where the card's
+  measured verdict says it wins too (always on the CPU), ``"xla"`` forces
   the glue engine. The bf16 fast scan (``scan_dtype="bfloat16"``, an fp32
   dataset) takes the glue engine: the walk gathers rows from a cached
   bf16 copy of the dataset (``Index.ensure_scan_dataset``, half the
@@ -47,7 +48,6 @@ from raft_tpu_torch.core.bitset import filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors.brute_force import (explained,
                                                   fast_scan_requested,
-                                                  fused_dispatch_reason,
                                                   fused_ineligible_reason,
                                                   kernel_plan)
 from raft_tpu_torch.neighbors.nn_descent import scatter_last_wins
@@ -477,8 +477,9 @@ def seed_table(params: SearchParams, n_queries: int, size: int,
 @dataclasses.dataclass
 class SearchPlan:
     """``engine``: "pallas" (the kernel) or "xla" (the glue engine);
-    ``reason``: why the kernel was not taken (None when it was); ``plan``:
-    the resolved beam plan."""
+    ``reason``: why the kernel was not taken (None when it was: the
+    search's explain record says why, ``gpu_kernels.fused_dispatch_explained``);
+    ``plan``: the resolved beam plan."""
 
     engine: str
     reason: Optional[str]
@@ -506,7 +507,12 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
     if reason is None and gk.cagra_topk_smem_bytes(
             itopk, index.dim, width, index.graph_degree) > gk.SMEM_LIMIT:
         reason = "smem"
-    return SearchPlan("xla" if reason else "pallas", reason, plan)
+    if reason:
+        return SearchPlan("xla", reason, plan)
+    use_fused, reason = gk.fused_dispatch_explained("cagra", params.scan_mode,
+                                                    index.device)
+    return SearchPlan("pallas", None, plan) if use_fused \
+        else SearchPlan("xla", reason, plan)
 
 
 @tracing.range("cagra.search")
@@ -548,7 +554,8 @@ def search(index: Index, queries, k: int,
                  "metric": index.metric.name,
                  "graph_degree": index.graph_degree, "fast_scan": fast_scan}
     if sp.engine == "pallas":
-        reason = fused_dispatch_reason(params.scan_mode)
+        reason = gk.fused_dispatch_explained("cagra", params.scan_mode,
+                                             index.device)[1]
         ex_plan = {**sp.plan, **kernel_plan(index.device,
                                             "fused_cagra_topk")}
     else:

@@ -24,7 +24,10 @@ requests (filtered, inner product, cosine, k > 1024) take the tiled path:
 per query tile the coarse selection, the probed slots' partial distances
 ``‖row‖² − 2·q·row`` by the unfused scan kernel (``ops.gpu_kernels.ivf_scan``,
 which reads each probed slab where it lies), the metric's distances from
-them, and one ``select_k``. ``scan_mode="xla"`` forces the tiled path with
+them, and one ``select_k``. Under ``scan_mode="auto"`` each kernel serves
+on the card only where the probe's verdict says it wins
+(``ops.gpu_kernels.fused_dispatch_explained``; the gather stands in for a
+losing scan kernel). ``scan_mode="xla"`` forces the tiled path with
 the gather of the probed lists per query tile in place of the scan kernel.
 The bf16 fast scan (``scan_dtype="bfloat16"``, float32 lists) takes the
 tiled path with the gather: the probed slots' bf16 screen
@@ -57,7 +60,7 @@ from raft_tpu_torch.core.bitset import filter_mask as bitset_filter_mask
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors import list_packing
 from raft_tpu_torch.neighbors.brute_force import (
-    explained, fast_scan_requested, fused_dispatch_reason,
+    explained, fast_scan_requested, fused_route,
     fused_ineligible_reason, kernel_plan)
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
@@ -93,9 +96,10 @@ class IndexParams:
 
 @dataclasses.dataclass
 class SearchParams:
-    """``scan_mode``: ``"auto"`` and ``"pallas"`` take the fused kernel for
-    every eligible request and the scan kernel for the others, ``"xla"``
-    forces the tiled path with its gather.
+    """``scan_mode``: ``"pallas"`` takes the fused kernel for every
+    eligible request and the scan kernel for the others; ``"auto"`` takes
+    each where its measured verdict says it wins on the card (always on
+    the CPU); ``"xla"`` forces the tiled path with its gather.
     ``select_recall`` < 1 asks for approximate selection, which the port
     answers exactly. ``scan_dtype="bfloat16"`` (float32 lists) asks for the
     bf16 fast scan, which re-ranks ``refine_ratio·k`` candidates a query
@@ -543,6 +547,16 @@ def plan_scan_tiles(n_probes: int, list_pad: int, dim: int,
     return q_tile
 
 
+def ivf_scan_routed(scan_mode: str, device: torch.device) -> bool:
+    """Whether an unfused search scans through the ``ivf_scan`` kernel:
+    always under ``"pallas"``, under ``"auto"`` where the measured
+    ``ivf_scan`` verdict says it wins on the card (always on the CPU, its
+    plain version), never under an explicitly named unfused engine."""
+    if scan_mode == "pallas":
+        return True
+    return scan_mode == "auto" and gk.fused_crossover("ivf_scan", device)
+
+
 @tracing.range("ivf_flat.search")
 def search(index: Index, queries, k: int,
            params: Optional[SearchParams] = None,
@@ -578,17 +592,19 @@ def search(index: Index, queries, k: int,
                  "n_probes": n_probes, "n_lists": index.n_lists,
                  "list_pad": list_pad, "dim": index.dim,
                  "metric": index.metric.name}
+    use_fused, reason = fused_route("ivf_flat", scan_mode, ineligible,
+                                    index.device)
     with contextlib.ExitStack() as stack:
         cap = stack.enter_context(obs_explain.capture()) if explain else None
-        if scan_mode != "xla" and ineligible is None:
+        if use_fused:
             obs_explain.record_dispatch(
-                "ivf_flat", scan_mode, "pallas",
-                fused_dispatch_reason(scan_mode), params=ex_params,
+                "ivf_flat", scan_mode, "pallas", reason, params=ex_params,
                 plan=kernel_plan(index.device, "fused_ivf_topk"))
             out = _search_fused_core(queries, index, int(k), n_probes)
         else:
             # the fast scan keeps off the scan kernel, as in the JAX package
-            use_scan = scan_mode != "xla" and not fast_scan
+            use_scan = not fast_scan and ivf_scan_routed(scan_mode,
+                                                         index.device)
             q_tile = plan_scan_tiles(n_probes, list_pad, index.dim,
                                      res.workspace_limit_bytes)
             plan = {"q_tile": q_tile, "unfused_ivf_scan": use_scan,
@@ -597,8 +613,7 @@ def search(index: Index, queries, k: int,
             if use_scan:
                 plan.update(kernel_plan(index.device, "ivf_scan"))
             obs_explain.record_dispatch(
-                "ivf_flat", scan_mode, "xla",
-                "forced" if scan_mode == "xla" else ineligible,
+                "ivf_flat", scan_mode, "xla", reason,
                 params=ex_params, plan=plan)
             words = filter.words.to(index.device) if filter is not None \
                 else None

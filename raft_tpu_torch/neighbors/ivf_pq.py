@@ -26,10 +26,13 @@ engines (``plan_search`` says which, and why):
   block's shared memory);
 - ``cache`` and ``lut``: the unfused engines, which take every request the
   fused ones decline (InnerProduct, filters, k > 1024, pq_bits 4-7,
-  PER_CLUSTER, bf16 or fp8 LUTs, bf16 distances). Under ``"auto"`` and
-  ``"pallas"`` the cache engine scans the probed slots through the unfused
-  scan kernel ``ops.gpu_kernels.ivf_scan`` (``plan["unfused_ivf_scan"]``);
-  a forced ``"cache"`` gathers the probed slabs instead. The LUT engine
+  PER_CLUSTER, bf16 or fp8 LUTs, bf16 distances), and, under ``"auto"``
+  on the card, every request whose measured verdict says the fused engine
+  loses (``ops.gpu_kernels.fused_dispatch_explained``). Under ``"pallas"``
+  (and ``"auto"`` where the ``ivf_scan`` verdict wins) the cache engine
+  scans the probed slots through the unfused scan kernel
+  ``ops.gpu_kernels.ivf_scan`` (``plan["unfused_ivf_scan"]``); a forced
+  ``"cache"`` gathers the probed slabs instead. The LUT engine
   tiles queries and probes jointly from the workspace budget.
 
 ``scan_mode="auto"``/``"pallas"`` choose between the cache and LUT regimes by
@@ -69,7 +72,7 @@ from raft_tpu_torch.neighbors.brute_force import (explained,
                                                   fused_ineligible_reason,
                                                   kernel_plan)
 from raft_tpu_torch.obs import explain as obs_explain
-from raft_tpu_torch.neighbors.ivf_flat import _as_tensor
+from raft_tpu_torch.neighbors.ivf_flat import _as_tensor, ivf_scan_routed
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops import rng as rrng
 from raft_tpu_torch.ops.distance import (DistanceType, dot_fp32, einsum_fp32,
@@ -1225,15 +1228,18 @@ class SearchPlan:
 
     ``engine``: ``"pallas_cache"``, ``"pallas_lut"`` (the fused kernels),
     ``"cache"`` or ``"lut"`` (the unfused engines). ``reason``: ``"forced"``
-    (scan_mode named the engine, or "pallas"), ``"auto_fused"`` ("auto" took
-    the fused engine of its memory regime), a clause of
-    ``fused_ineligible_reason`` (``"non_l2"``, ``"filtered"``,
+    (scan_mode named the engine, or "pallas"), ``"auto_fused_wins"`` /
+    ``"auto_fused"`` ("auto" took the fused engine of its memory regime on
+    the card's measured verdict, or on the CPU), ``"fused_loses"`` /
+    ``"no_fused_wins_verdict"`` (the card's verdict kept "auto" off it), a
+    clause of ``fused_ineligible_reason`` (``"non_l2"``, ``"filtered"``,
     ``"k_gt_1024"``), or ``"lut_params_unsupported"`` (the LUT regime's
     request needs the unfused engine: pq_bits < 8, PER_CLUSTER, a LUT or
     distance dtype other than float32, or a LUT beyond shared memory).
     ``plan`` holds the tiles, the memory regime and ``unfused_ivf_scan``:
     whether the engine scans through the ``ivf_scan`` kernel (the unfused
-    cache engine under ``"auto"``/``"pallas"``)."""
+    cache engine under ``"pallas"``, and under ``"auto"`` where the
+    ``ivf_scan`` verdict says it wins)."""
 
     engine: str
     reason: str
@@ -1272,12 +1278,15 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
             params.scan_cache_dtype.itemsize,
             device_memory_bytes=res.device_memory_bytes,
             workspace_limit_bytes=res.workspace_limit_bytes)
-    dreason = "auto_fused" if requested == "auto" else "forced"
     ineligible = fused_ineligible_reason(index.metric, index.list_codes.dtype,
                                          k, has_filter, False,
                                          require_float=False)
-    lut_unsupported = False
+    use_fused, dreason = False, "forced"
     if fused and ineligible is None:
+        use_fused, dreason = gk.fused_dispatch_explained("ivf_pq", requested,
+                                                         index.device)
+    lut_unsupported = False
+    if use_fused:
         if memory_mode == "cache":
             return SearchPlan("pallas_cache", dreason,
                               {"memory_model": "cache",
@@ -1294,16 +1303,18 @@ def plan_search(index: Index, k: int, params: Optional[SearchParams] = None,
     mode = memory_mode if fused else requested
     if not fused:
         reason = "forced"
+    elif ineligible is not None:
+        reason = ineligible
     elif lut_unsupported:
         reason = "lut_params_unsupported"
     else:
-        reason = ineligible
+        reason = dreason  # the measured verdict kept auto off the kernel
     if mode == "cache":
         q_tile = plan_cache_tiles(n_probes, list_pad, index.rot_dim,
                                   res.workspace_limit_bytes)
         return SearchPlan("cache", reason, {
             "memory_model": "cache", "memory_auto": fused, "q_tile": q_tile,
-            "unfused_ivf_scan": fused,
+            "unfused_ivf_scan": ivf_scan_routed(requested, index.device),
             "predicted_workspace_bytes": q_tile * cache_bytes_per_query(
                 n_probes, list_pad, index.rot_dim)})
     lut_b = params.lut_dtype.itemsize

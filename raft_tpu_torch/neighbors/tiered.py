@@ -61,6 +61,7 @@ from raft_tpu_torch.neighbors.ivf_pq import CodebookGen, SearchParams
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.obs import metrics as obs_metrics
 from raft_tpu_torch.obs import spans as obs_spans
+from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops.distance import DistanceType, dot_fp32
 from raft_tpu_torch.utils.shape import (as_query_array, balanced_tile,
                                         query_bucket)
@@ -733,13 +734,19 @@ class TieredIvfPq:
         return cls.from_index(index, res=res, **kwargs)
 
     # -- search -------------------------------------------------------
-    def _route(self, k: int) -> str:
+    def _route(self, k: int, scan_mode: str = "auto") -> str:
         """The resident cache engine's route for this request: ``"fused"``
-        (``fused_ivf_topk``, L2) or ``"scan"`` (``ivf_scan`` + select_k)."""
+        (``fused_ivf_topk``, L2; under ``"auto"`` on the card only where the
+        measured ``ivf_pq`` verdict says it wins, as the resident search
+        decides) or ``"scan"`` (``ivf_scan`` + select_k)."""
         ineligible = fused_ineligible_reason(
             self.metric, torch.uint8, int(k), False, False,
             require_float=False)
-        return "fused" if ineligible is None else "scan"
+        if ineligible is not None or (
+                scan_mode == "auto"
+                and not gk.fused_crossover("ivf_pq", self.device)):
+            return "scan"
+        return "fused"
 
     def _coarse(self, queries, route: str, n_probes: int, q_tile: int,
                 select_recall: float):
@@ -811,7 +818,7 @@ class TieredIvfPq:
                              f"dim {self.dim}")
         k = int(k)
         n_probes = int(min(params.n_probes, self.n_lists))
-        route = self._route(k)
+        route = self._route(k, params.scan_mode)
         q_tile = ivf_pq.plan_cache_tiles(n_probes, self.list_pad,
                                          self.rot_dim,
                                          res.workspace_limit_bytes)
@@ -864,7 +871,8 @@ class TieredIvfPq:
         q_tile = ivf_pq.plan_cache_tiles(n_probes, self.list_pad,
                                          self.rot_dim,
                                          res.workspace_limit_bytes)
-        tiles, _ = self._coarse(queries, self._route(k), n_probes, q_tile,
+        tiles, _ = self._coarse(queries, self._route(k, params.scan_mode),
+                                n_probes, q_tile,
                                 float(params.select_recall))
         uniq = np.unique(torch.cat([p for _, p, _ in tiles]).cpu().numpy())
         if depth is not None and len(uniq) > depth:

@@ -26,9 +26,11 @@ CPU; :meth:`ExplainRecord.brief` carries both into the span breadcrumbs.
 The port emits two reason codes the JAX package has no use for, added to
 its vocabulary:
 
-- ``auto_fused`` — ``scan_mode="auto"`` took the fused kernel (the port
-  has no probe artifact to consult: the kernel serves every eligible
-  request on the card, and its plain version on the CPU);
+- ``auto_fused`` — ``scan_mode="auto"`` took the fused route on the CPU,
+  through the kernels' plain versions (on the card ``auto`` follows the
+  measured verdicts of ``raft_tpu_torch/artifacts/PALLAS_PROBE_*.json``
+  with the JAX package's codes: ``auto_fused_wins``, ``fused_loses``,
+  ``no_fused_wins_verdict``);
 - ``smem`` — CAGRA's beam does not fit one block's shared memory
   (``cagra.plan_search``), so the glue engine serves.
 
@@ -73,7 +75,7 @@ REASONS = frozenset({
     "forced",                  # scan_mode explicitly named this engine
     "auto_fused_wins",         # measured PALLAS_PROBE verdict routed fused
     "interpret",               # RAFT_TPU_PALLAS_INTERPRET=1 parity hook
-    "auto_fused",              # port: auto took the fused CUDA kernel
+    "auto_fused",              # port: auto took the fused route on the CPU
     "only_engine",             # family has a single engine (kept in the
                                # vocabulary for artifact replay; cagra —
                                # its last emitter — now has the fused

@@ -3,10 +3,13 @@
 Counterpart of ``raft_tpu.ops.fused_l2_nn`` (the reference's ``fusedL2NN``
 and ``pylibraft.distance.fused_l2_nn_argmin``): for each row of x, the min
 and argmin of its L2 distance to the rows of y, without the [m, n] distance
-matrix in device memory. On the card both entry points run the hand-written
-kernel ``ops.gpu_kernels.fused_l2_argmin`` (no measured-crossover gate, as
-for the port's other kernels); on the CPU its plain version, in row chunks
-of ``choose_tile_rows`` from the workspace budget.
+matrix in device memory. ``fused_l2_nn_core`` (the k-means E-step) runs
+the hand-written kernel ``ops.gpu_kernels.fused_l2_argmin`` on the card;
+``fused_l2_nn_argmin`` runs it where the measured ``l2_argmin`` verdict
+says it beats the unfused route (``gpu_kernels.fused_crossover``: an
+expanded-L2 product and a first-minimum per row tile), as the JAX package
+does; on the CPU both run the kernel's plain version, in row chunks of
+``choose_tile_rows`` from the workspace budget.
 
 ``fused_l2_nn_core`` is the clamped form (``l2_expanded`` then the first
 argmin) that the k-means E-step uses; ``fused_l2_nn_argmin`` compares the
@@ -22,7 +25,7 @@ import torch
 
 from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.ops import gpu_kernels as gk
-from raft_tpu_torch.ops.distance import l2_expanded, row_norms_sq
+from raft_tpu_torch.ops.distance import dot_fp32, l2_expanded, row_norms_sq
 from raft_tpu_torch.utils.shape import as_query_array, balanced_tile
 
 
@@ -64,10 +67,30 @@ def fused_l2_nn_argmin(x, y, sqrt: bool = False, x_norms=None, y_norms=None,
     yn = row_norms_sq(y) if y_norms is None else torch.as_tensor(
         y_norms, dtype=torch.float32, device=res.device).contiguous()
     tile = choose_tile_rows(x.shape[0], y.shape[0], res.workspace_limit_bytes)
-    val, idx = gk.fused_l2_argmin(x, y, xn, yn, clamp=False, tile=tile)
+    if gk.fused_crossover("l2_argmin", res.device):
+        val, idx = gk.fused_l2_argmin(x, y, xn, yn, clamp=False, tile=tile)
+    else:
+        val, idx = l2_nn_unfused(x, y, xn, yn, tile)
     if sqrt:
         val = torch.sqrt(torch.clamp_min(val, 0.0))
     return val, idx
+
+
+def l2_nn_unfused(x, y, x_norms, y_norms, tile: int
+                  ) -> Tuple[torch.Tensor, torch.Tensor]:
+    """The unfused route of ``fused_l2_nn_argmin``: per tile of x rows the
+    [tile, n] squared distances (``l2_expanded``, unclamped) and their
+    first minimum, lowest y index on ties."""
+    out_v, out_i = [], []
+    for s in range(0, x.shape[0], tile):
+        d = (x_norms[s:s + tile, None] + y_norms[None, :]) \
+            - 2.0 * dot_fp32(x[s:s + tile], y)
+        v, i = torch.min(d, dim=1)
+        out_v.append(v)
+        out_i.append(i.to(torch.int32))
+    if not out_v:
+        return x.new_empty((0,)), x.new_empty((0,), dtype=torch.int32)
+    return torch.cat(out_v), torch.cat(out_i)
 
 
 def masked_l2_nn_argmin(x, y, adj, group_idxs, sqrt: bool = False,

@@ -221,6 +221,145 @@ def _on_cpu(*tensors) -> bool:
     return all(t.device.type == "cpu" for t in tensors)
 
 
+# ------------------------------------------------- measured crossover gate
+#
+# Counterpart of ``raft_tpu.ops.pallas_kernels``' gate. Whether
+# ``scan_mode="auto"`` takes a family's fused kernel on the card is a
+# measured decision: ``python -m raft_tpu_torch.bench.probe`` A/Bs each
+# family's fused route against its unfused route on the card and records a
+# ``fused_wins`` verdict per family in
+# ``raft_tpu_torch/artifacts/PALLAS_PROBE_<platform>.json``, keyed by the
+# card's name (``select_k.platform_key``). The artifact arms by itself, as
+# ``SELECT_K_TABLE``/``TOPK_PAD`` do; ``RAFT_TPU_TORCH_PALLAS_PROBE`` names
+# an override, loaded last and loudly.
+#
+# On the CPU there is no kernel to route around: every family's fused
+# route runs its kernels' plain versions (reason ``auto_fused``), which is
+# what the CPU tests hold against the JAX package.
+
+#: families whose verdicts route ``scan_mode="auto"`` (``merge_ring``
+#: comes only from a probe over several cards)
+VERDICT_FAMILIES = ("brute_force", "ivf_flat", "ivf_pq", "ivf_scan",
+                    "l2_argmin", "cagra")
+
+_fused_table_cache: Optional[Dict[str, Dict[str, bool]]] = None
+
+
+def _extract_fused_table(art: dict) -> Dict[str, bool]:
+    fused = art.get("fused", {})
+    return {fam: bool(row.get("fused_wins"))
+            for fam, row in fused.items() if isinstance(row, dict)}
+
+
+def _load_fused_table() -> Dict[str, Dict[str, bool]]:
+    global _fused_table_cache
+    if _fused_table_cache is None:
+        from raft_tpu_torch.ops.select_k import _scan_artifacts
+
+        _fused_table_cache = _scan_artifacts(
+            {}, "PALLAS_PROBE", "RAFT_TPU_TORCH_PALLAS_PROBE",
+            _extract_fused_table)
+    return _fused_table_cache
+
+
+def fused_platform_key(device=None) -> str:
+    """The key the verdicts of ``device`` (default: the current card, else
+    the CPU) are recorded under: ``select_k.platform_key``."""
+    from raft_tpu_torch.ops.select_k import platform_key
+
+    return platform_key(device)
+
+
+def set_fused_crossover(platform: str, families) -> None:
+    """Install (or with None, drop) a platform's verdicts:
+    ``{"brute_force": True, "ivf_flat": False, ...}``."""
+    global _fused_table_cache
+    tables = _load_fused_table()
+    if families is None:
+        tables.pop(platform, None)
+    else:
+        tables[platform] = {k: bool(v) for k, v in families.items()}
+    _fused_table_cache = tables
+
+
+def _fused_verdict(family: str, device=None) -> Optional[bool]:
+    """The measured verdict of ``family`` on ``device``'s platform: True or
+    False, None when the artifact has no row."""
+    v = _load_fused_table().get(fused_platform_key(device), {}).get(family)
+    return None if v is None else bool(v)
+
+
+def fused_crossover(family: str, device=None) -> bool:
+    """Whether ``auto`` takes ``family``'s fused route on ``device``: on the
+    card, True only where the verdict says the fused route wins; on the CPU
+    always (the plain versions)."""
+    if device is not None and torch.device(device).type != "cuda":
+        return True
+    if device is None and not torch.cuda.is_available():
+        return True
+    return bool(_fused_verdict(family, device))
+
+
+def ring_merge_verdict(device=None) -> Optional[bool]:
+    """The ``merge_ring`` verdict: True or False when a probe over several
+    cards measured it, None when the artifact has no row (a one-card probe
+    writes none)."""
+    return _fused_verdict("merge_ring", device)
+
+
+_warned_no_verdict = False
+
+
+def _reset_fused_warn() -> None:
+    """Re-arm the once-per-process warning of a missing verdict."""
+    global _warned_no_verdict
+    _warned_no_verdict = False
+
+
+def _warn_no_verdict_once(family: str) -> None:
+    global _warned_no_verdict
+    if _warned_no_verdict:
+        return
+    _warned_no_verdict = True
+    import logging
+
+    logging.getLogger(__name__).warning(
+        "scan_mode='auto' is routing %s (and every family without a "
+        "verdict) to its unfused route on the card because the loaded "
+        "PALLAS_PROBE artifact has no fused_wins verdict for this card. Run "
+        "'python -m raft_tpu_torch.bench.probe --require-verdicts' on it to "
+        "record verdicts, or force scan_mode='pallas'.", family)
+
+
+def fused_dispatch_explained(family: str, scan_mode: str, device=None
+                             ) -> Tuple[bool, str]:
+    """``(use_fused, reason)`` of a family's search on ``device`` (default:
+    the current card, else the CPU), the reason from ``obs.explain``'s
+    vocabulary. ``"pallas"``: the kernel (``forced``; its plain version on
+    the CPU). ``"auto"`` on the card: the kernel where the verdict says it
+    wins (``auto_fused_wins``), else the unfused route (``fused_loses``, or
+    ``no_fused_wins_verdict`` with a warning once per process); on the CPU
+    the plain versions (``auto_fused``). Any other mode names an unfused
+    engine (``forced``)."""
+    if device is None:
+        on_card = torch.cuda.is_available()
+    else:
+        on_card = torch.device(device).type == "cuda"
+    if scan_mode == "pallas":
+        return True, "forced"
+    if scan_mode == "auto":
+        if not on_card:
+            return True, "auto_fused"
+        verdict = _fused_verdict(family, device)
+        if verdict:
+            return True, "auto_fused_wins"
+        if verdict is None:
+            _warn_no_verdict_once(family)
+            return False, "no_fused_wins_verdict"
+        return False, "fused_loses"
+    return False, "forced"
+
+
 # ------------------------------------------------------ plain selection
 
 

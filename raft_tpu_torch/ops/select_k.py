@@ -11,13 +11,18 @@
   screen are TPU answers to a slow ``lax.top_k``; the port selects exactly.
 
 ``AUTO`` picks ``DIRECT`` or ``TWO_PHASE`` by row width from a crossover
-table of the platform the values lie on (``"cuda"`` or ``"cpu"``), else
-from the JAX package's builtin default table. ``set_auto_table`` installs
-a platform's table and ``set_pad_rules`` its k-pad rules (a selection
-asked for k takes the top k' >= k and keeps the first k, which is exact);
-the port ships neither for its platforms, and the JAX package's builtins
-are the TPU's. Tables measured on the H100, and the SELECT_K_TABLE /
-TOPK_PAD artifact scanners, are later work. ``select_k_plan`` says what a
+table of the device the values lie on, else from the JAX package's builtin
+default table; DIRECT's requested k may be padded by the device's k-pad
+rules (a selection asked for k takes the top k' >= k and keeps the first k,
+which is exact). The tables are keyed by ``platform_key``: the card's name
+on CUDA (``torch.cuda.get_device_name``), as the JAX package keys by TPU
+kind, so an H100's table arms on no other card; ``"cpu"`` elsewhere. They
+come from measured artifacts, ``raft_tpu_torch/artifacts/SELECT_K_TABLE_*.json``
+and ``TOPK_PAD_*.json`` (written by ``python -m raft_tpu_torch.bench.probe``
+on the card; the JAX package's artifacts at the repo root are never read),
+plus an override named by ``RAFT_TPU_TORCH_SELECTK_TABLE`` /
+``RAFT_TPU_TORCH_TOPK_PAD``, loaded last and loudly. ``set_auto_table``
+and ``set_pad_rules`` install or drop a platform's table by hand. ``select_k_plan`` says what a
 selection would resolve to, and ``select_k_filtered`` folds a bitset
 filter into a selection.
 
@@ -32,7 +37,11 @@ The graph merges of NN-descent and CAGRA (``merge_topk_dedup``,
 from __future__ import annotations
 
 import enum
-from typing import Dict, List, Optional, Tuple
+import functools
+import glob
+import json
+import os
+from typing import Callable, Dict, List, Optional, Tuple
 
 import torch
 
@@ -54,13 +63,42 @@ class SelectAlgo(enum.Enum):
 _TILE = 16384
 #: k_max → row width from which TWO_PHASE is chosen over DIRECT
 _DEFAULT_TABLE = {"32": 65536, "256": 65536, "inf": 131072}
-#: crossover tables by platform, installed by ``set_auto_table``; a
-#: platform without one takes "default"
-_AUTO_TABLES: Dict[str, dict] = {"default": dict(_DEFAULT_TABLE)}
-#: k-pad rules by platform, installed by ``set_pad_rules``
-_PAD_RULES: Dict[str, List[dict]] = {}
-#: False while no table or pad rule is installed: ``select_k`` then takes
-#: the default crossovers, parsed once, and pads nothing
+#: where the measured artifacts live (the JAX package's scanners read the
+#: repo root; the port's never do)
+ARTIFACT_DIR = os.path.join(os.path.dirname(os.path.dirname(
+    os.path.abspath(__file__))), "artifacts")
+
+
+def _scan_artifacts(tables: dict, prefix: str, env_var: str,
+                    extract: Callable[[dict], object]) -> dict:
+    """Fill ``tables`` (platform -> table) from the measured artifacts
+    ``<prefix>_*.json`` under :data:`ARTIFACT_DIR`. A malformed artifact is
+    skipped; the ``env_var`` override is loaded last and outside the try,
+    so an explicit request fails loudly and wins over the committed ones."""
+    for path in sorted(glob.glob(os.path.join(ARTIFACT_DIR,
+                                              prefix + "_*.json"))):
+        try:
+            with open(path) as f:
+                art = json.load(f)
+            tables[art["platform"]] = extract(art)
+        except (OSError, KeyError, ValueError, TypeError, AttributeError):
+            pass  # malformed artifact: keep what we have
+    path = os.environ.get(env_var)
+    if path:
+        with open(path) as f:
+            art = json.load(f)
+        tables[art["platform"]] = extract(art)
+    return tables
+
+
+#: crossover tables by platform (the measured artifacts, then what
+#: ``set_auto_table`` installs); a platform without one takes "default"
+_AUTO_TABLES: Optional[Dict[str, dict]] = None
+#: k-pad rules by platform (the artifacts, then ``set_pad_rules``)
+_PAD_RULES: Optional[Dict[str, List[dict]]] = None
+#: False while no table or pad rule applies to a platform of this host:
+#: ``select_k`` then takes the default crossovers, parsed once, and pads
+#: nothing
 _INSTALLED = False
 
 
@@ -72,39 +110,90 @@ def _sorted_bands(table: dict) -> List[Tuple[float, int]]:
 _DEFAULT_BANDS = _sorted_bands(_DEFAULT_TABLE)
 
 
+def _load_auto_table() -> Dict[str, dict]:
+    global _AUTO_TABLES
+    if _AUTO_TABLES is None:
+        _AUTO_TABLES = _scan_artifacts(
+            {"default": dict(_DEFAULT_TABLE)}, "SELECT_K_TABLE",
+            "RAFT_TPU_TORCH_SELECTK_TABLE", lambda art: art["crossovers"])
+        _note_installed()
+    return _AUTO_TABLES
+
+
+def _load_pad_rules() -> Dict[str, List[dict]]:
+    global _PAD_RULES
+    if _PAD_RULES is None:
+        _PAD_RULES = _scan_artifacts(
+            {}, "TOPK_PAD", "RAFT_TPU_TORCH_TOPK_PAD",
+            lambda art: [dict(r) for r in art["pad_rules"]])
+        _note_installed()
+    return _PAD_RULES
+
+
+@functools.lru_cache(maxsize=None)
+def _card_name(index: int) -> str:
+    return torch.cuda.get_device_name(index)
+
+
+def _host_platforms() -> set:
+    """The platform keys a tensor of this process can carry."""
+    keys = {"cpu"}
+    if torch.cuda.is_available():
+        keys.update(_card_name(i) for i in range(torch.cuda.device_count()))
+    return keys
+
+
 def _note_installed() -> None:
     global _INSTALLED
-    _INSTALLED = bool(_PAD_RULES) or \
-        _AUTO_TABLES != {"default": _DEFAULT_TABLE}
+    if _AUTO_TABLES is None or _PAD_RULES is None:
+        return
+    host = _host_platforms()
+    _INSTALLED = any(p in host for p in _PAD_RULES) or any(
+        p in host for p in _AUTO_TABLES if p != "default") or \
+        _AUTO_TABLES["default"] != _DEFAULT_TABLE
 
 
 def platform_key(device=None) -> str:
-    """The tables' key for a device: ``"cuda"`` or ``"cpu"``; with no
-    device, the card when there is one."""
+    """The tables' key for a device: the card's name on CUDA, ``"cpu"``
+    elsewhere; with no device, the current card when there is one. A CUDA
+    device on a host without a card keys as ``"cuda"``."""
     if device is None:
-        return "cuda" if torch.cuda.is_available() else "cpu"
-    return "cuda" if torch.device(device).type == "cuda" else "cpu"
+        if not torch.cuda.is_available():
+            return "cpu"
+        device = torch.device("cuda", torch.cuda.current_device())
+    device = torch.device(device)
+    if device.type != "cuda":
+        return "cpu"
+    if not torch.cuda.is_available():
+        return "cuda"
+    index = device.index if device.index is not None \
+        else torch.cuda.current_device()
+    return _card_name(index)
 
 
 def set_auto_table(platform: str, crossovers: Optional[dict]) -> None:
     """Install (or with None, drop) a platform's crossover table:
     ``{"<k_max>"|"inf": min_two_phase_width}``, or the nested form
     ``{"two_phase": {...}, "screen": {...}}``."""
+    tables = _load_auto_table()
     if crossovers is None:
-        _AUTO_TABLES.pop(platform, None)
-        _AUTO_TABLES.setdefault("default", dict(_DEFAULT_TABLE))
+        tables.pop(platform, None)
+        tables.setdefault("default", dict(_DEFAULT_TABLE))
     else:
-        _AUTO_TABLES[platform] = dict(crossovers)
+        tables[platform] = dict(crossovers)
+    _load_pad_rules()
     _note_installed()
 
 
 def set_pad_rules(platform: str, rules: Optional[list]) -> None:
     """Install (or with None, drop) a platform's k-pad rules:
     ``[{"n": width, "k": requested_k, "k_pad": padded_k}, ...]``."""
+    rules_by = _load_pad_rules()
     if rules is None:
-        _PAD_RULES.pop(platform, None)
+        rules_by.pop(platform, None)
     else:
-        _PAD_RULES[platform] = [dict(r) for r in rules]
+        rules_by[platform] = [dict(r) for r in rules]
+    _load_auto_table()
     _note_installed()
 
 
@@ -120,7 +209,7 @@ def _pad_k(n: int, k: int, platform: str) -> int:
     """The k to select at row width n: the platform's rule for this k whose
     width is nearest within ×1.25, else k."""
     best = None
-    for r in _PAD_RULES.get(platform, []):
+    for r in _load_pad_rules().get(platform, []):
         if r["k"] != k:
             continue
         ratio = max(n, r["n"]) / max(1, min(n, r["n"]))
@@ -131,8 +220,8 @@ def _pad_k(n: int, k: int, platform: str) -> int:
 
 def _resolve_auto(n: int, k: int, floating: bool = True,
                   platform: Optional[str] = None) -> SelectAlgo:
-    table = _AUTO_TABLES.get(platform or platform_key(),
-                             _AUTO_TABLES["default"])
+    tables = _load_auto_table()
+    table = tables.get(platform or platform_key(), tables["default"])
     nested = "screen" in table or "two_phase" in table
     screen_tab = table.get("screen")
     tp_tab = table.get("two_phase", {}) if nested else table
@@ -245,6 +334,9 @@ def select_k(values, k: int, select_min: bool = True,
     if k > values.shape[-1]:
         raise ValueError(f"k={k} > row length {values.shape[-1]}")
     k_pad = 0
+    if _AUTO_TABLES is None or _PAD_RULES is None:
+        _load_auto_table()
+        _load_pad_rules()
     if not _INSTALLED:
         if algo == SelectAlgo.AUTO:
             algo = _resolve_default(values.shape[-1], int(k))

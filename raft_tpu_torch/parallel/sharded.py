@@ -122,8 +122,11 @@ def merge_dispatch_explained(merge_mode: str, size: int,
     tree on a power-of-two axis (``"merge_tree"``) and allgather otherwise
     (``"merge_allgather"``: the tree pairs ranks by XOR). The ring's shift
     is its plain version only when every rank is on the CPU (``all_cpu``),
-    else the ``ring_shift`` kernel. The port has no probe artifact, which
-    leaves ``"auto"`` where the JAX package leaves it off the TPU."""
+    else the ``ring_shift`` kernel. On the card ``"auto"`` takes the ring
+    only where the probe artifact's ``merge_ring`` verdict says it wins
+    (``"merge_ring"``); a measured loss keeps the tree (``"fused_loses"``),
+    and so does a missing verdict (``"no_ring_verdict"``: a one-card probe
+    writes none), as in the JAX package on a TPU."""
     pow2 = size >= 2 and (size & (size - 1)) == 0
     if merge_mode == "allgather":
         return "allgather", "forced", ""
@@ -143,6 +146,13 @@ def merge_dispatch_explained(merge_mode: str, size: int,
                          f"(one of {MERGE_MODES})")
     if not pow2:
         return "allgather", "merge_allgather", ""
+    if not all_cpu:
+        verdict = gk.ring_merge_verdict()
+        if verdict:
+            return "ring", "merge_ring", "kernel"
+        if verdict is None:
+            return "tree", "no_ring_verdict", ""
+        return "tree", "fused_loses", ""
     return "tree", "merge_tree", ""
 
 

@@ -59,9 +59,14 @@ under the JAX package's family names; ``EngineConfig.metrics_port`` (or
 ``/slo`` + ``/debug/bundle``. Telemetry never fails the serving path: a
 raising sink is counted and silenced.
 
-Not ported: the adaptive planner (``EngineConfig.planner``, ROADMAP Queue
-A item 10) and the write surface (:meth:`Engine.writer`, item 11) raise
-``NotImplementedError``.
+Adaptive planning (``EngineConfig.planner``, a
+:class:`raft_tpu_torch.planner.AdaptivePlanner`): ``start()`` warms every
+frontier point at every bucket as well; each batch's operating point is
+chosen from the smallest remaining deadline of its riders and served
+through ``Searcher.search_with`` (the choice rides the spans as
+``meta["adaptive"]`` and each request's future as ``params``); the batch's
+device time calibrates the planner. A planner that raises degrades to the
+static params: planning never fails serving.
 """
 
 from __future__ import annotations
@@ -69,6 +74,7 @@ from __future__ import annotations
 import contextlib
 import dataclasses
 import itertools
+import logging
 import queue as _queue
 import random as _random
 import threading
@@ -304,8 +310,12 @@ class EngineConfig:
     shadow_seed: int = 0  # deterministic sampling draws (tests)
     slos: Optional[Tuple[object, ...]] = None  # obs.SLO objectives
     slo_window_s: float = 300.0
-    # ---- adaptive planning: the JAX package's AdaptivePlanner hook; not
-    # ported (ROADMAP Queue A item 10), so anything but None raises
+    # ---- adaptive planning: a ``raft_tpu_torch.planner.AdaptivePlanner``
+    # (committed Pareto frontier + calibration). The engine picks each
+    # batch's operating point from the smallest remaining deadline of its
+    # riders and serves it through Searcher.search_with; degradation stops
+    # at the planner's recall floor. None (default) serves the handle's
+    # static SearchParams.
     planner: Optional[object] = None
 
 
@@ -334,10 +344,8 @@ class Engine:
         # runs whole on exactly one (searcher, gen) pair
         self._searcher = searcher  # guarded_by: _swap_lock
         self.config = config or EngineConfig()
-        if self.config.planner is not None:
-            raise NotImplementedError(
-                "EngineConfig.planner: the adaptive planner is not ported "
-                "yet (ROADMAP Queue A item 10)")
+        self.planner = self.config.planner
+        self._planner_failed = False  # guarded_by: dispatch thread only
         self.clock = clock
         self.stats = ServingStats(window=self.config.stats_window,
                                   registry=self.config.registry)
@@ -481,6 +489,15 @@ class Engine:
             for k in cfg.warm_ks:
                 d, i = searcher.search(searcher.to_device(zeros), int(k))
                 i.cpu()  # the fence: waits for the card
+                if self.planner is None or searcher.search_with is None:
+                    continue
+                # every frontier point at this (bucket, k): a deadline's
+                # change of params must meet no cold shape on the hot path
+                for point in self.planner.warm_points(
+                        searcher.family, int(k), b):
+                    d, i = searcher.search_with(searcher.to_device(zeros),
+                                                int(k), point.params)
+                    i.cpu()
 
     def start(self) -> "Engine":
         """Build and warm everything, then start the dispatch/completion/
@@ -1138,13 +1155,24 @@ class Engine:
                 with obs_spans.trace_scope(live[0].trace_id), \
                         obs_explain.capture() as cap, \
                         _device_scope(searcher.device):
+                    choice = self._choose_operating_point(
+                        searcher, live, t_launch)
+                    params = None
+                    if choice is not None:
+                        meta["adaptive"] = choice.brief()
+                        if choice.point is not None:
+                            params = dict(choice.point.params)
                     t_stage = self.clock()
                     queries = searcher.to_device(batch)
                     if searcher.device.type == "cuda":
                         events = (torch.cuda.Event(enable_timing=True),
                                   torch.cuda.Event(enable_timing=True))
                         events[0].record()
-                    d, i = searcher.search(queries, live[0].k)
+                    if params is not None:
+                        d, i = searcher.search_with(queries, live[0].k,
+                                                    params)
+                    else:
+                        d, i = searcher.search(queries, live[0].k)
                     if events is not None:
                         events[1].record()
                     meta["host_return_ms"] = round(
@@ -1166,6 +1194,33 @@ class Engine:
             return
         self._completion.put(Batch(live, d, i, t_launch, bucket, searcher,
                                    meta, events))
+
+    def _choose_operating_point(self, searcher: Searcher,
+                                live: List[Request], now: float):
+        """The batch's operating point: the planner's policy at the
+        smallest remaining deadline of its riders (the batch serves its
+        most urgent rider's budget: degrade, don't shed). None when no
+        planner is configured or the handle has no knobs; the planner
+        attributes its choice itself. A raising planner degrades to the
+        static params: planning never fails serving."""
+        if self.planner is None or searcher.search_with is None:
+            return None
+        budget_ms: Optional[float] = None
+        for r in live:
+            rem = r.remaining_ms(now)
+            if rem is not None and (budget_ms is None or rem < budget_ms):
+                budget_ms = rem
+        try:
+            return self.planner.choose(
+                searcher.family, int(live[0].k),
+                query_bucket(len(live)), budget_ms)
+        except Exception:
+            if not self._planner_failed:  # once: every batch would repeat it
+                self._planner_failed = True
+                logging.getLogger(__name__).warning(
+                    "the planner raised; serving the static params",
+                    exc_info=True)
+            return None
 
     def _completion_loop(self) -> None:
         while True:
@@ -1205,6 +1260,17 @@ class Engine:
             meta["readback_ms"] = round((t_read1 - t_read0) * 1e3, 3)
             if event_ms is not None:
                 meta["device_event_ms"] = round(event_ms, 4)
+            # close the calibration loop: the batch's device time (the
+            # CUDA events' on the card) against the calibrated prediction
+            # of the point that served it
+            adaptive = meta.get("adaptive")
+            if (self.planner is not None and adaptive
+                    and adaptive.get("predicted_ms")):
+                with contextlib.suppress(Exception):
+                    self.planner.observe(
+                        float(adaptive["predicted_ms"]),
+                        meta.get("device_event_ms", meta["device_ms"]))
+            params = adaptive.get("params") if adaptive else None
             resolved = 0
             for j, r in enumerate(b.requests):
                 # placement breadcrumbs for the exactness oracle
@@ -1212,6 +1278,7 @@ class Engine:
                 # that actually served — swaps change it mid-run)
                 r.future.placement = (j, b.bucket)
                 r.future.searcher = b.searcher
+                r.future.params = params  # the planner's point, or None
                 with contextlib.suppress(InvalidStateError):
                     r.future.set_result((d_np[j], i_np[j]))
                     resolved += 1
@@ -1262,28 +1329,39 @@ def _device_scope(device: torch.device):
 
 
 def solo_reference(searcher: Searcher, query, k: int, row: int,
-                   bucket: int) -> Tuple[np.ndarray, np.ndarray]:
+                   bucket: int, params: Optional[dict] = None
+                   ) -> Tuple[np.ndarray, np.ndarray]:
     """The engine's exactness oracle: search ``query`` ALONE in a
     zero-padded batch of ``bucket`` rows at row ``row`` — the same
     shape, and row position a coalesced batch uses, with no other live
-    queries. A coalesced request's result must be bit-identical to this
-    (proves riders never leak into each other's rows)."""
+    queries — at the operating point ``params`` the batch was served with
+    (the future's ``params``; None: the static params). A coalesced
+    request's result must be bit-identical to this (proves riders never
+    leak into each other's rows)."""
     q = np.zeros((bucket, searcher.dim), searcher.query_dtype)
     q[row] = np.asarray(query, searcher.query_dtype)
-    d, i = searcher.search(searcher.to_device(q), int(k))
+    if params is not None:
+        d, i = searcher.search_with(searcher.to_device(q), int(k), params)
+    else:
+        d, i = searcher.search(searcher.to_device(q), int(k))
     return d[row].cpu().numpy(), i[row].cpu().numpy()
 
 
 def verify_bit_identity(searcher: Searcher, queries: Sequence,
                         results: Sequence, k: int,
-                        placements: Sequence[Tuple[int, int]]) -> int:
+                        placements: Sequence[Tuple[int, int]],
+                        params: Optional[Sequence[Optional[dict]]] = None
+                        ) -> int:
     """Count mismatches between engine ``results`` (rows of (d, i)) and
     the :func:`solo_reference` oracle; ``placements`` are the futures'
-    ``(row, bucket)`` breadcrumbs."""
+    ``(row, bucket)`` breadcrumbs and ``params`` their operating points
+    (default: the static params)."""
     bad = 0
-    for query, (d_row, i_row), (row, bucket) in zip(queries, results,
-                                                    placements):
-        d_ref, i_ref = solo_reference(searcher, query, k, row, bucket)
+    if params is None:
+        params = [None] * len(placements)
+    for query, (d_row, i_row), (row, bucket), p in zip(
+            queries, results, placements, params):
+        d_ref, i_ref = solo_reference(searcher, query, k, row, bucket, p)
         if not (np.array_equal(d_row, d_ref)
                 and np.array_equal(i_row, i_ref)):
             bad += 1

@@ -16,13 +16,19 @@ table of each (bucket, k) of its params, drawn once — at warm time — and
 reused
 (``cagra.search(..., seeds=...)``); the rows are bitwise those of a search
 that draws them per call, and the host draw leaves the hot path.
+
+``Searcher.search_with(queries, k, overrides)`` is ``search`` with
+per-call ``SearchParams`` overrides, the adaptive planner's hook: the
+overrides go onto the handle's base params with ``dataclasses.replace``
+(an unknown key is a ``TypeError``, so a stale frontier fails loudly) and
+the same public wrapper serves. Elastic restores have no knobs: None.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import threading
-from typing import Callable, Dict, Tuple
+from typing import Callable, Dict, Optional, Tuple
 
 import numpy as np
 import torch
@@ -44,6 +50,11 @@ class Searcher:
     #: tensors [n, k] on that device
     search: Callable[[torch.Tensor, int], Tuple[torch.Tensor, torch.Tensor]]
     query_dtype: np.dtype = np.dtype(np.float32)
+    #: (queries, k, overrides) -> (distances, indices): ``search`` with the
+    #: overrides applied onto the handle's base params (module docstring);
+    #: None for a handle without knobs
+    search_with: Optional[Callable[[torch.Tensor, int, dict],
+                                   Tuple[torch.Tensor, torch.Tensor]]] = None
 
     @property
     def device(self) -> torch.device:
@@ -97,14 +108,24 @@ def brute_force_searcher(index, res=None, scan_dtype=None,
     Batches travel in the dataset's type, as the search casts them."""
     from raft_tpu_torch.neighbors import brute_force
 
+    base = {"scan_dtype": scan_dtype, "refine_ratio": refine_ratio,
+            "select_recall": select_recall, "scan_mode": "auto"}
+
+    def search_with(queries, k: int, overrides: dict):
+        kw = dict(base)
+        for name, value in overrides.items():
+            if name not in kw:
+                raise TypeError(
+                    f"brute_force operating point has no knob {name!r} "
+                    f"(knobs: {sorted(kw)})")
+            kw[name] = value
+        return brute_force.search(index, queries, k, res=res, **kw)
+
     def search(queries, k: int):
-        return brute_force.search(index, queries, k, res=res,
-                                  scan_dtype=scan_dtype,
-                                  refine_ratio=refine_ratio,
-                                  select_recall=select_recall)
+        return search_with(queries, k, {})
 
     return Searcher("brute_force", int(index.dim), index, search,
-                    _host_dtype(index.dataset.dtype))
+                    _host_dtype(index.dataset.dtype), search_with=search_with)
 
 
 def ivf_flat_searcher(index, params=None, res=None) -> Searcher:
@@ -116,10 +137,16 @@ def ivf_flat_searcher(index, params=None, res=None) -> Searcher:
 
     params = params or ivf_flat.SearchParams()
 
+    def search_with(queries, k: int, overrides: dict):
+        p = dataclasses.replace(params, **overrides) if overrides \
+            else params
+        return ivf_flat.search(index, queries, k, p, res=res)
+
     def search(queries, k: int):
         return ivf_flat.search(index, queries, k, params, res=res)
 
-    return Searcher("ivf_flat", int(index.dim), index, search)
+    return Searcher("ivf_flat", int(index.dim), index, search,
+                    search_with=search_with)
 
 
 def ivf_pq_searcher(index, params=None, res=None) -> Searcher:
@@ -127,10 +154,16 @@ def ivf_pq_searcher(index, params=None, res=None) -> Searcher:
 
     params = params or ivf_pq.SearchParams()
 
+    def search_with(queries, k: int, overrides: dict):
+        p = dataclasses.replace(params, **overrides) if overrides \
+            else params
+        return ivf_pq.search(index, queries, k, p, res=res)
+
     def search(queries, k: int):
         return ivf_pq.search(index, queries, k, params, res=res)
 
-    return Searcher("ivf_pq", int(index.dim), index, search)
+    return Searcher("ivf_pq", int(index.dim), index, search,
+                    search_with=search_with)
 
 
 def cagra_searcher(index, params=None, res=None) -> Searcher:
@@ -141,19 +174,26 @@ def cagra_searcher(index, params=None, res=None) -> Searcher:
 
     params = params or cagra.SearchParams()
     lock = threading.Lock()
-    tables: Dict[Tuple[int, int], torch.Tensor] = {}  # guarded_by: lock
+    # (bucket, n_seeds, mask) -> seeds
+    tables: Dict[Tuple[int, int, int], torch.Tensor] = {}  # guarded_by: lock
 
-    def search(queries, k: int):
-        n_seeds = cagra.resolve_search_plan(params, k, index.size)[3]
-        key = (queries.shape[0], n_seeds)
+    def search_with(queries, k: int, overrides: dict):
+        p = dataclasses.replace(params, **overrides) if overrides \
+            else params
+        n_seeds = cagra.resolve_search_plan(p, k, index.size)[3]
+        key = (queries.shape[0], n_seeds, int(p.rand_xor_mask))
         with lock:
             seeds = tables.get(key)
             if seeds is None:
                 seeds = tables[key] = cagra.seed_table(
-                    params, key[0], index.size, n_seeds, index.device)
-        return cagra.search(index, queries, k, params, res=res, seeds=seeds)
+                    p, key[0], index.size, n_seeds, index.device)
+        return cagra.search(index, queries, k, p, res=res, seeds=seeds)
 
-    return Searcher("cagra", int(index.dim), index, search)
+    def search(queries, k: int):
+        return search_with(queries, k, {})
+
+    return Searcher("cagra", int(index.dim), index, search,
+                    search_with=search_with)
 
 
 def elastic_searcher(index, params=None, res=None) -> Searcher:
@@ -191,10 +231,16 @@ def tiered_ivf_pq_searcher(index, params=None, res=None) -> Searcher:
                         f"{type(index).__name__}")
     params = params or ivf_pq.SearchParams()
 
+    def search_with(queries, k: int, overrides: dict):
+        p = dataclasses.replace(params, **overrides) if overrides \
+            else params
+        return index.search(queries, k, p, res=res)
+
     def search(queries, k: int):
         return index.search(queries, k, params, res=res)
 
-    return Searcher("tiered_ivf_pq", int(index.dim), index, search)
+    return Searcher("tiered_ivf_pq", int(index.dim), index, search,
+                    search_with=search_with)
 
 
 def mutable_ivf_searcher(index, params=None, res=None) -> Searcher:
@@ -211,10 +257,16 @@ def mutable_ivf_searcher(index, params=None, res=None) -> Searcher:
                         f"{type(index).__name__}")
     params = params if params is not None else index.default_search_params()
 
+    def search_with(queries, k: int, overrides: dict):
+        p = dataclasses.replace(params, **overrides) if overrides \
+            else params
+        return index.search(queries, k, p, res=res)
+
     def search(queries, k: int):
         return index.search(queries, k, params, res=res)
 
-    return Searcher("mutable_ivf", int(index.dim), index, search)
+    return Searcher("mutable_ivf", int(index.dim), index, search,
+                    search_with=search_with)
 
 
 _FACTORIES = {

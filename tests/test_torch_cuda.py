@@ -1767,3 +1767,151 @@ def test_mutable_search_launches_the_merge_kernels_on_the_card(dev,
                       "mutable card vs cpu")
     w.close()
     wc.close()
+
+
+# ------------------------------------------------------ measured dispatch
+
+
+@pytest.mark.parametrize("family", ["brute_force", "ivf_flat", "ivf_pq",
+                                    "cagra"])
+@pytest.mark.parametrize("verdict", [True, False, None])
+def test_gate_routes_as_the_installed_verdict_on_the_card(dev, family,
+                                                          verdict):
+    """An installed verdict routes ``auto`` on the card: True the kernel
+    (``auto_fused_wins``), False the unfused route (``fused_loses``), none
+    the unfused route with a warning (``no_fused_wins_verdict``); each
+    ``auto`` result bitwise the forced route's."""
+    from raft_tpu_torch.neighbors import brute_force
+    from raft_tpu_torch.ops import select_k as sk
+
+    key = sk.platform_key(dev)
+    saved = dict(gk._load_fused_table().get(key, {}))
+    db = _randn(dev, 6000, 32, seed=90)
+    q = _randn(dev, 16, 32, seed=91)
+    res = Resources(device=dev, seed=5)
+    if family == "brute_force":
+        index = brute_force.build(db, res=res)
+
+        def run(mode):
+            return brute_force.search(index, q, 10, scan_mode=mode,
+                                      explain=True)
+    elif family == "ivf_flat":
+        index = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=32), res=res)
+
+        def run(mode):
+            return ivf_flat.search(index, q, 10, ivf_flat.SearchParams(
+                n_probes=8, scan_mode=mode), explain=True)
+    elif family == "ivf_pq":
+        index = ivf_pq.build(db, ivf_pq.IndexParams(n_lists=32, pq_dim=16),
+                             res=res)
+
+        def run(mode):
+            return ivf_pq.search(index, q, 10, ivf_pq.SearchParams(
+                n_probes=8, scan_mode="cache" if mode == "xla" else mode),
+                explain=True)
+    else:
+        index = cagra.build(db, cagra.IndexParams(
+            graph_degree=16, intermediate_graph_degree=32), res=res)
+
+        def run(mode):
+            return cagra.search(index, q, 10, cagra.SearchParams(
+                itopk_size=32, scan_mode=mode), explain=True)
+    try:
+        gk.set_fused_crossover(key, {} if verdict is None
+                               else {family: verdict})
+        gk._reset_fused_warn()
+        *auto, rec = run("auto")
+        *forced, _ = run("pallas" if verdict else "xla")
+        torch.cuda.synchronize()
+    finally:
+        gk.set_fused_crossover(key, saved or None)
+    want = {True: "auto_fused_wins", False: "fused_loses",
+            None: "no_fused_wins_verdict"}[verdict]
+    assert rec.reason == want
+    assert rec.engine.startswith("pallas") == bool(verdict)
+    assert _bitwise(auto, forced)
+
+
+def test_search_with_bitwise_search_for_each_family_on_the_card(dev):
+    """``search_with`` with the handle's own params is ``search``, bitwise,
+    for every family with knobs; an override is the search at those
+    params."""
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.neighbors import brute_force, mutable, tiered
+
+    db = _randn(dev, 6000, 32, seed=92)
+    q = _randn(dev, 16, 32, seed=93)
+    res = Resources(device=dev, seed=6)
+    flat = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=32), res=res)
+    pq = ivf_pq.build(db, ivf_pq.IndexParams(n_lists=32, pq_dim=16), res=res)
+    cg = cagra.build(db, cagra.IndexParams(graph_degree=16,
+                                           intermediate_graph_degree=32),
+                     res=res)
+    handles = {
+        "brute_force": (serving.brute_force_searcher(
+            brute_force.build(db, res=res)), {"scan_mode": "pallas"}),
+        "ivf_flat": (serving.ivf_flat_searcher(
+            flat, ivf_flat.SearchParams(n_probes=8)), {"n_probes": 16}),
+        "ivf_pq": (serving.ivf_pq_searcher(
+            pq, ivf_pq.SearchParams(n_probes=8)), {"n_probes": 16}),
+        "cagra": (serving.cagra_searcher(
+            cg, cagra.SearchParams(itopk_size=32)),
+            {"itopk_size": 64, "search_width": 2}),
+        "tiered_ivf_pq": (serving.tiered_ivf_pq_searcher(
+            tiered.TieredIvfPq.from_index(pq, res=res),
+            ivf_pq.SearchParams(n_probes=8)), {"n_probes": 16}),
+    }
+    import tempfile
+    with tempfile.TemporaryDirectory() as tmp:
+        w = mutable.MutableIvf(tmp, base=flat, res=res, group_window_s=0.0)
+        handles["mutable_ivf"] = (serving.mutable_ivf_searcher(w),
+                                  {"n_probes": 16})
+        for fam, (s, override) in handles.items():
+            a = s.search(q, 10)
+            b = s.search_with(q, 10, {})
+            c = s.search_with(q, 10, override)
+            torch.cuda.synchronize()
+            assert _bitwise(a, b), fam
+            assert c[0].shape == (16, 10), fam
+        w.close()
+    ref = ivf_flat.search(flat, q, 10, ivf_flat.SearchParams(n_probes=16))
+    assert _bitwise(handles["ivf_flat"][0].search_with(
+        q, 10, {"n_probes": 16}), ref)
+
+
+def test_planner_engine_builds_nothing_after_start_on_the_card(dev):
+    """An engine with a planner warms every frontier point at every bucket:
+    0 kernel builds after ``start()``; each served row bitwise a solo
+    ``search_with`` at its batch's params."""
+    import numpy as np
+
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.planner import adaptive
+
+    db = _randn(dev, 20000, 32, seed=94)
+    index = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=64),
+                           res=Resources(device=dev, seed=7))
+    s = serving.ivf_flat_searcher(index, ivf_flat.SearchParams(n_probes=8))
+    pts = [adaptive.OperatingPoint({"n_probes": 32}, 8, 100.0, 0.99, 1e6),
+           adaptive.OperatingPoint({"n_probes": 4}, 8, 900.0, 0.9, 1e-6)]
+    doc = {"schema": adaptive.PARETO_SCHEMA, "platform": "test",
+           "families": {"ivf_flat": {"frontier": {"10": {
+               "8": [p.to_dict() for p in pts]}}}}}
+    planner = adaptive.AdaptivePlanner(adaptive.Frontier(doc),
+                                       recall_floor=0.85)
+    queries = _randn(dev, 64, 32, seed=95).cpu().numpy()
+    with serving.Engine(s, serving.EngineConfig(
+            max_batch=16, max_wait_us=2000, warm_ks=(10,),
+            planner=planner)) as eng:
+        c0 = serving.compile_count()
+        futs = [eng.submit(q_, 10, deadline_ms=(5000.0 if j % 2 else None))
+                for j, q_ in enumerate(queries)]
+        rows = [f.result(timeout=60) for f in futs]
+        builds = serving.compile_count() - c0
+    assert builds == 0 and eng.warmup_info["compiles"] >= 0
+    params = [f.params for f in futs]
+    assert {"n_probes": 4} in params
+    assert serving.verify_bit_identity(
+        s, list(queries), rows, 10, [f.placement for f in futs],
+        params) == 0
+    assert np.all([r[1].shape == (10,) for r in rows])

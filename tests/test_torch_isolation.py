@@ -44,6 +44,12 @@ from raft_tpu_torch.core import errors, logger, serialize, tracing
 from raft_tpu_torch.neighbors import hnsw
 from raft_tpu_torch.neighbors import mutable, ooc, tiered
 from raft_tpu_torch.testing import faults, interleave
+from raft_tpu_torch import planner
+from raft_tpu_torch.planner import adaptive, sweep
+from raft_tpu_torch.obs import costs
+from raft_tpu_torch.bench import (export, prims, probe, runner, timing,
+                                  write_tiers)
+import raft_tpu_torch.bench.__main__
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
 # the native layer loads the port's own build, never the JAX package's

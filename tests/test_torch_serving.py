@@ -482,14 +482,20 @@ def test_metrics_scrape_serves_the_serving_families(flat_pair):
 
 
 def test_unported_pieces_raise(flat_pair, tmp_path):
-    """The planner (ROADMAP Queue A item 10) still raises; the write path
-    and the tiers (item 11) are ported: ``Engine.writer()`` of a read-only
-    searcher is raft_tpu's ``TypeError`` word for word, and the mutable and
-    tiered searchers build and search."""
+    """What is still unported: the fleet (ROADMAP Queue A item 12: router,
+    fleet, remote replicas, autoscaler) is raft_tpu's alone. The planner
+    (item 10) is ported: an ``EngineConfig.planner`` no longer raises
+    (``tests/test_torch_planner.py`` serves one). The write path and the
+    tiers (item 11) are ported: ``Engine.writer()`` of a read-only searcher
+    is raft_tpu's ``TypeError`` word for word, and the mutable and tiered
+    searchers build and search."""
     db, j, t = flat_pair
     s = serving.ivf_flat_searcher(t)
-    with pytest.raises(NotImplementedError, match="item 10"):
-        serving.Engine(s, serving.EngineConfig(planner=object()))
+    for name in ("Router", "Fleet", "Autoscaler", "RemoteReplica",
+                 "RetryPolicy"):
+        assert hasattr(jserving, name) and not hasattr(serving, name), name
+    eng = serving.Engine(s, serving.EngineConfig(planner=object()))
+    assert eng.planner is not None and s.search_with is not None
     with pytest.raises(TypeError) as got:
         serving.Engine(s).writer()
     with pytest.raises(TypeError) as want:
