@@ -203,6 +203,24 @@ seed, 10,000 queries, k=10, L2) it
    0 builds after ``start()``, 0 of 256 mismatches at each request's
    params, none below the recall floor, the choices by reason); its loads'
    launches on every row (``planning_launches``);
+6g. the replica fleet (``raft_tpu_torch/bench/fleet_load.py``): three
+   replicas of phase 4's IVF-Flat (quorum 2) behind ``serving.Fleet``
+   under 8 and then 64 closed-loop submitters, a breaker tripped and
+   re-admitted by the router's probe in the first load, a rolling swap to
+   16 probes and a replica killed in the second (``fleet``: every request
+   one outcome, counters and spans reconciled, 0 of 256 sampled rows off
+   ``solo_reference``, 0 builds after ``start()``, the healthy count never
+   below quorum, the first load's recall@10 equal to 6b's IVF-Flat at 8
+   submitters); then two ``replica_main`` processes on the card at the
+   seeded 1M × 128 IVF-Flat spec (``remote_fleet``: 1,000 queries bitwise
+   this process's search of the same spec, one child SIGKILLed mid-load
+   with exact accounting, a third spawned by ``Autoscaler.on_fast_burn``
+   and retired through the drain handshake, the survivor swapped to the
+   brute-force spec and bitwise this process's brute force, every child's
+   scrape with 0 builds and the fused route; child start to
+   ``REPLICA_READY`` seconds, RPC round trips, QPS); its in-process loads'
+   launches on every row (``fleet_launches``); every 6g line carries the
+   card's name and power limit;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -2369,6 +2387,7 @@ def main() -> int:
     sample = np.random.default_rng(opts.seed).choice(N_QUERIES, SERVE_SAMPLE,
                                                     replace=False)
     serve_launches = {name: 0 for name in gk.LAUNCHES}
+    served_recall = {}  # (family, submitters) -> recall@10 (phase 6g's)
     for family, (searcher, floor) in served.items():
         for n_threads in SERVE_LOADS:
             sink = BatchSink()
@@ -2414,6 +2433,8 @@ def main() -> int:
             else:
                 quality = {"recall_at_10": float(
                     neighborhood_recall(ids_t, gt_i))}
+            served_recall[(family, n_threads)] = quality.get(
+                "recall_at_10")
             mismatches = serving.verify_bit_identity(
                 searcher, [q_host[j] for j in sample],
                 [(run["distances"][j], run["ids"][j]) for j in sample], K,
@@ -2645,6 +2666,18 @@ def main() -> int:
                                  f"{name}")
     for row in kernels:
         row["planning_launches"] = plan_launches.get(row["name"], 0)
+
+    # ---- 6g. the replica fleet: three replicas of phase 4's IVF-Flat in
+    # this process under load and faults; two replica processes on the
+    # card, one killed, one autoscaled, one swapped to brute force
+    from raft_tpu_torch.bench import fleet_load
+    fleet_launches = fleet_load.phase(
+        smi=smi, dev=dev, seed=opts.seed, queries=queries, gt_i=gt_i,
+        flat=index, flat_probes=n_probes,
+        serve_recall=served_recall[("ivf_flat", SERVE_LOADS[0])], emit=emit,
+        repo=Path(__file__).resolve().parent)
+    for row in kernels:
+        row["fleet_launches"] = fleet_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

@@ -1,9 +1,12 @@
-"""Closed-loop single-query load against a serving ``Engine``.
+"""Closed-loop single-query load against a serving ``Engine`` or ``Fleet``.
 
 ``closed_loop`` runs ``n_threads`` submitter threads; each submits one
 query, waits for its result, then submits the next, until every query has
-been served once. ``summarize`` turns the run and the engine's batch spans
-into the serving figures ``chip_smoke.py`` prints: QPS, p50/p99 latency,
+been served once. Against a fleet (``typed=True``) a request that fails
+typed (a shed, a failure after retries, a stopped replica) is counted
+under its ``failure_kind`` instead of stopping the load. ``summarize``
+turns the run and the engine's batch spans into the serving figures
+``chip_smoke.py`` prints: QPS, p50/p99 latency,
 mean batch size and bucket histogram, a batch's mean phases (pad and copy
 on the host, host return of the search call, launch to results ready,
 readback, launch to futures resolved) and CUDA-event device time, and the
@@ -44,15 +47,20 @@ class BatchSink:
 
 def closed_loop(engine, queries: np.ndarray, k: int, n_threads: int,
                 timeout: float = 120.0,
-                deadlines_ms: Optional[Sequence[Optional[float]]] = None
-                ) -> Dict[str, object]:
-    """Serve every row of ``queries`` once, one request at a time per
-    thread (thread t takes rows t, t + n_threads, ...), row j with
-    ``deadlines_ms[j]`` when given. Returns the wall seconds, per-query
-    latencies (s), result rows, placements, the operating point each
-    request's batch was served with (``params``, None without a planner)
-    and which requests were shed past their deadline (``shed``)."""
+                deadlines_ms: Optional[Sequence[Optional[float]]] = None,
+                typed: bool = False) -> Dict[str, object]:
+    """Serve every row of ``queries`` once through ``engine`` (an Engine
+    or a Fleet), one request at a time per thread (thread t takes rows t,
+    t + n_threads, ...), row j with ``deadlines_ms[j]`` when given.
+    Returns the wall seconds, per-query latencies (s), result rows,
+    placements, the handle that served each request (``searchers``, None
+    where the future names none), the operating point each request's
+    batch was served with (``params``, None without a planner), which
+    requests were shed past their deadline (``shed``), which failed typed
+    (``failed``, only with ``typed``) and the outcome counts by kind
+    (``outcomes``: ``"ok"`` and ``failure_kind``'s labels)."""
     from raft_tpu_torch.serving.batcher import DeadlineExceeded
+    from raft_tpu_torch.serving.router import failure_kind
 
     n = queries.shape[0]
     lat = np.zeros(n)
@@ -60,7 +68,10 @@ def closed_loop(engine, queries: np.ndarray, k: int, n_threads: int,
     dists = np.zeros((n, k), np.float32)
     placements: List[tuple] = [None] * n
     params: List[Optional[dict]] = [None] * n
+    searchers: List[object] = [None] * n
     shed = np.zeros(n, bool)
+    failed = np.zeros(n, bool)
+    kinds: List[str] = ["ok"] * n
     errors: List[BaseException] = []
 
     def worker(t: int) -> None:
@@ -73,11 +84,19 @@ def closed_loop(engine, queries: np.ndarray, k: int, n_threads: int,
                     d, i = fut.result(timeout=timeout)
                 except DeadlineExceeded:
                     shed[j] = True
+                    kinds[j] = "deadline"
+                    continue
+                except BaseException as e:  # noqa: B036 — typed or raised
+                    if not typed or failure_kind(e) == "other":
+                        raise
+                    failed[j] = True
+                    kinds[j] = failure_kind(e)
                     continue
                 finally:
                     lat[j] = time.perf_counter() - t0
                 dists[j], ids[j] = d, i
-                placements[j] = fut.placement
+                placements[j] = getattr(fut, "placement", None)
+                searchers[j] = getattr(fut, "searcher", None)
                 params[j] = getattr(fut, "params", None)
         except BaseException as e:  # noqa: B036 — re-raised below
             errors.append(e)
@@ -95,9 +114,13 @@ def closed_loop(engine, queries: np.ndarray, k: int, n_threads: int,
             from errors[0]
     if any(th.is_alive() for th in threads):
         raise RuntimeError("a submitter thread did not finish")
+    outcomes: Dict[str, int] = {}
+    for kind in kinds:
+        outcomes[kind] = outcomes.get(kind, 0) + 1
     return {"seconds": seconds, "latencies_s": lat, "ids": ids,
-            "distances": dists, "placements": placements, "params": params,
-            "shed": shed}
+            "distances": dists, "placements": placements,
+            "searchers": searchers, "params": params, "shed": shed,
+            "failed": failed, "outcomes": outcomes}
 
 
 def summarize(run: Dict[str, object], batches: List[dict]) -> dict:

@@ -27,10 +27,23 @@ sharded checkpoint restored onto one device, degraded (coverage < 1) or
 full; the tiered searcher an IVF-PQ index whose lists live in pinned host
 memory behind a slab arena; the mutable searcher a ``MutableIvf``, whose
 writes go through ``Engine.writer()`` (``WriteStalled``, ``CompactorCrashed``
-are its typed failures). The replica fleet, router, autoscaler and remote
-replicas come with ROADMAP Queue A item 12.
+are its typed failures).
+
+The replica fleet: ``Fleet`` routes single requests over N replicas by
+power of two choices (``Router``), retries typed failures on a sibling
+under the request's remaining deadline (``RetryPolicy``), upgrades
+replicas one at a time above ``FleetConfig.quorum`` (``rolling_swap``)
+and sheds typed when it cannot serve (``NoReplicaAvailable``,
+``RetriesExhausted``; ``FleetBelowQuorum`` refuses an upgrade).
+``RemoteReplica`` puts a replica in another process
+(``python -m raft_tpu_torch.serving.replica_main``) behind the same
+surface, and ``Autoscaler`` grows and shrinks the fleet on the pressure
+gauge and SLO fast burns.
 """
 
+from raft_tpu_torch.core.errors import IntegrityError
+from raft_tpu_torch.serving.autoscaler import (AUTOSCALE_REASONS, Autoscaler,
+                                               AutoscalerConfig)
 from raft_tpu_torch.serving.batcher import (Batch, Batcher, DeadlineExceeded,
                                             EngineStopped, QueueFull, Request)
 from raft_tpu_torch.serving.engine import (BatchFailed, CircuitBreaker,
@@ -38,6 +51,13 @@ from raft_tpu_torch.serving.engine import (BatchFailed, CircuitBreaker,
                                            Overloaded, compile_count,
                                            solo_reference,
                                            verify_bit_identity)
+from raft_tpu_torch.serving.fleet import Fleet, FleetConfig, Replica
+from raft_tpu_torch.serving.remote import RemoteReplica
+from raft_tpu_torch.serving.router import (FleetBelowQuorum,
+                                           NoReplicaAvailable,
+                                           ReplicaStarting, RetriesExhausted,
+                                           RetryPolicy, Router, failure_kind,
+                                           is_retryable)
 from raft_tpu_torch.serving.searchers import (Searcher, brute_force_searcher,
                                               cagra_searcher,
                                               elastic_searcher,
@@ -49,6 +69,9 @@ from raft_tpu_torch.serving.stats import ServingStats, percentiles
 from raft_tpu_torch.neighbors.mutable import CompactorCrashed, WriteStalled
 
 __all__ = [
+    "AUTOSCALE_REASONS",
+    "Autoscaler",
+    "AutoscalerConfig",
     "Batch",
     "BatchFailed",
     "Batcher",
@@ -59,15 +82,28 @@ __all__ = [
     "Engine",
     "EngineConfig",
     "EngineStopped",
+    "Fleet",
+    "FleetBelowQuorum",
+    "FleetConfig",
+    "IntegrityError",
+    "NoReplicaAvailable",
     "Overloaded",
     "QueueFull",
     "Request",
+    "RemoteReplica",
+    "Replica",
+    "ReplicaStarting",
+    "RetriesExhausted",
+    "RetryPolicy",
+    "Router",
     "Searcher",
     "ServingStats",
     "brute_force_searcher",
     "cagra_searcher",
     "compile_count",
     "elastic_searcher",
+    "failure_kind",
+    "is_retryable",
     "ivf_flat_searcher",
     "ivf_pq_searcher",
     "make_searcher",

@@ -10,15 +10,29 @@
   ``IntegrityError(reason="torn_tail")`` and truncate away, and
   :func:`crash_compactor` kills the background compactor between artifact
   write and publish (``CompactorCrashed``);
+- checkpoint files — :func:`delete_rank_file` removes one shard's rank
+  file, exercising the degraded (``allow_partial``) restore;
 - the serving device path — :func:`fail_next_dispatch`,
   :func:`hang_next_dispatch`, :func:`slow_searcher` perturb a serving
   ``Searcher`` handle's search call, exercising the engine's per-batch
-  containment, the hang watchdog and the overload shedding.
+  containment, the hang watchdog and the overload shedding;
+- the host p2p fabric — :func:`sever_connection` hard-cuts a live
+  outbound connection, :func:`partition_hosts` cuts a link both ways
+  until healed, :func:`delay_link` slows one, :func:`kill_host` ends a
+  replica process (SIGKILL) or an endpoint without a goodbye, exercising
+  send retry, the peer-death grace and the remote proxy's typed mapping;
+- fleet replicas — :func:`kill_replica` hard-stops one engine of a
+  ``Fleet`` mid-traffic, :func:`hang_replica` stalls one replica's next
+  search, :func:`trip_breaker` opens a replica's breaker directly;
+- memory budget — :func:`shrink_workspace` pins a Resources' workspace
+  ceiling low, exercising the tiled paths.
 
-Every injector works on real bytes or on the handle's real search
+Every injector works on real bytes, sockets or the handle's real search
 callable, so the detection paths under test are the ones production runs.
-The fleet injectors (replica kill, hang, breaker trip) come with the
-replica fleet.
+On the card, :func:`hang_replica` wraps the host call before the launch,
+so the watchdog fails the batch before anything reaches the device, and
+:func:`kill_replica`'s ``Engine.stop(drain=False)`` still settles every
+batch already launched.
 """
 
 from __future__ import annotations
@@ -78,6 +92,61 @@ def truncate_file(path: str, drop_bytes: int = 1) -> int:
     with open(path, "r+b") as f:
         f.truncate(new_size)
     return new_size
+
+
+def delete_rank_file(prefix: str, rank: int) -> str:
+    """Remove shard ``rank``'s checkpoint file (``prefix.rank<rank>``), a
+    lost disk or object. Returns the removed path."""
+    path = f"{prefix}.rank{rank}"
+    os.remove(path)
+    return path
+
+
+# ------------------------------------------------------ fabric injectors
+
+
+def sever_connection(endpoint, dest: int) -> bool:
+    """Hard-cut ``endpoint``'s live outbound connection to rank ``dest``.
+    False when no connection is open; the endpoint's send retry is
+    expected to re-deliver."""
+    return endpoint._sever_send(dest)
+
+
+def partition_hosts(a, b):
+    """Partition endpoint ``a`` from peer ``b`` (an endpoint: both ways; a
+    bare rank: one-sided, the split-brain shape) until the returned
+    ``heal()`` runs; heal also clears stream poison on both sides."""
+    b_rank = b if isinstance(b, int) else b.rank
+    a._partition(b_rank)
+    two_way = not isinstance(b, int)
+    if two_way:
+        b._partition(a.rank)
+
+    def heal():
+        a._heal(b_rank)
+        if two_way:
+            b._heal(a.rank)
+    return heal
+
+
+def delay_link(endpoint, dest: int, delay_s: float):
+    """Add ``delay_s`` before every frame ``endpoint`` sends to ``dest``.
+    Returns a zero-argument restore function."""
+    endpoint._set_link_delay(dest, float(delay_s))
+
+    def restore():
+        endpoint._set_link_delay(dest, None)
+    return restore
+
+
+def kill_host(target) -> None:
+    """Abrupt death, no goodbye: SIGKILL for a ``subprocess.Popen`` (a
+    ``replica_main`` child), ``close()`` without ``announce_drain`` for an
+    endpoint, so peers reach the peer-death verdict, not ``PeerDrained``."""
+    if hasattr(target, "kill") and hasattr(target, "pid"):
+        target.kill()
+        return
+    target.close()
 
 
 # ------------------------------------------------- mutable-WAL injectors
@@ -221,3 +290,63 @@ def slow_searcher(searcher, delay_s: float) -> Iterator:
         yield searcher
     finally:
         restore()
+
+
+# ------------------------------------------------------- fleet injectors
+
+
+def _resolve_replica(fleet_or_engine, replica):
+    """An Engine (``replica`` ignored), or a Fleet and a replica name or
+    index → the target engine."""
+    engine = fleet_or_engine
+    replicas = getattr(fleet_or_engine, "replicas", None)
+    if replicas is not None:
+        if isinstance(replica, int):
+            engine = replicas[replica].engine
+        else:
+            by_name = {r.name: r.engine for r in replicas}
+            if replica not in by_name:
+                raise KeyError(
+                    f"no replica {replica!r} (have {sorted(by_name)})")
+            engine = by_name[replica]
+    return engine
+
+
+def kill_replica(fleet_or_engine, replica=None) -> None:
+    """Hard-kill one replica mid-traffic (``Engine.stop(drain=False)``):
+    queued riders fail typed, batches already launched still complete, and
+    the replica goes ``"unhealthy"`` so the fleet routes around it. A
+    killed engine does not come back."""
+    _resolve_replica(fleet_or_engine, replica).stop(drain=False)
+
+
+def hang_replica(fleet_or_engine, replica=None, hang_s: float = 60.0,
+                 times: int = 1):
+    """Stall one replica's next ``times`` searches for ``hang_s``: the
+    watchdog fails the batch, trips the breaker, and the fleet routes
+    around the replica until a probe closes it. Returns the disarm
+    function."""
+    engine = _resolve_replica(fleet_or_engine, replica)
+    return hang_next_dispatch(engine.searcher, hang_s, times=times)
+
+
+def trip_breaker(fleet_or_engine, replica=None) -> None:
+    """Open one replica's circuit breaker now, as the watchdog would on a
+    hang (``trip()`` and the trip counter)."""
+    engine = _resolve_replica(fleet_or_engine, replica)
+    engine.breaker.trip()
+    engine.stats.record_breaker_trip()
+
+
+@contextlib.contextmanager
+def shrink_workspace(res, limit_bytes: int = 1 << 20,
+                     restore: Optional[int] = None) -> Iterator:
+    """Pin ``res``'s workspace limit to ``limit_bytes`` (1 MiB by default:
+    small enough to force the tiled paths at test sizes) while active;
+    the previous explicit limit (or ``restore``) comes back on exit."""
+    prev = res._workspace_limit
+    res._workspace_limit = int(limit_bytes)
+    try:
+        yield res
+    finally:
+        res._workspace_limit = prev if restore is None else int(restore)

@@ -1915,3 +1915,118 @@ def test_planner_engine_builds_nothing_after_start_on_the_card(dev):
         s, list(queries), rows, 10, [f.placement for f in futs],
         params) == 0
     assert np.all([r[1].shape == (10,) for r in rows])
+
+
+def test_two_replica_fleet_rows_bitwise_solo_on_the_card(dev):
+    """Two replicas of one IVF-Flat index in one process share the card:
+    every row a fleet serves is bitwise ``solo_reference`` on the handle
+    that served it, both replicas serve, and nothing builds after
+    ``start()``; a replica killed mid-load leaves no future pending."""
+    import threading
+
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.testing import faults
+
+    db = _randn(dev, 20000, 32, seed=96)
+    index = ivf_flat.build(db, ivf_flat.IndexParams(n_lists=64),
+                           res=Resources(device=dev, seed=8))
+    fleet = serving.Fleet.from_searchers(
+        [serving.ivf_flat_searcher(index, ivf_flat.SearchParams(n_probes=8))
+         for _ in range(2)],
+        engine_config=serving.EngineConfig(max_batch=16, max_wait_us=2000,
+                                           warm_ks=(10,)),
+        config=serving.FleetConfig(quorum=1, seed=3))
+    queries = _randn(dev, 256, 32, seed=97).cpu().numpy()
+    futs = [None] * len(queries)
+    with fleet:
+        c0 = serving.compile_count()
+
+        def worker(t):
+            for j in range(t, len(queries), 8):
+                futs[j] = fleet.submit(queries[j], 10)
+                futs[j].result(timeout=60)
+                if j == 128:
+                    faults.kill_replica(fleet, "replica1")
+
+        threads = [threading.Thread(target=worker, args=(t,))
+                   for t in range(8)]
+        for th in threads:
+            th.start()
+        for th in threads:
+            th.join(120)
+        assert fleet.drain(timeout=60)
+        builds = serving.compile_count() - c0
+    assert builds == 0
+    assert {f.replica for f in futs} == {"replica0", "replica1"}
+    oc = fleet.stats.outcome_counts()
+    assert oc["submitted"] == oc["ok"] == len(queries)
+    for q_, f in zip(queries, futs):
+        d, i = f.result(timeout=0)
+        ref_d, ref_i = serving.solo_reference(f.searcher, q_, 10,
+                                              *f.placement)
+        assert torch.equal(torch.from_numpy(d).view(torch.int32),
+                           torch.from_numpy(ref_d).view(torch.int32))
+        assert torch.equal(torch.from_numpy(i), torch.from_numpy(ref_i))
+
+
+def test_replica_main_child_on_the_card_bitwise_the_frontend(dev):
+    """A ``replica_main`` child started with no ``--device`` serves on the
+    card and answers bitwise this process's ``solo_reference`` over the
+    same seeded spec at the placement its reply carries; it builds no
+    kernel (the libraries are loaded from ``build/``) and leaves through
+    the stop op's drain handshake with exit code 0."""
+    import socket
+    import subprocess
+    import sys
+    from pathlib import Path
+
+    from raft_tpu_torch import serving
+    from raft_tpu_torch.bench.fleet_load import scrape_figures
+    from raft_tpu_torch.ops import gpu_kernels
+    from raft_tpu_torch.parallel.host_p2p import HostP2P
+    from raft_tpu_torch.serving.replica_main import build_searcher
+
+    gpu_kernels.build_all()
+    spec = {"family": "ivf_flat", "dim": 32, "rows": 20000, "seed": 5,
+            "n_lists": 64}
+    socks = [socket.socket() for _ in range(2)]
+    for s_ in socks:
+        s_.bind(("127.0.0.1", 0))
+    peers = [("127.0.0.1", s_.getsockname()[1]) for s_ in socks]
+    for s_ in socks:
+        s_.close()
+    child = subprocess.Popen(
+        [sys.executable, "-m", "raft_tpu_torch.serving.replica_main",
+         "--rank", "1", "--size", "2",
+         "--peers", ",".join(f"{h}:{p}" for h, p in peers),
+         "--family", "ivf_flat", "--dim", "32", "--rows", "20000",
+         "--seed", "5", "--n-lists", "64", "--max-batch", "16"],
+        cwd=str(Path(__file__).resolve().parents[1]),
+        stdout=subprocess.PIPE, stderr=subprocess.DEVNULL, text=True)
+    ep = None
+    try:
+        assert any(line.startswith("REPLICA_READY") for line in child.stdout)
+        ref = build_searcher(spec, dev)
+        ep = HostP2P(rank=0, size=2, peers=peers, timeout=60)
+        proxy = serving.RemoteReplica(ep, peer=1, dim=32, name="card1",
+                                      rpc_timeout_s=60).start()
+        queries = _randn(dev, 40, 32, seed=98).cpu().numpy()
+        for q_ in queries:
+            fut = proxy.submit(q_, 10)
+            d, i = fut.result(timeout=60)
+            ref_d, ref_i = serving.solo_reference(ref, q_, 10,
+                                                  *fut.placement)
+            assert torch.equal(torch.from_numpy(d).view(torch.int32),
+                               torch.from_numpy(ref_d).view(torch.int32))
+            assert torch.equal(torch.from_numpy(i), torch.from_numpy(ref_i))
+        fig = scrape_figures(proxy.scrape(timeout=60))
+        assert fig["builds"] == 0
+        assert fig["dispatch"].get("ivf_flat:pallas:auto_fused_wins", 0) > 0
+        proxy.stop(drain=True)
+        assert child.wait(60) == 0
+    finally:
+        if ep is not None:
+            ep.close()
+        if child.poll() is None:
+            child.kill()
+        child.wait(60)

@@ -18,6 +18,7 @@ from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
                                       mutable, nn_descent, ooc, tiered)
 from raft_tpu_torch.neighbors.refine import refine
 from raft_tpu_torch.parallel import comms, sharded
+from raft_tpu_torch.serving import replica_main
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -50,6 +51,11 @@ from raft_tpu_torch.obs import costs
 from raft_tpu_torch.bench import (export, prims, probe, runner, timing,
                                   write_tiers)
 import raft_tpu_torch.bench.__main__
+from raft_tpu_torch.parallel import host_p2p
+from raft_tpu_torch.serving import (autoscaler, fleet, remote, replica_main,
+                                    router)
+from raft_tpu_torch.bench import fleet_load
+import raft_tpu_torch.serving.replica_main
 bad = sorted(m for m in sys.modules
              if m.split(".")[0] in ("jax", "jaxlib", "raft_tpu"))
 # the native layer loads the port's own build, never the JAX package's
@@ -85,7 +91,8 @@ def _no_cuda():
                                    "kmeans.fit", "Resources", "init_comms",
                                    "sharded.knn", "mutable.MutableIvf",
                                    "tiered.SlabArena",
-                                   "ooc.build_ivf_flat_from_file"])
+                                   "ooc.build_ivf_flat_from_file",
+                                   "replica_main.build_searcher"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
                                                               tmp_path):
     _no_cuda()
@@ -121,6 +128,8 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
         "tiered.SlabArena": lambda: tiered.SlabArena(4, 8, 8),
         "ooc.build_ivf_flat_from_file": lambda: ooc.build_ivf_flat_from_file(
             str(tmp_path / "none.fbin")),
+        "replica_main.build_searcher": lambda: replica_main.build_searcher(
+            {"family": "ivf_flat", "dim": 8, "rows": 64, "n_lists": 4}),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

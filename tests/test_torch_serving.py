@@ -10,9 +10,9 @@ JAX engine's rows on the same queries (distances atol 1e-4·max‖x‖², rtol
 serve too; CAGRA's reuses a seed table per bucket and its rows are
 bitwise those of a search that draws the seeds per call. Lifecycle:
 deadline shedding, ``QueueFull``, drain and stop, ``BatchFailed``
-containment, no kernel build after ``start()``, and the pieces not ported
-yet raise ``NotImplementedError``. Every engine is stopped by its test;
-every future is read with a timeout.
+containment, no kernel build after ``start()``, the fleet's names
+exported, and the pieces not ported yet raise ``NotImplementedError``.
+Every engine is stopped by its test; every future is read with a timeout.
 """
 
 import threading
@@ -482,18 +482,32 @@ def test_metrics_scrape_serves_the_serving_families(flat_pair):
 
 
 def test_unported_pieces_raise(flat_pair, tmp_path):
-    """What is still unported: the fleet (ROADMAP Queue A item 12: router,
-    fleet, remote replicas, autoscaler) is raft_tpu's alone. The planner
-    (item 10) is ported: an ``EngineConfig.planner`` no longer raises
-    (``tests/test_torch_planner.py`` serves one). The write path and the
-    tiers (item 11) are ported: ``Engine.writer()`` of a read-only searcher
-    is raft_tpu's ``TypeError`` word for word, and the mutable and tiered
-    searchers build and search."""
+    """What is still unported, and what no longer is. The fleet (ROADMAP
+    Queue A item 12: router, fleet, remote replicas, autoscaler) is ported:
+    the port exports the five names raft_tpu does. Still raft_tpu's alone:
+    sharded CAGRA (item 13) and the dense metrics beyond L2, cosine and
+    inner product (item 14), which raise ``NotImplementedError``. The
+    planner (item 10) is ported: an ``EngineConfig.planner`` no longer
+    raises (``tests/test_torch_planner.py`` serves one). The write path and
+    the tiers (item 11) are ported: ``Engine.writer()`` of a read-only
+    searcher is raft_tpu's ``TypeError`` word for word, and the mutable and
+    tiered searchers build and search."""
     db, j, t = flat_pair
     s = serving.ivf_flat_searcher(t)
     for name in ("Router", "Fleet", "Autoscaler", "RemoteReplica",
                  "RetryPolicy"):
-        assert hasattr(jserving, name) and not hasattr(serving, name), name
+        assert hasattr(jserving, name) and hasattr(serving, name), name
+        assert name in serving.__all__
+    from raft_tpu_torch.ops import distance as tdistance
+    from raft_tpu_torch.parallel import comms as tcomms
+    from raft_tpu_torch.parallel import sharded as tsharded
+    for name in ("build_cagra", "search_cagra"):
+        with pytest.raises(NotImplementedError, match="item 13"):
+            getattr(tsharded, name)(tcomms.init_comms(["cpu"]), db)
+    with pytest.raises(NotImplementedError, match="item 14"):
+        tdistance.pairwise_core(torch.from_numpy(db[:4]),
+                                torch.from_numpy(db[:4]),
+                                tdistance.DistanceType.L1)
     eng = serving.Engine(s, serving.EngineConfig(planner=object()))
     assert eng.planner is not None and s.search_with is not None
     with pytest.raises(TypeError) as got:
