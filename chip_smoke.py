@@ -237,6 +237,23 @@ seed, 10,000 queries, k=10, L2) it
    ``fused_cagra_topk``, ``fused_ivf_topk``, ``fused_pq_topk``,
    ``select_k`` and ``ring_shift``); every 6h line carries the card's name
    and power limit;
+6i. the breadth modules (``raft_tpu_torch/bench/breadth.py``, ~2 min):
+   ``ball_cover`` (1,000,000 haversine points and 1,000,000 3-D points in
+   1,000 seeded clusters, √n landmarks, 10,000 queries, k = 32: ``knn``
+   against ``brute_force.knn``, ``eps_nn`` against ``eps_neighbors``;
+   build s, QPS, pass 2's lists and query chunk), ``eps_neighbors``
+   (10,000 × 100,000 × 128, degrees against float64), ``gram`` (the four
+   kernels at 10,000 × 10,000 × 128 and a 1% CSR, against float64 within
+   1e-5), ``linalg`` (``rsvd`` of the rows, the 128 × 128 covariance's
+   decompositions, ``lanczos`` over the normalised 16-NN graph of 100,000
+   rows beside ``eigsh``, two runs of the scatter sums bitwise),
+   ``stats`` (moments and histogram of the rows against float64, the
+   silhouette of 100 k-means clusters, trustworthiness, the contingency
+   scores of phase 5c's labels) and ``quantize`` (int8 codes searched by
+   IVF-Flat, bitwise its f32 twin, and brute force); ``breadth_launches``
+   on every row, asserted above 0 for ``fused_l2_topk``, ``fused_ivf_topk``
+   and ``fused_l2_argmin``; every 6i line carries the card's name and power
+   limit;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -2717,6 +2734,17 @@ def main() -> int:
             raise AssertionError(f"phase 6h launched no {name}")
     for row in kernels:
         row["sharded_launches"] = sharded_launches.get(row["name"], 0)
+
+    # ---- 6i. the breadth modules: ball cover, the epsilon neighbourhood,
+    # Gram matrices, dense and sparse linear algebra, statistics and the
+    # scalar quantizer, each held against float64 or its exact counterpart
+    from raft_tpu_torch.bench import breadth
+    breadth_launches = breadth.phase(
+        smi=smi, dev=dev, seed=opts.seed, dataset=dataset, queries=queries,
+        gt_i=gt_i, km_centers=km_centers, emit=emit, timed=timed,
+        launch_counts=launch_counts)
+    for row in kernels:
+        row["breadth_launches"] = breadth_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

@@ -2,7 +2,8 @@
 
 Exact, IVF-Flat, IVF-PQ and CAGRA search (with refine, the bf16 fast scan,
 narrow rows, the mutable write path, tiered and streamed IVF-PQ), k-means,
-the distances, the sharded path over a communicator of ranks
+the distances, the dense and sparse linear algebra, the statistics, the
+random ball cover, the sharded path over a communicator of ranks
 (``parallel``: sharded kNN, IVF-Flat, IVF-PQ, CAGRA and k-means, the
 from-file and pod builds, checkpoints, ``init_distributed`` over
 ``torch.distributed``), the serving engine and its replica fleet
@@ -16,12 +17,12 @@ imported here.
 """
 
 from raft_tpu_torch.core.resources import Resources
-from raft_tpu_torch import (cluster, core, interop, neighbors, ops, parallel,
-                            stats, utils)
+from raft_tpu_torch import (cluster, core, interop, matrix, neighbors, ops,
+                            parallel, sparse, stats, utils)
 from raft_tpu_torch import bench, planner, serving
 
 __version__ = "0.1.0"
 
-__all__ = ["Resources", "bench", "cluster", "core", "interop", "neighbors",
-           "ops", "parallel", "planner", "serving", "stats", "utils",
-           "__version__"]
+__all__ = ["Resources", "bench", "cluster", "core", "interop", "matrix",
+           "neighbors", "ops", "parallel", "planner", "serving", "sparse",
+           "stats", "utils", "__version__"]

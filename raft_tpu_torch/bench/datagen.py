@@ -20,3 +20,14 @@ def low_rank_clusters(rng: np.random.Generator, n: int, dim: int,
     z = (centers[rng.integers(0, n_centers, n)]
          + rng.standard_normal((n, intrinsic)))
     return z.astype(np.float32) @ proj
+
+
+def low_rank_cluster_ids(rng: np.random.Generator, n: int, dim: int,
+                         n_centers: int = 96, intrinsic: int = 16
+                         ) -> np.ndarray:
+    """The cluster id [n] int64 of each row that :func:`low_rank_clusters`
+    makes from a generator in the same state with the same arguments (its
+    draws replayed up to the ids, without the rows)."""
+    rng.standard_normal((intrinsic, dim))
+    rng.standard_normal((n_centers, intrinsic))
+    return rng.integers(0, n_centers, n)

@@ -1,9 +1,9 @@
 """Core layer: resources, the filter bitset, errors, logging, tracing,
-cross-thread cancellation (``interruptible``) and the index file format
-(``serialize``)."""
+cross-thread cancellation (``interruptible``), the index file format
+(``serialize``) and the composable operators (``operators``)."""
 
-from raft_tpu_torch.core import (errors, interruptible, logger, serialize,
-                                 tracing)
+from raft_tpu_torch.core import (errors, interruptible, logger, operators,
+                                 serialize, tracing)
 from raft_tpu_torch.core.bitset import Bitset
 from raft_tpu_torch.core.errors import (IntegrityError, LogicError, RaftError,
                                         expects, fail)
@@ -12,4 +12,4 @@ from raft_tpu_torch.core.resources import Resources, ensure_resources
 __all__ = ["Bitset", "IntegrityError", "LogicError", "RaftError", "Resources",
            "ensure_resources", "errors", "expects", "fail", "interruptible",
            "logger",
-           "serialize", "tracing"]
+           "operators", "serialize", "tracing"]

@@ -132,6 +132,27 @@ def ensure_resources(res: Optional[Resources] = None,
     return res
 
 
+def as_tensors(*arrays, device: DeviceLike = None):
+    """The arrays as tensors on one device: ``device`` when given, else the
+    device of the first tensor among them, else CUDA (unless the caller asks
+    for the CPU). A tensor already there is returned as it is; ``None``
+    stays ``None``. Host arrays keep their dtype. Returns a tuple."""
+    if device is None:
+        dev = next((a.device for a in arrays if isinstance(a, torch.Tensor)),
+                   None) or resolve_device(None)
+    else:
+        dev = resolve_device(device)
+    out = []
+    for a in arrays:
+        if a is None or (isinstance(a, torch.Tensor) and a.device == dev):
+            out.append(a)
+        elif isinstance(a, torch.Tensor):
+            out.append(a.to(dev))
+        else:
+            out.append(torch.as_tensor(np.asarray(a)).to(dev))
+    return tuple(out)
+
+
 def solve_merge_bytes(size: int, nq: int, kk: int, k_out: int,
                       val_bytes: int = 4, idx_bytes: int = 4,
                       pos_bytes: int = 4) -> dict:

@@ -11,10 +11,13 @@ import numpy as np
 import torch
 
 from raft_tpu_torch.core.resources import resolve_device
-from raft_tpu_torch.neighbors import brute_force, cagra, ivf_flat, ivf_pq
+from raft_tpu_torch.neighbors import (ball_cover, brute_force, cagra,
+                                      ivf_flat, ivf_pq)
 from raft_tpu_torch.ops.distance import resolve_metric
 from raft_tpu_torch.parallel import sharded
 from raft_tpu_torch.parallel.comms import Comms
+from raft_tpu_torch.sparse.types import (COO, CSR, coo_from_arrays,
+                                         csr_from_scipy_like)
 
 
 def _t(a, device) -> torch.Tensor:
@@ -86,6 +89,33 @@ def cagra_index_from_numpy(params: cagra.IndexParams, dataset, graph,
     dev = resolve_device(device)
     return cagra.Index(params, _t(dataset, dev),
                        _t(np.asarray(graph, np.int32), dev))
+
+
+def ball_cover_index_from_numpy(landmarks, list_data, list_indices,
+                                list_sizes, radii, metric, n_rows: int,
+                                device=None) -> ball_cover.BallCoverIndex:
+    """A random ball cover index from landmarks [L, dim], list_data [L, pad,
+    dim], list_indices [L, pad], list_sizes [L] and radii [L]."""
+    dev = resolve_device(device)
+    return ball_cover.BallCoverIndex(
+        _t(landmarks, dev), _t(list_data, dev),
+        _t(np.asarray(list_indices, np.int32), dev),
+        _t(np.asarray(list_sizes, np.int32), dev),
+        _t(np.asarray(radii, np.float32), dev), resolve_metric(metric),
+        int(n_rows))
+
+
+def csr_from_numpy(indptr, indices, data, shape, device=None) -> CSR:
+    """A CSR from a JAX ``CSR``'s arrays (indptr, indices, data, shape)."""
+    dev = resolve_device(device)
+    return csr_from_scipy_like(_t(indptr, dev), _t(indices, dev),
+                               _t(data, dev), shape)
+
+
+def coo_from_numpy(rows, cols, data, shape, device=None) -> COO:
+    """A COO from a JAX ``COO``'s arrays (rows, cols, data, shape)."""
+    dev = resolve_device(device)
+    return coo_from_arrays(_t(rows, dev), _t(cols, dev), _t(data, dev), shape)
 
 
 def _rank_rows(bounds) -> np.ndarray:

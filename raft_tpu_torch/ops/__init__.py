@@ -4,8 +4,8 @@ kernels (counterpart of ``raft_tpu.ops``, with the same public names).
 As in the JAX package, ``ops.select_k`` is the function: a module that
 needs the ``select_k`` module itself imports it by its full path
 (``importlib.import_module("raft_tpu_torch.ops.select_k")``). The kernels
-live in ``ops.gpu_kernels``. raft_tpu's ``kernels``, ``linalg`` and
-``matrix`` are not ported yet (ROADMAP Queue A item 14)."""
+live in ``ops.gpu_kernels``; ``kernels`` (Gram matrices), ``linalg`` and
+``matrix`` are torch glue, as they are XLA glue in the JAX package."""
 
 from raft_tpu_torch.ops.distance import (DistanceType, is_min_close,
                                          pairwise_distance, resolve_metric,
@@ -14,7 +14,7 @@ from raft_tpu_torch.ops.fused_l2_nn import (fused_l2_nn_argmin,
                                             masked_l2_nn_argmin)
 from raft_tpu_torch.ops.select_k import (SelectAlgo, merge_topk_dedup,
                                          select_k, select_k_filtered)
-from raft_tpu_torch.ops import rng
+from raft_tpu_torch.ops import kernels, linalg, matrix, rng
 
 __all__ = [
     "DistanceType",
@@ -28,5 +28,8 @@ __all__ = [
     "merge_topk_dedup",
     "fused_l2_nn_argmin",
     "masked_l2_nn_argmin",
+    "kernels",
+    "linalg",
+    "matrix",
     "rng",
 ]

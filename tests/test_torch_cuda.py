@@ -2098,3 +2098,133 @@ def test_replica_main_child_on_the_card_bitwise_the_frontend(dev):
         if child.poll() is None:
             child.kill()
         child.wait(60)
+
+
+# ---- the breadth modules on the card: the scatter sums of ``ops.linalg``
+# and ``sparse`` deterministic, the Gram matrices in full fp32, the ball
+# cover exact
+
+
+def _sparse_pair(dev, n=3000, m=2000, nnz=40000, seed=60):
+    from raft_tpu_torch import sparse
+
+    g = torch.Generator(device=dev).manual_seed(seed)
+    rows = torch.randint(0, n, (nnz,), generator=g, device=dev)
+    cols = torch.randint(0, m, (nnz,), generator=g, device=dev)
+    data = torch.randn((nnz,), generator=g, device=dev)
+    coo = sparse.coo_from_arrays(rows, cols, data, (n, m))
+    return coo, sparse.convert.coo_to_csr(coo)
+
+
+def _in_pieces(monkeypatch, csr, b):
+    """spmm with its contributions cut into pieces of 64 KiB."""
+    from raft_tpu_torch import sparse
+
+    with monkeypatch.context() as m:
+        m.setattr(sparse.linalg, "PIECE_BYTES", 1 << 16)
+        return sparse.linalg.spmm(csr, b)
+
+
+def test_breadth_scatter_sums_two_runs_bitwise_on_the_card(dev,
+                                                           monkeypatch):
+    from raft_tpu_torch import sparse
+    from raft_tpu_torch.ops import linalg
+
+    coo, csr = _sparse_pair(dev)
+    sq, _ = _sparse_pair(dev, n=2000, m=2000, seed=61)
+    b = _randn(dev, 2000, 24, seed=62)
+    v = _randn(dev, 2000, seed=63)
+    x = _randn(dev, 50000, 32, seed=64)
+    keys = torch.randint(0, 300, (50000,), device=dev,
+                         generator=torch.Generator(device=dev).manual_seed(65))
+    runs = {
+        "spmm": lambda: sparse.linalg.spmm(csr, b),
+        "spmm_pieces": lambda: _in_pieces(monkeypatch, csr, b),
+        "spmv": lambda: sparse.linalg.spmv(csr, v),
+        "row_norm": lambda: sparse.linalg.row_norm(csr, "l2"),
+        "symmetrize_sum": lambda: sparse.linalg.symmetrize(sq, "sum").data,
+        "symmetrize_mean": lambda: sparse.linalg.symmetrize(sq, "mean").data,
+        "sum_duplicates": lambda: sparse.op.coo_sum_duplicates(coo).data,
+        "coo_to_dense": lambda: sparse.convert.coo_to_dense(coo),
+        "reduce_rows_by_key": lambda: linalg.reduce_rows_by_key(x, keys, 300),
+        "reduce_cols_by_key": lambda: linalg.reduce_cols_by_key(
+            x[:300], keys[:32] % 7, 7)}
+    for name, fn in runs.items():
+        first, second = fn(), fn()
+        torch.cuda.synchronize()
+        assert _bitwise_equal((first,), (second,)), name
+    # and against the CPU within the fp32 tolerance
+    cpu = sparse.linalg.spmm(sparse.CSR(csr.indptr.cpu(), csr.indices.cpu(),
+                                        csr.data.cpu(), csr.shape), b.cpu())
+    torch.testing.assert_close(runs["spmm"]().cpu(), cpu, rtol=1e-5,
+                               atol=1e-5 * float(cpu.abs().max()))
+
+
+@pytest.mark.parametrize("kernel", ["LINEAR", "POLYNOMIAL", "TANH", "RBF"])
+def test_gram_matrix_is_fp32_on_the_card(dev, kernel):
+    from raft_tpu_torch.ops import kernels as gram
+
+    x, y = _randn(dev, 500, 128, seed=66), _randn(dev, 700, 128, seed=67)
+    params = gram.KernelParams(gram.KernelType[kernel], 3, 1.0 / 128, 0.5)
+    got = gram.gram_matrix(x, y, params).double()
+    ip = x.double() @ y.double().T
+    want = {"LINEAR": ip, "POLYNOMIAL": (ip / 128 + 0.5) ** 3,
+            "TANH": torch.tanh(ip / 128 + 0.5),
+            "RBF": torch.exp(-torch.clamp_min(
+                (x.double() ** 2).sum(1)[:, None]
+                + (y.double() ** 2).sum(1)[None, :] - 2 * ip, 0) / 128)
+            }[kernel]
+    assert float((got - want).abs().max() / want.abs().max()) <= 1e-5
+
+
+def test_gram_and_gemm_refuse_tf32_on_the_card(dev):
+    from raft_tpu_torch.ops import kernels as gram
+    from raft_tpu_torch.ops import linalg
+
+    x = _randn(dev, 8, 16, seed=68)
+    before = torch.backends.cuda.matmul.allow_tf32
+    torch.backends.cuda.matmul.allow_tf32 = True
+    try:
+        for call in (lambda: gram.linear_kernel(x, x),
+                     lambda: gram.rbf_kernel(x, x),
+                     lambda: linalg.gemm(x, x.T),
+                     lambda: linalg.gemv(x, x[0])):
+            with pytest.raises(RuntimeError, match="allow_tf32"):
+                call()
+    finally:
+        torch.backends.cuda.matmul.allow_tf32 = before
+
+
+@pytest.mark.parametrize("metric", ["sqeuclidean", "euclidean", "haversine"])
+def test_ball_cover_knn_equals_brute_force_on_the_card(dev, metric):
+    from raft_tpu_torch.neighbors import ball_cover, brute_force
+
+    g = torch.Generator(device=dev).manual_seed(69)
+    if metric == "haversine":
+        c = torch.rand((20, 2), generator=g, device=dev) * torch.tensor(
+            [2.4, 6.0], device=dev) - torch.tensor([1.2, 3.0], device=dev)
+        pts = c[torch.randint(0, 20, (20000,), generator=g, device=dev)] \
+            + 0.02 * torch.randn((20000, 2), generator=g, device=dev)
+    else:
+        c = torch.rand((20, 3), generator=g, device=dev) * 2 - 1
+        pts = c[torch.randint(0, 20, (20000,), generator=g, device=dev)] \
+            + 0.05 * torch.randn((20000, 3), generator=g, device=dev)
+    db, q = pts[:19000].contiguous(), pts[19000:].contiguous()
+    res = Resources(device=dev, seed=1)
+    index = ball_cover.build(db, metric, res=res)
+    got = ball_cover.knn(index, q, 16, res=res)
+    again = ball_cover.knn(index, q, 16, res=res)
+    torch.cuda.synchronize()
+    assert _bitwise_equal(got, again)
+    want = brute_force.knn(q, db, 16, metric=metric, res=res)
+    if metric == "haversine":
+        assert_topk_close(got, want, 1e-7, 1e-5)
+    else:
+        sq = (lambda d: d * d) if metric == "euclidean" else (lambda d: d)
+        assert_topk_close((sq(got[0]), got[1]), (sq(want[0]), want[1]),
+                          1e-6 * float((db * db).sum(1).max()), 1e-5)
+    small = Resources(device=dev, seed=1, workspace_limit_bytes=1 << 22)
+    chunked = ball_cover.knn(index, q, 16, n_init_probes=1, res=small)
+    one = ball_cover.knn(index, q, 16, n_init_probes=1, res=res)
+    # the card's reductions may round a pair differently in another shape
+    assert_topk_close(chunked, one, 0.0, 1e-6)

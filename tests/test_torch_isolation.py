@@ -14,11 +14,14 @@ import torch
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch import interop
 from raft_tpu_torch.cluster import kmeans
-from raft_tpu_torch.neighbors import (brute_force, cagra, ivf_flat, ivf_pq,
+from raft_tpu_torch.neighbors import (ball_cover, brute_force, cagra,
+                                      epsilon_neighborhood, ivf_flat, ivf_pq,
                                       mutable, nn_descent, ooc, tiered)
 from raft_tpu_torch.neighbors.refine import refine
+from raft_tpu_torch.ops import linalg
 from raft_tpu_torch.parallel import comms, sharded
 from raft_tpu_torch.serving import replica_main
+from raft_tpu_torch import sparse, stats
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -69,6 +72,18 @@ from raft_tpu_torch.parallel.sharded import (
     build_ivf_pq_from_file, build_ivf_pq_from_file_pod, search_cagra)
 from raft_tpu_torch.interop import sharded_cagra_from_numpy
 from raft_tpu_torch.bench import sharded_rest
+from raft_tpu_torch import matrix, sparse
+from raft_tpu_torch.core import operators
+from raft_tpu_torch.ops import kernels, linalg
+from raft_tpu_torch.ops import matrix as ops_matrix
+from raft_tpu_torch.sparse import convert, op, selection, types
+from raft_tpu_torch.sparse import linalg as sparse_linalg
+from raft_tpu_torch.stats import basic, cluster_metrics
+from raft_tpu_torch.neighbors import (ball_cover, epsilon_neighborhood,
+                                      quantize, rbc)
+from raft_tpu_torch.interop import (ball_cover_index_from_numpy,
+                                    coo_from_numpy, csr_from_numpy)
+from raft_tpu_torch.bench import breadth
 assert callable(select_k_fn) and raft_tpu_torch.ops.select_k is select_k_fn
 assert {"serving", "planner", "bench"} <= set(raft_tpu_torch.__all__)
 bad = sorted(m for m in sys.modules
@@ -107,7 +122,11 @@ def _no_cuda():
                                    "sharded.knn", "mutable.MutableIvf",
                                    "tiered.SlabArena",
                                    "ooc.build_ivf_flat_from_file",
-                                   "replica_main.build_searcher"])
+                                   "replica_main.build_searcher",
+                                   "ball_cover.build", "eps_neighbors",
+                                   "linalg.gemm", "linalg.lanczos",
+                                   "stats.trustworthiness_score",
+                                   "sparse.csr_from_scipy_like"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
                                                               tmp_path):
     _no_cuda()
@@ -145,6 +164,16 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
             str(tmp_path / "none.fbin")),
         "replica_main.build_searcher": lambda: replica_main.build_searcher(
             {"family": "ivf_flat", "dim": 8, "rows": 64, "n_lists": 4}),
+        "ball_cover.build": lambda: ball_cover.build(db[:, :3]),
+        "eps_neighbors": lambda: epsilon_neighborhood.eps_neighbors(
+            db, db, 1.0),
+        # host arrays go to the default device
+        "linalg.gemm": lambda: linalg.gemm(db, db.T),
+        "linalg.lanczos": lambda: linalg.lanczos(lambda v: v, 64, 2),
+        "stats.trustworthiness_score": lambda: stats.trustworthiness_score(
+            db, db[:, :2]),
+        "sparse.csr_from_scipy_like": lambda: sparse.csr_from_scipy_like(
+            np.array([0, 1]), np.array([0]), np.array([1.0]), (1, 1)),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

@@ -485,9 +485,9 @@ def test_unported_pieces_raise(flat_pair, tmp_path):
     """What is still unported, and what no longer is. The fleet (ROADMAP
     Queue A item 12: router, fleet, remote replicas, autoscaler) is ported:
     the port exports the five names raft_tpu does. Sharded CAGRA (item 13)
-    and the dense metrics are ported too: they no longer raise. Still
-    raft_tpu's alone: ``ops.linalg``, ``ops.matrix`` and ``ops.kernels``
-    (item 14), absent from the port's ``ops``. The
+    and the dense metrics are ported too: they no longer raise. So are
+    ``ops.linalg``, ``ops.matrix`` and ``ops.kernels`` (item 14a): the
+    port's ``ops`` exports them as raft_tpu's does. The
     planner (item 10) is ported: an ``EngineConfig.planner`` no longer
     raises (``tests/test_torch_planner.py`` serves one). The write path and
     the tiers (item 11) are ported: ``Engine.writer()`` of a read-only
@@ -506,7 +506,8 @@ def test_unported_pieces_raise(flat_pair, tmp_path):
     import raft_tpu_torch.ops as tops
     for name in ("linalg", "matrix", "kernels"):
         assert hasattr(jops, name) and name in jops.__all__, name
-        assert not hasattr(tops, name) and name not in tops.__all__, name
+        assert hasattr(tops, name) and name in tops.__all__, name
+    assert callable(tops.select_k) and tops.matrix.select_k is tops.select_k
     from raft_tpu_torch.core.resources import Resources
     from raft_tpu_torch.neighbors import cagra as tcagra
     one = tcomms.init_comms(["cpu"])

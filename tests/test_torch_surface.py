@@ -410,22 +410,13 @@ def test_rng_multi_variable_gaussian_by_its_law():
 # ------------------------------------------------- the packages' surface
 
 #: names raft_tpu exports that the port does not yet (ROADMAP Queue A item
-#: 14: the breadth modules), by subpackage
+#: 14b: the rest of the breadth modules), by subpackage
 QUEUE_A_HOLDS = {
-    "": {"common", "distance", "label", "matrix", "random", "solver",
-         "sparse", "spatial", "spectral"},
+    "": {"common", "distance", "label", "random", "solver", "spatial",
+         "spectral"},
     "cluster": {"single_linkage", "SingleLinkageParams"},
-    "core": {"default_resources", "operators", "resources_manager"},
-    "neighbors": {"ball_cover", "epsilon_neighborhood", "quantize", "rbc"},
-    "ops": {"kernels", "linalg", "matrix"},
-    "stats": {"mean", "stddev", "var", "cov", "histogram", "minmax",
-              "accuracy_score", "r2_score", "mean_squared_error",
-              "dispersion", "trustworthiness_score", "silhouette_score",
-              "adjusted_rand_index", "rand_index", "mutual_info_score",
-              "entropy", "homogeneity_score", "completeness_score",
-              "v_measure", "sum", "mean_center", "meanvar", "kl_divergence",
-              "regression_metrics", "information_criterion_batched",
-              "contingency_matrix"},
+    "core": {"default_resources", "resources_manager"},
+    "sparse": {"distance", "mst", "neighbors", "solver", "spectral"},
     "utils": {"enable_persistent_cache"},
 }
 #: names only the port exports: the carry-over helpers, the file format's
@@ -437,7 +428,8 @@ PORT_ONLY = {"": {"interop"}, "core": {"IntegrityError", "errors"},
 
 @pytest.mark.parametrize("name", ["", "bench", "cluster", "core",
                                   "neighbors", "obs", "ops", "parallel",
-                                  "planner", "serving", "stats", "utils"])
+                                  "planner", "serving", "sparse", "stats",
+                                  "utils"])
 def test_package_all_matches_jax_less_queue_a(name):
     suffix = "." + name if name else ""
     jpkg = importlib.import_module("raft_tpu" + suffix)
