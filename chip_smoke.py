@@ -254,6 +254,37 @@ seed, 10,000 queries, k=10, L2) it
    on every row, asserted above 0 for ``fused_l2_topk``, ``fused_ivf_topk``
    and ``fused_l2_argmin``; every 6i line carries the card's name and power
    limit;
+6j. the graph layer (``raft_tpu_torch/bench/graph.py``, ~3 min):
+   ``single_linkage`` (phase 3's rows, ``connectivity_k`` 15, 1,000
+   clusters: the kNN graph through ``fused_l2_topk`` at 1M × 1M × 128,
+   k = 16, Borůvka, the host extraction and the labelling timed apart; the
+   forest's weight against scipy's float64 MST, the clusters against the
+   components of the graph below the cut, ``mst`` bitwise run to run and
+   card to CPU), ``cross_component_nn`` over the same rows coloured by
+   those clusters (200 rows against float64; ``connect_components_edges``
+   joins the graph into one component), ``sparse`` (a 20,000 × 131,072
+   TF-IDF corpus and 2,000 queries: ``knn`` at k = 10 in cosine, Jaccard
+   and expanded L2 through ``select_k``, 500 sampled queries against
+   scipy's float64 products;
+   every sparse metric on a 32 × 1,000 block against float64), ``spectral``
+   (10 planted clusters of 2,000 rows, their 16-NN graph joined by
+   ``connect_components_edges``: ``partition`` at its defaults and with 24
+   eigenvectors and ``modularity_maximization``, each one's Ritz values
+   against the same Lanczos in float64 from its start vector and its
+   labels against k-means' final centres, its contingency against the
+   planted clusters recorded beside 0.99, the planted cut against
+   float64; ``lanczos_smallest`` of a 100,000-row
+   normalised Laplacian beside ``eigsh``), ``lap`` (the auction on a
+   1,000 × 1,000 uniform cost, within n·eps of scipy's optimum, bitwise run
+   to run and card to CPU) and ``labels`` (``make_monotonic`` and
+   ``merge_labels`` of the 1M labels against numpy; the resources pool,
+   ``auto_sync_resources``, ``debug.checked``); rows of the kernels line
+   for ``fused_l2_topk`` at 1M × 1M, k = 16 (held and timed on 10,000 of
+   the queries), ``fused_l2_argmin`` at the spectral E-step's 20,000 × 10 ×
+   d 10 and 24, and ``select_k`` at [2,000 × 20,000], k = 10, each against
+   its plain version; ``graph_launches`` on every row, asserted above 0
+   for ``fused_l2_topk``, ``select_k`` and ``fused_l2_argmin``; every 6j
+   line carries the card's name and power limit;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -2745,6 +2776,24 @@ def main() -> int:
         launch_counts=launch_counts)
     for row in kernels:
         row["breadth_launches"] = breadth_launches.get(row["name"], 0)
+
+    # ---- 6j. the graph layer: single linkage at SIFT-1M's shape, the
+    # cross-component 1-NN, sparse distances and kNN, spectral
+    # partitioning, the auction, labels, the namespaces; its kernels held
+    # against their plain versions at the shapes it gives them
+    from raft_tpu_torch.bench import graph
+    graph_launches, graph_rows = graph.phase(
+        smi=smi, dev=dev, seed=opts.seed, dataset=dataset, flat=index,
+        flat_probes=n_probes, replaces=REPLACES, emit=emit, timed=timed,
+        launch_counts=launch_counts)
+    for row in graph_rows:
+        # the earlier phases' launch columns, by kernel
+        like = next(r for r in kernels if r["name"] == row["name"])
+        row.update({key: val for key, val in like.items()
+                    if key.endswith("_launches")})
+    kernels.extend(graph_rows)
+    for row in kernels:
+        row["graph_launches"] = graph_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

@@ -3,7 +3,10 @@
 Exact, IVF-Flat, IVF-PQ and CAGRA search (with refine, the bf16 fast scan,
 narrow rows, the mutable write path, tiered and streamed IVF-PQ), k-means,
 the distances, the dense and sparse linear algebra, the statistics, the
-random ball cover, the sharded path over a communicator of ranks
+random ball cover, the graph layer (sparse distances and neighbours, the
+MST, single linkage, spectral partitioning, the LAP solver, labels), the
+pylibraft-shaped namespaces (``common``, ``distance``, ``random``,
+``spatial``), the sharded path over a communicator of ranks
 (``parallel``: sharded kNN, IVF-Flat, IVF-PQ, CAGRA and k-means, the
 from-file and pod builds, checkpoints, ``init_distributed`` over
 ``torch.distributed``), the serving engine and its replica fleet
@@ -19,10 +22,12 @@ imported here.
 from raft_tpu_torch.core.resources import Resources
 from raft_tpu_torch import (cluster, core, interop, matrix, neighbors, ops,
                             parallel, sparse, stats, utils)
-from raft_tpu_torch import bench, planner, serving
+from raft_tpu_torch import (bench, common, distance, label, planner, random,
+                            serving, solver, spatial, spectral)
 
 __version__ = "0.1.0"
 
-__all__ = ["Resources", "bench", "cluster", "core", "interop", "matrix",
-           "neighbors", "ops", "parallel", "planner", "serving", "sparse",
-           "stats", "utils", "__version__"]
+__all__ = ["Resources", "bench", "cluster", "common", "core", "distance",
+           "interop", "label", "matrix", "neighbors", "ops", "parallel",
+           "planner", "random", "serving", "solver", "sparse", "spatial",
+           "spectral", "stats", "utils", "__version__"]

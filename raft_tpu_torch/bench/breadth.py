@@ -11,8 +11,9 @@
   against
   ``brute_force.knn`` with the same metric (haversine: rtol 1e-5, atol
   1e-7; euclidean: the squared distances rtol 1e-5 and atol 1e-6·max‖x‖²,
-  the rounding of an expanded L2 in fp32), each row's ids the same set
-  away from its k-th distance (``_hold_knn``);
+  the rounding of an expanded L2 in fp32), by
+  ``testing.assert_topk_close`` (ids equal away from near-ties; a tie run
+  that reaches the k-th distance may continue past k);
   ``eps_nn`` on 1,000 queries at an eps giving a mean degree of about 64,
   against ``epsilon_neighborhood.eps_neighbors`` at the rooted metric,
   adjacency equal away from the eps boundary (a pair whose float64
@@ -136,38 +137,6 @@ def _bitwise(a: torch.Tensor, b: torch.Tensor) -> bool:
     return torch.equal(a, b)
 
 
-def _hold_knn(got, want, atol: float, rtol: float, name: str) -> dict:
-    """Hold a kNN result ``got = (values, ids)`` [n, k] against ``want``:
-    the values rank for rank within ``atol + rtol·|want|``, an id in both
-    at the same distance within it, and each row's ids the same set away
-    from the k-th value (an id further than twice
-    that below its row's k-th value in one result is in the other). Ids
-    within it are at the boundary, where either result may hold another
-    row at nearly the same distance; their count is returned."""
-    gv, gi = got
-    wv, wi = want
-    tol = atol + rtol * wv.abs()
-    err = (gv - wv).abs()
-    if bool((err > tol).any()):
-        raise AssertionError(f"{name}: values differ by up to "
-                             f"{float(err.max())}")
-    same = wi[:, :, None] == gi[:, None, :]  # [n, k of want, k of got]
-    pair_err = torch.where(same, (wv[:, :, None] - gv[:, None, :]).abs(), 0)
-    if bool((pair_err > tol[:, :, None]).any()):
-        raise AssertionError(f"{name}: an id's distance differs by up to "
-                             f"{float(pair_err.max())}")
-    cut = 2 * tol[:, -1:]
-    core_w = wv < wv[:, -1:] - cut
-    core_g = gv < gv[:, -1:] - cut
-    in_g, in_w = same.any(2), same.any(1)
-    missing = int((core_w & ~in_g).sum() + (core_g & ~in_w).sum())
-    if missing:
-        raise AssertionError(f"{name}: {missing} ids away from the k-th "
-                             "value differ")
-    return {"max_abs_err": float(err.max()),
-            "ids_excepted": int((~in_g).sum())}
-
-
 def _geo_points(rng, n: int, n_clusters: int) -> np.ndarray:
     """(latitude, longitude) radians around ``n_clusters`` centres spread
     evenly over the sphere's area (std 0.01 rad, about 64 km)."""
@@ -289,6 +258,7 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, km_centers,
     from raft_tpu_torch.ops import kernels as gram
     from raft_tpu_torch.ops import linalg
     from raft_tpu_torch.stats import neighborhood_recall
+    from raft_tpu_torch.testing import assert_topk_close
 
     t_phase = time.perf_counter()
     gc.collect()  # the earlier phases' cyclic garbage may hold card memory
@@ -330,14 +300,14 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, km_centers,
             atol, tol64 = 1e-7, 1e-6
 
             def hold(got, name):
-                return _hold_knn(got, (fd, fi), atol, 1e-5, name)
+                return assert_topk_close(got, (fd, fi), atol, 1e-5, name)
         else:
             atol = 1e-6 * float(torch.amax((pts * pts).sum(1)))
             tol64 = atol
 
             def hold(got, name):
-                return _hold_knn((got[0] * got[0], got[1]),
-                                 (fd * fd, fi), atol, 1e-5, name)
+                return assert_topk_close((got[0] * got[0], got[1]),
+                                         (fd * fd, fi), atol, 1e-5, name)
         knn_runs = {}
         # the default probes, then one probe: pass 1 then leaves most
         # lists to pass 2, which runs in query chunks

@@ -10,6 +10,7 @@ request, construction raises instead of carrying on quietly on the CPU.
 
 from __future__ import annotations
 
+import threading
 from typing import Optional, Tuple, Union
 
 import numpy as np
@@ -93,6 +94,41 @@ class Resources:
             props = torch.cuda.get_device_properties(self.device)
             return int(props.total_memory * 0.25)
         return 2 << 30
+
+    def sync(self, *tensors) -> None:
+        """Wait for the work queued on the resources' device
+        (``resource::sync_stream``): the whole CUDA device, whatever
+        ``tensors`` are given (the JAX package waits for those arrays); on
+        the CPU, where every op has finished when it returns, nothing."""
+        if self.device.type == "cuda":
+            torch.cuda.synchronize(self.device)
+
+
+_default_resources: Optional[Resources] = None
+_default_lock = threading.Lock()
+
+
+def default_resources() -> Resources:
+    """The process-wide default Resources on the current CUDA device
+    (core/device_resources_manager.hpp:36-95), made at the first call;
+    raises where there is no CUDA device."""
+    global _default_resources
+    with _default_lock:
+        if _default_resources is None:
+            _default_resources = Resources()
+        return _default_resources
+
+
+def tensor_leaves(out) -> list:
+    """The tensors of a result: a tensor, or tensors nested in tuples, lists
+    and dicts (the leaves ``jax.tree_util.tree_leaves`` would give)."""
+    if isinstance(out, torch.Tensor):
+        return [out]
+    if isinstance(out, dict):
+        out = list(out.values())
+    if isinstance(out, (tuple, list)):
+        return [t for o in out for t in tensor_leaves(o)]
+    return []
 
 
 def solve_joint_tiles(budget_bytes: int, bytes_per_cell: int, inner_max: int,

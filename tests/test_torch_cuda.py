@@ -2228,3 +2228,102 @@ def test_ball_cover_knn_equals_brute_force_on_the_card(dev, metric):
     one = ball_cover.knn(index, q, 16, n_init_probes=1, res=res)
     # the card's reductions may round a pair differently in another shape
     assert_topk_close(chunked, one, 0.0, 1e-6)
+
+
+# ---- the graph layer on the card: the three kernels at the shapes phase
+# 6j gives them, Borůvka and the auction bitwise run to run and bitwise the
+# CPU's, the glue against the CPU
+
+
+@pytest.mark.parametrize("d", [10, 11])
+def test_fused_l2_argmin_at_spectral_widths(dev, d):
+    # the k-means E-step of spectral partitioning: 20,000 embedded rows,
+    # 10 centres, d = k_eig (+1)
+    x, y = _randn(dev, 20000, d, seed=70), _randn(dev, 10, d, seed=71)
+    got, want = _argmin_both(x, y, True)
+    again = gk.fused_l2_argmin(x, y, clamp=True)
+    torch.cuda.synchronize()
+    assert _bitwise_equal(got, again)
+    tol = 1e-4 * float(max((x * x).sum(1).max(), (y * y).sum(1).max()))
+    torch.testing.assert_close(got[0], want[0], rtol=1e-5, atol=tol)
+    ok = _nn_far_from_ties(x, y, tol)
+    assert torch.equal(got[1][ok], want[1][ok])
+
+
+def test_fused_l2_topk_at_the_single_linkage_shape(dev):
+    # the kNN graph of single linkage: 15 neighbours + self over 1M x 128
+    # rows; 4,096 of the queries against all the rows
+    y = _randn(dev, 1_000_000, 128, seed=72)
+    x = y[:4096]
+    got = gk.fused_l2_topk(x, y, 16)
+    torch.cuda.synchronize()
+    want = gk.fused_l2_topk_plain(x, y, 16)
+    assert_topk_close(got, want, 1e-4 * float((y * y).sum(1).max()), 1e-5)
+    assert torch.equal(got[1][:, 0], torch.arange(4096, dtype=torch.int32,
+                                                  device=dev))
+
+
+def test_select_k_at_the_sparse_knn_shape(dev):
+    v = _randn(dev, 2000, 20000, seed=73)
+    before = gk.LAUNCHES["select_k"]
+    got = gk.streaming_select_k(v, 10, True)
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["select_k"] == before + 1
+    want = gk.streaming_select_k_plain(v, 10, True)
+    assert _bitwise_equal(got, want)
+
+
+def test_boruvka_bitwise_run_to_run_and_to_the_cpu(dev):
+    from raft_tpu_torch import sparse
+
+    g = torch.Generator(device=dev).manual_seed(74)
+    n, ne = 200_000, 1_000_000
+    u = torch.randint(0, n, (ne,), generator=g, device=dev)
+    v = torch.randint(0, n, (ne,), generator=g, device=dev)
+    w = torch.randint(1, 20, (ne,), generator=g, device=dev).float()
+    coo = sparse.coo_from_arrays(torch.cat([u, v]), torch.cat([v, u]),
+                                 torch.cat([w, w]), (n, n))
+    first, second = sparse.mst.mst(coo), sparse.mst.mst(coo)
+    assert _bitwise_equal(first, second)
+    cpu = sparse.mst.mst(sparse.COO(coo.rows.cpu(), coo.cols.cpu(),
+                                    coo.data.cpu(), coo.shape))
+    assert _bitwise_equal(tuple(t.cpu() for t in first), cpu)
+
+
+def test_auction_bitwise_run_to_run_and_to_the_cpu(dev):
+    from raft_tpu_torch import solver
+
+    g = torch.Generator(device=dev).manual_seed(75)
+    cost = torch.rand((300, 300), generator=g, device=dev)
+    first, second = solver.solve(cost), solver.solve(cost)
+    assert torch.equal(first[0], second[0])
+    cpu = solver.solve(cost.cpu())
+    assert torch.equal(first[0].cpu(), cpu[0])
+    assert sorted(first[0].tolist()) == list(range(300))
+
+
+def test_graph_glue_on_the_card_against_the_cpu(dev):
+    from raft_tpu_torch import sparse
+
+    x = _randn(dev, 3000, 16, seed=76)
+    colors = torch.randint(0, 7, (3000,), device=dev,
+                           generator=torch.Generator(device=dev).manual_seed(77))
+    gv, gi = sparse.neighbors.cross_component_nn(x, colors, tile=512)
+    cv, ci = sparse.neighbors.cross_component_nn(x.cpu(), colors.cpu(),
+                                                 tile=512)
+    tol = 1e-5 * float(cv.max())
+    torch.testing.assert_close(gv.cpu(), cv, rtol=1e-5, atol=tol)
+    assert float((gi.cpu() == ci).float().mean()) > 0.99
+    # sparse kNN: the select_k kernel over the distance rows
+    dense = torch.where(torch.rand((500, 3000), device=dev) < 0.02,
+                        torch.rand((500, 3000), device=dev), 0.0)
+    csr = sparse.convert.dense_to_csr(dense)
+    before = gk.LAUNCHES["select_k"]
+    got = sparse.distance.knn(csr, csr, 10, "cosine",
+                              res=Resources(device=dev))
+    torch.cuda.synchronize()
+    assert gk.LAUNCHES["select_k"] > before
+    cpu_csr = sparse.CSR(csr.indptr.cpu(), csr.indices.cpu(), csr.data.cpu(),
+                         csr.shape)
+    want = sparse.distance.knn(cpu_csr, cpu_csr, 10, "cosine", device="cpu")
+    assert_topk_close(got, want, 1e-5, 1e-5)

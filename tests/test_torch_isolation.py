@@ -21,7 +21,12 @@ from raft_tpu_torch.neighbors.refine import refine
 from raft_tpu_torch.ops import linalg
 from raft_tpu_torch.parallel import comms, sharded
 from raft_tpu_torch.serving import replica_main
-from raft_tpu_torch import sparse, stats
+from raft_tpu_torch import solver, sparse, spectral, stats
+from raft_tpu_torch.cluster import single_linkage
+from raft_tpu_torch.core import resources_manager
+from raft_tpu_torch.sparse import distance as sparse_distance
+from raft_tpu_torch.sparse import neighbors as sparse_neighbors
+from raft_tpu_torch.sparse.types import CSR
 
 REPO = Path(__file__).resolve().parents[1]
 
@@ -84,6 +89,16 @@ from raft_tpu_torch.neighbors import (ball_cover, epsilon_neighborhood,
 from raft_tpu_torch.interop import (ball_cover_index_from_numpy,
                                     coo_from_numpy, csr_from_numpy)
 from raft_tpu_torch.bench import breadth
+from raft_tpu_torch import (common, distance, label, random, solver, spatial,
+                            spectral)
+from raft_tpu_torch.sparse import distance as sparse_distance
+from raft_tpu_torch.sparse import mst, neighbors as sparse_neighbors
+from raft_tpu_torch.sparse import solver as sparse_solver
+from raft_tpu_torch.sparse import spectral as sparse_spectral
+from raft_tpu_torch.cluster import single_linkage
+from raft_tpu_torch.core import resources_manager
+from raft_tpu_torch.utils import compile_cache, debug
+from raft_tpu_torch.bench import graph
 assert callable(select_k_fn) and raft_tpu_torch.ops.select_k is select_k_fn
 assert {"serving", "planner", "bench"} <= set(raft_tpu_torch.__all__)
 bad = sorted(m for m in sys.modules
@@ -126,11 +141,18 @@ def _no_cuda():
                                    "ball_cover.build", "eps_neighbors",
                                    "linalg.gemm", "linalg.lanczos",
                                    "stats.trustworthiness_score",
-                                   "sparse.csr_from_scipy_like"])
+                                   "sparse.csr_from_scipy_like",
+                                   "single_linkage", "sparse.distance.knn",
+                                   "cross_component_nn", "spectral.partition",
+                                   "solver.solve",
+                                   "resources_manager.get_resources"])
 def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
                                                               tmp_path):
     _no_cuda()
     db = np.random.default_rng(0).standard_normal((64, 8)).astype(np.float32)
+    # a CSR of host arrays: the entry point places it on its device
+    host_csr = CSR(np.array([0, 1, 2], np.int32), np.array([0, 1], np.int32),
+                   np.array([1.0, 1.0], np.float32), (2, 2))
     calls = {
         "brute_force.build": lambda: brute_force.build(db),
         "brute_force.knn": lambda: brute_force.knn(db[:4], db, 3),
@@ -174,6 +196,15 @@ def test_entry_points_raise_without_cuda_unless_asked_for_cpu(entry,
             db, db[:, :2]),
         "sparse.csr_from_scipy_like": lambda: sparse.csr_from_scipy_like(
             np.array([0, 1]), np.array([0]), np.array([1.0]), (1, 1)),
+        "single_linkage": lambda: single_linkage.single_linkage(db),
+        "sparse.distance.knn": lambda: sparse_distance.knn(host_csr, host_csr,
+                                                           1),
+        "cross_component_nn": lambda: sparse_neighbors.cross_component_nn(
+            db, np.arange(64)),
+        "spectral.partition": lambda: spectral.partition(host_csr, 2),
+        "solver.solve": lambda: solver.solve(db[:8, :8]),
+        "resources_manager.get_resources": lambda:
+            resources_manager.get_resources(),
     }
     with pytest.raises(RuntimeError, match="device='cpu'"):
         calls[entry]()

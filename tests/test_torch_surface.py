@@ -409,16 +409,9 @@ def test_rng_multi_variable_gaussian_by_its_law():
 
 # ------------------------------------------------- the packages' surface
 
-#: names raft_tpu exports that the port does not yet (ROADMAP Queue A item
-#: 14b: the rest of the breadth modules), by subpackage
-QUEUE_A_HOLDS = {
-    "": {"common", "distance", "label", "random", "solver", "spatial",
-         "spectral"},
-    "cluster": {"single_linkage", "SingleLinkageParams"},
-    "core": {"default_resources", "resources_manager"},
-    "sparse": {"distance", "mst", "neighbors", "solver", "spectral"},
-    "utils": {"enable_persistent_cache"},
-}
+#: names raft_tpu exports that the port does not yet, by subpackage: none
+#: since ROADMAP Queue A item 14b
+QUEUE_A_HOLDS = {}
 #: names only the port exports: the carry-over helpers, the file format's
 #: error, the elastic restores' classes and the host channel's drain error
 PORT_ONLY = {"": {"interop"}, "core": {"IntegrityError", "errors"},
