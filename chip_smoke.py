@@ -94,7 +94,8 @@ seed, 10,000 queries, k=10, L2) it
    brute force, IVF-Flat, IVF-PQ in the cache regime and in the LUT
    regime (under the LUT phase's Resources) and CAGRA, each at the probes
    or itopk its phase settled on, under two closed-loop loads (8, then 64
-   submitter threads, every query once, one a request, k=10;
+   submitter threads, each of the first 3,000 queries once, one a request,
+   k=10;
    ``raft_tpu_torch/bench/serve_load.py``). A ``serving`` line per family
    and load: QPS, p50/p99 latency, mean batch size and bucket histogram,
    host-return and CUDA-event device ms per batch, the device busy share,
@@ -285,6 +286,20 @@ seed, 10,000 queries, k=10, L2) it
    its plain version; ``graph_launches`` on every row, asserted above 0
    for ``fused_l2_topk``, ``select_k`` and ``fused_l2_argmin``; every 6j
    line carries the card's name and power limit;
+6k. the analysis layer (``raft_tpu_torch/bench/audit.py``, ~30 s):
+   ``analysis_smem`` (each kernel's Python shared-memory accountant equal
+   to the ``rtt_*`` export of its built library at its three
+   planner-domain shapes; ptxas' static shared memory plus the plan's
+   dynamic bytes within the card's opt-in limit, registers × threads
+   within 65,536, spills recorded, the plans' alignment),
+   ``analysis_workspace`` (the twelve canonical entries of
+   ``analysis.memory_audit`` on the indexes above: the caching allocator's
+   peak against the 2 GiB budget, B001, and the planner's prediction, C001,
+   beside the host's fake-tensor figure), ``analysis_merges`` (the three
+   merges' received bytes at 4 ranks equal ``solve_merge_bytes``) and
+   ``analysis_cli`` (``python -m raft_tpu_torch.analysis --threads --flow
+   --kernels --artifacts``, exit 0); a finding outside the baseline fails
+   the phase; ``analysis_launches`` on every row;
 7. prints one ``{"kernels": [...]}`` line (the eight kernels;
    ``fused_l2_topk``, ``fused_ivf_topk`` and ``fused_pq_topk`` at two
    shapes, ``ivf_scan`` at three, ``select_k`` at each of its main-path
@@ -303,7 +318,6 @@ import dataclasses
 import glob
 import json
 import os
-import re
 import shutil
 import subprocess
 import sys
@@ -335,6 +349,9 @@ N_RANKS, MERGE_ENGINES = 4, ("allgather", "tree", "ring")
 # against its plain version at (every warmed one), and those that also
 # get a timed row in the kernels line
 SERVE_LOADS, SERVE_SAMPLE = (8, 64), 256
+#: the requests of each serving load (6b, and 6g's in-process fleet): the
+#: first queries, with their ground truth
+SERVE_QUERIES = 3000
 SERVE_CHECK_BUCKETS, SERVE_ROW_BUCKETS = (8, 16, 32, 64), (8, 64)
 SERVE_KERNELS = ("fused_l2_topk", "select_k", "fused_ivf_topk",
                  "fused_pq_topk", "fused_cagra_topk")
@@ -389,45 +406,6 @@ def cuda_ms(fn, reps: int, warmup: bool = True) -> float:
     end.record()
     torch.cuda.synchronize()
     return start.elapsed_time(end) / reps
-
-
-def ptxas_figures(lib: Path) -> dict:
-    """Registers, spills and static shared memory of each kernel of a
-    library, from ptxas's report kept beside it (``gpu_kernels.build_all``)."""
-    out, name, entry, props = {}, None, None, None
-    for line in lib.with_suffix(".log").read_text().splitlines():
-        m = re.search(r"entry function '(\w+)'", line)
-        if m:
-            entry = m.group(1)
-            name = base = kernel_name(entry)
-            suffix = 1
-            while name in out:
-                suffix += 1
-                name = f"{base}#{suffix}"
-            out[name] = {}
-        elif "Function properties for" in line:
-            props = line.split()[-1]  # a kernel's, or a device function's
-        elif name and "spill stores" in line and props == entry:
-            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
-            out[name].update(spill_stores=int(st), spill_loads=int(ld))
-        elif name and "registers" in line:
-            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
-                                                   line).group(1))
-            smem = re.search(r"(\d+) bytes smem", line)
-            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
-    return out
-
-
-def kernel_name(mangled: str) -> str:
-    """The kernel's own identifier in a mangled name: the first
-    length-prefixed identifier that ends in "kernel"."""
-    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
-        digits = m.group()
-        for j in range(len(digits)):
-            ident = mangled[m.end():m.end() + int(digits[j:])]
-            if len(ident) == int(digits[j:]) and ident.endswith("kernel"):
-                return ident
-    return mangled
 
 
 def time_trees(inputs: Path, trees) -> list:
@@ -1173,7 +1151,7 @@ def main() -> int:
     paths, build_kernels_s = timed(gk.build_all)
     emit({"phase": "build", "seconds": build_kernels_s,
           "libraries": {k: str(v.name) for k, v in paths.items()}})
-    emit({"phase": "ptxas", **{name: ptxas_figures(paths[name])
+    emit({"phase": "ptxas", **{name: obs_costs.ptxas_figures(paths[name])
                                for name in ("fused_l2_topk", "fused_ivf_topk",
                                             "select_k", "fused_pq_topk",
                                             "fused_cagra_topk",
@@ -2415,7 +2393,7 @@ def main() -> int:
     from raft_tpu_torch.bench.serve_load import BatchSink, closed_loop, \
         summarize
 
-    q_host = queries.cpu().numpy()
+    q_host = queries[:SERVE_QUERIES].cpu().numpy()
     served = {
         "brute_force": (serving.brute_force_searcher(bf), None),
         "ivf_flat": (serving.ivf_flat_searcher(
@@ -2447,7 +2425,8 @@ def main() -> int:
 
     for family, (searcher, _) in served.items():
         counted(family, searcher)
-    sample = np.random.default_rng(opts.seed).choice(N_QUERIES, SERVE_SAMPLE,
+    sample = np.random.default_rng(opts.seed).choice(SERVE_QUERIES,
+                                                    SERVE_SAMPLE,
                                                     replace=False)
     serve_launches = {name: 0 for name in gk.LAUNCHES}
     served_recall = {}  # (family, submitters) -> recall@10 (phase 6g's)
@@ -2492,10 +2471,11 @@ def main() -> int:
             if floor is None:
                 quality = assert_topk_close(
                     (torch.from_numpy(run["distances"]).to(dev), ids_t),
-                    (gt_v, gt_i), 1e-4 * scale, 1e-5, f"served {family}")
+                    (gt_v[:SERVE_QUERIES], gt_i[:SERVE_QUERIES]),
+                    1e-4 * scale, 1e-5, f"served {family}")
             else:
                 quality = {"recall_at_10": float(
-                    neighborhood_recall(ids_t, gt_i))}
+                    neighborhood_recall(ids_t, gt_i[:SERVE_QUERIES]))}
             served_recall[(family, n_threads)] = quality.get(
                 "recall_at_10")
             mismatches = serving.verify_bit_identity(
@@ -2738,7 +2718,8 @@ def main() -> int:
     # card, one killed, one autoscaled, one swapped to brute force
     from raft_tpu_torch.bench import fleet_load
     fleet_launches = fleet_load.phase(
-        smi=smi, dev=dev, seed=opts.seed, queries=queries, gt_i=gt_i,
+        smi=smi, dev=dev, seed=opts.seed, queries=queries[:SERVE_QUERIES],
+        gt_i=gt_i[:SERVE_QUERIES],
         flat=index, flat_probes=n_probes,
         serve_recall=served_recall[("ivf_flat", SERVE_LOADS[0])], emit=emit,
         repo=Path(__file__).resolve().parent)
@@ -2794,6 +2775,19 @@ def main() -> int:
     kernels.extend(graph_rows)
     for row in kernels:
         row["graph_launches"] = graph_launches.get(row["name"], 0)
+
+    # ---- 6k. the analysis layer on the card: the shared-memory accountants
+    # against the built libraries, ptxas' limits and the plans' alignment;
+    # the canonical entries' allocator peaks against budget and planner;
+    # the merges' received bytes; the analysis CLI with no jax
+    from raft_tpu_torch.bench import audit
+    audit_launches = audit.phase(
+        smi=smi, dev=dev, seed=opts.seed, queries=queries, dataset=dataset,
+        bf=bf, flat=index, pq_index=pq_index, cg_index=cg_index,
+        ring_comms=ring_comms, emit=emit,
+        repo=Path(__file__).resolve().parent, launch_counts=launch_counts)
+    for row in kernels:
+        row["analysis_launches"] = audit_launches.get(row["name"], 0)
 
     # ---- 7. the kernels line, then the result line
     emit({"kernels": kernels})

@@ -8,7 +8,8 @@
   ``serving.Fleet`` with ``EngineConfig(max_batch=64, max_wait_us=2000,
   warm_ks=(10,))`` (and a breaker cooldown short enough to re-admit inside
   the load). The queries go through it once from 8 and once from 64
-  closed-loop submitters. During the first load one replica's breaker is
+  closed-loop submitters (``chip_smoke.py`` passes phase 6b's 3,000). During
+  the first load one replica's breaker is
   tripped (``faults.trip_breaker``) and must be re-admitted through the
   router's probe; during the second, ``rolling_swap`` moves every replica
   to a fresh handle at 16 probes and then ``faults.kill_replica`` stops one
@@ -78,10 +79,10 @@ LOADS = (8, 64)
 SAMPLE = 256
 SWAP_PROBES = 16
 #: the breaker's cooldown and the router's probe interval: short enough
-#: that a tripped replica comes back inside one 10,000-request load
+#: that a tripped replica comes back inside one load
 BREAKER_COOLDOWN_S, PROBE_INTERVAL_S = 0.5, 0.2
-#: when the faults land, as completed requests of their load
-TRIP_AT, SWAP_AT, KILL_AT = 1_000, 2_000, 6_000
+#: when the faults land, as shares of their load's requests completed
+TRIP_AT, SWAP_AT, KILL_AT = 0.1, 0.2, 0.6
 #: the remote part: queries held bitwise, queries of the kill load (the
 #: kill after KILL9_AT of them), RPCs timed one at a time
 REMOTE_QUERIES, KILL9_QUERIES, KILL9_AT, RTT_CALLS = 1_000, 2_000, 300, 200
@@ -244,7 +245,7 @@ def in_process(*, smi, dev, seed, queries, gt_i, flat, flat_probes,
         r1 = fleet.replicas[1].engine
 
         def trip():
-            _when(lambda: fleet.stats.n_requests("ok") >= TRIP_AT, 120)
+            _when(lambda: fleet.stats.n_requests("ok") >= TRIP_AT * n, 120)
             faults.trip_breaker(fleet, "replica1")
             ev["trip_t"] = time.perf_counter()
             ev["routed_at_trip"] = _routed(fleet)["replica1"]
@@ -270,13 +271,13 @@ def in_process(*, smi, dev, seed, queries, gt_i, flat, flat_probes,
 
         def swap_and_kill():
             _when(lambda: fleet.stats.n_requests("ok") - ok_before
-                  >= SWAP_AT, 120)
+                  >= SWAP_AT * n, 120)
             t_swap = time.perf_counter()
             ev["displaced"] = sum(o is not None for o in fleet.rolling_swap(
                 [handle(SWAP_PROBES) for _ in range(N_REPLICAS)]))
             ev["swap_s"] = time.perf_counter() - t_swap
             _when(lambda: fleet.stats.n_requests("ok") - ok_before
-                  >= KILL_AT, 120)
+                  >= KILL_AT * n, 120)
             faults.kill_replica(fleet, "replica2")
             ev["killed_after_ok"] = fleet.stats.n_requests("ok") - ok_before
 
@@ -394,7 +395,8 @@ class Child:
                                      stdout=subprocess.PIPE,
                                      stderr=self._err, text=True)
         self.lines: "queue.Queue[str]" = queue.Queue()
-        self.ready_s: Optional[float] = None
+        #: seconds to REPLICA_READY, set once by the one wait_ready caller
+        self.ready_s: Optional[float] = None  # guarded_by: atomic
         threading.Thread(target=self._pump, daemon=True).start()
 
     def _pump(self) -> None:

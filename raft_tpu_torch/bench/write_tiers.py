@@ -16,14 +16,16 @@
 - ``mutable_variants``: an inner-product IVF-Flat base (``ivf_scan``) and
   an IVF-PQ base in the LUT regime (``fused_pq_topk``), each with writes,
   held to the exact search of its live set;
-- ``mutable_serving``: the writer served to 8 submitters while a writer
-  thread streams and a background ``Compactor`` publishes; then 256
+- ``mutable_serving``: the writer served to 8 submitters (the first 3,000
+  queries) while a writer thread streams and a background ``Compactor``
+  publishes; then 256
   sampled requests against ``solo_reference`` and the builds after
   ``start()``;
 - ``tiered``: phase 5's IVF-PQ demoted to pinned host memory behind a
   512-slot arena (``solve_host_tier``'s prediction of its bytes asserted),
-  the queries searched in chunks of 16, each bitwise the resident cache
-  search; served at ``max_batch=16`` with and without the prefetcher; a
+  the first 3,000 queries searched in chunks of 16, each bitwise the
+  resident cache search; 2,000 served at ``max_batch=16`` with and without
+  the prefetcher; a
   ``save_tiered``/``load_tiered`` round trip searching bitwise;
 - ``ooc``: the rows written as an fbin under ``build/``, IVF-Flat and
   IVF-PQ built from it (timed), every id once, recall at 32 probes.
@@ -67,7 +69,10 @@ KILL_OPS, KILL_ID0 = 240, 3_000_000
 SERVE_WRITES, VARIANT_WRITES = (8192, 2048, 2048), (1280, 192, 192)
 #: the served writer's compactor: the Compactor's default trigger
 SERVE_DELTA_THRESHOLD = 4096
-TIER_SLOTS, TIER_CHUNK, TIER_SERVE_QUERIES = 512, 16, 4000
+TIER_SLOTS, TIER_CHUNK, TIER_SERVE_QUERIES = 512, 16, 2000
+#: queries of the served writer's load and of the tiered chunks held
+#: bitwise to the resident search (the first ones of the phase's queries)
+SERVE_QUERIES, TIER_QUERIES = 3000, 3000
 SERVE_SUBMITTERS, SERVE_SAMPLE, OOC_PROBES = 8, 256, 32
 
 
@@ -527,7 +532,7 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, flat, flat_probes,
 
         wt = threading.Thread(target=writer)
         wt.start()
-        run = closed_loop(eng, q_host, K, SERVE_SUBMITTERS)
+        run = closed_loop(eng, q_host[:SERVE_QUERIES], K, SERVE_SUBMITTERS)
         wt.join()
         # the compactor stops after the run in progress, if any
         comp.stop(timeout_s=600)
@@ -578,8 +583,9 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, flat, flat_probes,
     ivf_pq.ensure_scan_cache(pq_index)
     outs, mism_chunks, tlaunch = [], 0, {}
     tier_s = res_s = 0.0
-    for s in range(0, nq, TIER_CHUNK):
-        qc = queries[s:s + TIER_CHUNK]
+    n_tier = min(nq, TIER_QUERIES)
+    for s in range(0, n_tier, TIER_CHUNK):
+        qc = queries[s:min(s + TIER_CHUNK, n_tier)]
         step("tiered")
         got, dt = timed(lambda: t.search(qc, K, params, res=tres))
         add_counts(tlaunch, read("tiered"))
@@ -590,7 +596,7 @@ def phase(*, smi, dev, seed, dataset, queries, gt_i, flat, flat_probes,
         mism_chunks += 0 if bitwise(got, want) else 1
         outs.append(got[1])
     counts = t.arena.snapshot_counts()
-    recall_t = float(neighborhood_recall(torch.cat(outs), gt_i))
+    recall_t = float(neighborhood_recall(torch.cat(outs), gt_i[:n_tier]))
     hist = dict(treg.get("raft_tpu_tier_fetch_stall_seconds").collect())
     demand = hist[(t.arena.label, "demand")]
     fetched_bytes = counts["misses"] * plan["fetch_bytes_per_slab"]

@@ -12,7 +12,7 @@ import torch
 
 from raft_tpu_torch.core.resources import (Resources, default_resources,
                                            resolve_device, tensor_leaves)
-from raft_tpu_torch.sparse.types import _narrow
+from raft_tpu_torch.sparse.types import narrow_data
 
 #: pylibraft.common.DeviceResources → Resources
 DeviceResources = Resources
@@ -29,7 +29,7 @@ def device_ndarray(array_like, dtype=None, device=None) -> torch.Tensor:
     a = np.asarray(array_like.cpu() if isinstance(array_like, torch.Tensor)
                    else array_like, dtype=dtype)
     return torch.from_numpy(np.ascontiguousarray(
-        a if dtype is not None else _narrow(a))).to(dev)
+        a if dtype is not None else narrow_data(a))).to(dev)
 
 
 def auto_sync_resources(fn):

@@ -54,6 +54,7 @@
 // 96 registers a thread, 20 queries walk on each SM at once.
 // Block route (itopk up to 1024): one block of 128 threads per query, the
 // same steps with block barriers between them.
+#include "smem_budget.h"
 #include "topk_carry.cuh"
 
 namespace {
@@ -62,26 +63,11 @@ constexpr int kThreads = 128;
 constexpr int kWarps = kThreads / 32;
 constexpr int kRows = 4;  // rows a warp scores at once
 
-__host__ __device__ inline size_t align16(size_t b) {
-  return (b + 15) & ~static_cast<size_t>(15);
-}
-
-__host__ __device__ inline int cand_cap(int wd) {
-  int p = 32;
-  while (p < wd) p <<= 1;
-  return p;
-}
-
-// the formula of ops/gpu_kernels.py cagra_topk_smem_bytes
-__host__ __device__ inline size_t cagra_smem_bytes(int itopk, int dim,
-                                                   int cap, int width) {
-  return 2 * (2 * align16(static_cast<size_t>(itopk) * 4) +
-              align16(static_cast<size_t>(itopk))) +
-         align16(static_cast<size_t>(dim) * 4) +
-         static_cast<size_t>(cap) * 8 +      // sort slots
-         static_cast<size_t>(cap) * 8 +      // candidate ids and keys
-         align16(static_cast<size_t>(width) * 4) + 16;
-}
+// the block route's layout (fused_cagra_kernel) is the one
+// rtt_smem::cagra_topk_smem_bytes counts: two beam buffers (keys, ids,
+// flags), the query row, the sort slots, the candidate ids and keys of
+// rtt_smem::cagra_cand_cap slots, the parents and two counters
+using rtt_smem::align16;
 
 struct Beam {
   uint32_t* key;
@@ -376,14 +362,11 @@ constexpr int kBatch = 8;          // rows scored, and folded, at once
 // queries, 4% longer, on the H100 over a random graph of 1M rows)
 constexpr int kBlocksPerSm = 5;
 
-// the formula of ops/gpu_kernels.py cagra_warp_smem_bytes: one warp's slice
+// one warp's slice (rtt_smem::cagra_warp_slice_bytes): two beam buffers,
+// the query row, the 32·cpl sorted candidate keys, the parents
 __host__ __device__ inline size_t warp_slice_bytes(int itopk, int dim,
                                                    int cpl, int width) {
-  return 2 * (2 * align16(static_cast<size_t>(itopk) * 4) +
-              align16(static_cast<size_t>(itopk))) +
-         align16(static_cast<size_t>(dim) * 4) +
-         static_cast<size_t>(32 * cpl) * 8 +  // sorted candidate keys
-         align16(static_cast<size_t>(width) * 4);
+  return rtt_smem::cagra_warp_slice_bytes(itopk, dim, 32 * cpl, width);
 }
 
 struct WarpCtx {
@@ -743,7 +726,9 @@ cudaError_t launch_warp(const float* queries, const float* data,
                         int degree, int n_seeds, int k, int itopk, int width,
                         int max_iter, int vec4, int warps, float* out_v,
                         int32_t* out_i, cudaStream_t s) {
-  const size_t smem = warps * warp_slice_bytes(itopk, dim, CPL, width);
+  static_assert(CPL == 1 || CPL == 2, "two candidates a lane at most");
+  const size_t smem =
+      warps * rtt_smem::cagra_warp_smem_bytes(itopk, dim, width, degree);
   cudaError_t err = cudaFuncSetAttribute(
       fused_cagra_warp_kernel<CPL>,
       cudaFuncAttributeMaxDynamicSharedMemorySize, static_cast<int>(smem));
@@ -790,8 +775,9 @@ extern "C" int fused_cagra_topk(const void* queries, const void* data,
                                   warps, ov, oi, s);
     return static_cast<int>(err);
   }
-  const int cap = cand_cap(width * degree);
-  const size_t smem = cagra_smem_bytes(itopk, dim, cap, width);
+  const int cap = rtt_smem::cagra_cand_cap(width, degree);
+  const size_t smem =
+      rtt_smem::cagra_topk_smem_bytes(itopk, dim, width, degree);
   cudaError_t err = cudaFuncSetAttribute(
       fused_cagra_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

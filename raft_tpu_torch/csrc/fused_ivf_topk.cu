@@ -42,6 +42,7 @@
 // per query walks its probes in order, one slab row per warp step, and
 // merges each chunk's survivors into the query's carry.
 #include "ivf_group.cuh"
+#include "smem_budget.h"
 #include "topk_carry.cuh"
 
 namespace {
@@ -51,12 +52,9 @@ namespace {
 constexpr int kChunk = 256;  // slab rows per merge step
 constexpr int kThreads = 256;
 
-size_t ivf_smem_bytes(int rot, int k) {
-  return static_cast<size_t>(kChunk) * 8 +  // survivors
-         static_cast<size_t>(k) * 8 +       // carry
-         16 +                               // survivor count
-         static_cast<size_t>(rot) * 4;      // this probe's query vector
-}
+// the layout rtt_smem::ivf_topk_per_query_smem_bytes counts
+static_assert(kChunk == rtt_smem::kIvfChunk,
+              "smem_budget.h describes another chunk");
 
 using ivfg::to_f32;
 
@@ -162,7 +160,7 @@ cudaError_t launch_per_query(const int32_t* probes, const float* qres,
                              int nq, int n_probes, int n_lists, int pad,
                              int rot, int k, int clamp, float* out_v,
                              int32_t* out_i, cudaStream_t stream) {
-  const size_t smem = ivf_smem_bytes(rot, k);
+  const size_t smem = rtt_smem::ivf_topk_per_query_smem_bytes(rot, k);
   cudaError_t err = cudaFuncSetAttribute(
       fused_ivf_topk_kernel<T>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -231,17 +229,12 @@ constexpr int kGroupedThreads = 128;
 // shared memory (merge_pairs)
 constexpr int kRegMaxK = 16;
 
-// the formula of gpu_kernels.ivf_topk_smem_bytes: slab buffers, the
-// group's query vectors, and above kRegMaxK a chunk's survivors of each
-// pair, their counts and the pairs' carries
-template <typename T>
-size_t grouped_smem_bytes(int k) {
-  return 2 * static_cast<size_t>(kS) * kRS * sizeof(T) +
-         static_cast<size_t>(kG) * kRS * 4 +
-         (k <= kRegMaxK ? 0
-                        : static_cast<size_t>(kG) * kS * 8 + kG * 4 +
-                              static_cast<size_t>(kG) * k * 8);
-}
+// the layout rtt_smem::ivf_topk_smem_bytes counts (its static arrays
+// apart)
+static_assert(kG == rtt_smem::kGroupPairs && kS == rtt_smem::kScanSlots &&
+                  kRS == rtt_smem::kStageRow &&
+                  kRegMaxK == rtt_smem::kIvfRegMaxK,
+              "smem_budget.h describes another layout");
 
 // an empty entry of a register carry: (+inf, slot -1), after every real one
 constexpr unsigned long long kEmpty =
@@ -486,7 +479,8 @@ cudaError_t launch_grouped(const GroupArgs& a, long long n_pairs,
   const bool vec =
       a.rot % 4 == 0 && reinterpret_cast<uintptr_t>(a.qres) % 16 == 0 &&
       reinterpret_cast<uintptr_t>(a.list_data) % (4 * sizeof(T)) == 0;
-  const size_t smem = grouped_smem_bytes<T>(a.k);
+  const size_t smem = rtt_smem::ivf_topk_smem_bytes(a.k, sizeof(T)) -
+                      rtt_smem::kIvfTopkStatic;
   const bool reg = a.k <= kRegMaxK;
   auto kernel = vec ? (reg ? grouped_topk_kernel<T, 4, 4, true>
                            : grouped_topk_kernel<T, 4, 4, false>)

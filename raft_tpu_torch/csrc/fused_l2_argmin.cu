@@ -39,6 +39,7 @@
 // tiles; the four lanes that share a row then reduce by (value, index), so
 // ties go to the lowest y index whatever lane saw them. Rows past n are
 // zeros from TMA and never candidates.
+#include "smem_budget.h"
 #include "tc_tile.cuh"
 
 namespace {
@@ -59,13 +60,11 @@ __host__ __device__ constexpr int stage_bytes(bool resident) {
   return (resident ? 0 : 2 * kSliceA) + 2 * kSliceB;
 }
 
-// the formula of gpu_kernels.l2_argmin_smem_bytes: alignment slack, the
-// ring, the resident x planes, the barriers
-size_t argmin_smem_bytes(bool resident, int k_slices, int stages) {
-  return 1024 + static_cast<size_t>(stages) * stage_bytes(resident) +
-         (resident ? static_cast<size_t>(k_slices) * 2 * kSliceA : 0) +
-         static_cast<size_t>(stages) * 16;
-}
+// the layout rtt_smem::l2_argmin_smem_bytes counts
+static_assert(kBK == rtt_smem::kTcBK && kBM == 128 && kBN == 128 &&
+                  stage_bytes(true) == 2 * 128 * rtt_smem::kTcBK * 4 &&
+                  stage_bytes(false) == 4 * 128 * rtt_smem::kTcBK * 4,
+              "smem_budget.h describes another tile");
 
 // (v, i) precedes (bv, bi): smaller value, or the same value at a lower
 // index; entries with index < 0 hold no candidate
@@ -325,7 +324,8 @@ cudaError_t run(const float* x, const float* y, const float* xn,
   a.stages = stages;
   a.clamp = clamp;
   a.vec4 = d % 4 == 0 && reinterpret_cast<uintptr_t>(x) % 16 == 0;
-  const size_t smem = argmin_smem_bytes(RESIDENT, a.k_slices, stages);
+  const size_t smem =
+      rtt_smem::l2_argmin_smem_bytes(RESIDENT, a.k_slices * kBK, stages);
   cudaError_t err = cudaFuncSetAttribute(
       tc_argmin_kernel<RESIDENT>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -44,6 +44,7 @@
 // Above gpu_kernels.TC_MAX_K (243) even a 64-row carry no longer fits shared
 // memory beside the ring, and a 16-row fp32 FMA tile takes over (the large-k
 // route, fma_topk_kernel).
+#include "smem_budget.h"
 #include "tc_tile.cuh"
 #include "topk_carry.cuh"
 
@@ -79,16 +80,12 @@ __host__ __device__ constexpr int stage_bytes(int wgs) {
   return 2 * slice_a(wgs) + 2 * kSliceB;
 }
 
-// the formula of gpu_kernels.l2_topk_tc_smem_bytes
-size_t tc_smem_bytes(int k, int stages, int wgs) {
-  const size_t bm = 64 * wgs;
-  return 1024 +                                              // alignment
-         static_cast<size_t>(stages) * stage_bytes(wgs) +    // the ring
-         static_cast<size_t>(stages) * 16 +                  // barriers
-         bm * k * 8 +                                        // carry
-         bm * kSurv * 8 +                                    // survivors
-         bm * 4;                                             // their counts
-}
+// the layout rtt_smem::l2_topk_tc_smem_bytes counts
+static_assert(kBK == rtt_smem::kTcBK && kBN == rtt_smem::kTcBN &&
+                  kSurv == rtt_smem::kTcSurv &&
+                  stage_bytes(1) == 2 * 64 * rtt_smem::kTcBK * 4 +
+                                        2 * rtt_smem::kTcBN * kBK * 4,
+              "smem_budget.h describes another tile");
 
 struct TcArgs {
   const float* xn;   // [m]
@@ -340,15 +337,10 @@ constexpr int kFmaTN = 128;  // database rows per tile
 constexpr int kFmaDK = 32;   // feature slice staged per step
 constexpr int kFmaThreads = 256;
 
-// the formula of gpu_kernels.l2_topk_fma_smem_bytes
-size_t fma_smem_bytes(int k) {
-  return static_cast<size_t>(kFmaDK) * (kFmaTM + 1) * 4 +   // x slice
-         static_cast<size_t>(kFmaDK) * (kFmaTN + 1) * 4 +   // y slice
-         8 +                                                // 8-align
-         static_cast<size_t>(kFmaTM) * kFmaTN * 8 +         // survivors
-         static_cast<size_t>(kFmaTM) * k * 8 +              // carry
-         static_cast<size_t>(kFmaTM) * 4;                   // counts
-}
+// the layout rtt_smem::l2_topk_fma_smem_bytes counts
+static_assert(kFmaTM == rtt_smem::kFmaTM && kFmaTN == rtt_smem::kFmaTN &&
+                  kFmaDK == rtt_smem::kFmaDK,
+              "smem_budget.h describes another tile");
 
 // 16 query rows a block, a thread one row × 8 columns of the 16 × 128 tile,
 // an fp32 FMA product staged through shared memory in 32-wide slices; every
@@ -450,7 +442,7 @@ cudaError_t run_fma(const float* x, const float* y, const float* xn,
                     const float* yn, int m, long long n, int d, int k,
                     long long split_len, int splits, float* pv, int32_t* pi,
                     cudaStream_t s) {
-  const size_t smem = fma_smem_bytes(k);
+  const size_t smem = rtt_smem::l2_topk_fma_smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
       fma_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));
@@ -468,7 +460,7 @@ cudaError_t run_tc(const float* x, const float* y, const float* xn,
                    int chunk_splits, float* scratch, float* pv, int32_t* pi,
                    cudaStream_t s) {
   constexpr int kBM = 64 * WGS;
-  const size_t smem = tc_smem_bytes(k, stages, WGS);
+  const size_t smem = rtt_smem::l2_topk_tc_smem_bytes(k, stages, WGS);
   cudaError_t err = cudaFuncSetAttribute(
       tc_topk_kernel<WGS>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

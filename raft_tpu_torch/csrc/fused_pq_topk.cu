@@ -57,6 +57,7 @@
 #include <cstdint>
 
 #include "ivf_group.cuh"
+#include "smem_budget.h"
 #include "topk_carry.cuh"
 
 namespace {
@@ -66,15 +67,10 @@ constexpr int kChunk = 256;  // list rows per merge step: one per thread
 constexpr int kBook = 256;   // codebook entries per subspace (pq_bits 8)
 constexpr int kWarps = kThreads / 32;
 
-// The formula of pq_topk_smem_bytes in ops/gpu_kernels.py.
-size_t pq_smem_bytes(int pq_dim, int pq_len, int k) {
-  return static_cast<size_t>(kChunk) * 8 +                      // survivors
-         static_cast<size_t>(pq_dim) * kBook * 4 +               // LUT
-         static_cast<size_t>(k) * 8 +                            // carry
-         16 +                                                    // count
-         static_cast<size_t>(pq_dim) * pq_len * 4 +              // residual
-         (kWarps + 1) * 4;                                       // ‖res‖²
-}
+// the layout rtt_smem::pq_topk_smem_bytes counts
+static_assert(kChunk == rtt_smem::kPqChunk && kBook == rtt_smem::kBook &&
+                  kWarps == rtt_smem::kPqWarps,
+              "smem_budget.h describes another layout");
 
 struct SlabIds {
   const int32_t* ids;
@@ -226,23 +222,15 @@ struct GroupArgs {
   int32_t* part_i;
 };
 
-// the floats of a pair's staged residual: all of it, or one LUT chunk's
-__host__ __device__ inline int res_floats(int pq_dim, int pq_len,
-                                          int chunked) {
-  return chunked ? kSub * pq_len : pq_dim * pq_len;
-}
-
-// the formula of gpu_kernels.pq_grouped_smem_bytes (without its 512 bytes
-// for the static arrays): the LUT chunk of the 32 pairs (after the last
-// chunk the run's distance keys [kG][rows + 1]), the pairs' residuals
-// [kG][res_floats], the run's code words [words][rows + 1]
-size_t grouped_smem_bytes(int pq_dim, int pq_len, int warps, int chunked) {
-  const size_t rows = static_cast<size_t>(kRowsPerWarp) * warps;
-  const size_t words = (pq_dim + kSub - 1) / kSub;
-  return 4 * (static_cast<size_t>(kG) * kLutStride +
-              static_cast<size_t>(kG) * res_floats(pq_dim, pq_len, chunked) +
-              words * (rows + 1));
-}
+// the layout rtt_smem::pq_grouped_smem_bytes counts (its static arrays
+// apart): the LUT chunk of the 32 pairs (after the last chunk the run's
+// distance keys [kG][rows + 1]), the pairs' residuals [kG][res_floats],
+// the run's code words [words][rows + 1]
+static_assert(kG == rtt_smem::kGroupPairs && kSub == rtt_smem::kPqSub &&
+                  kLutStride == rtt_smem::kPqLutStride &&
+                  kRowsPerWarp == rtt_smem::kPqRowsPerWarp,
+              "smem_budget.h describes another layout");
+using rtt_smem::pq_res_floats;
 
 // Insert each lane's candidate into the warp's register carry: entry l
 // (ascending 64-bit (value key, slot) keys) in lane l, `thr` its entry
@@ -415,7 +403,7 @@ grouped_pq_kernel(const GroupArgs a) {
   const int pq_dim = a.pq_dim, rot = pq_dim * a.pq_len;
   float* lut = reinterpret_cast<float*>(smem_raw);        // [kG][kLutStride]
   uint32_t* dkey = reinterpret_cast<uint32_t*>(smem_raw);  // [kG][rs], last
-  const int rf = res_floats(pq_dim, a.pq_len, a.res_chunked);
+  const int rf = pq_res_floats(pq_dim, a.pq_len, a.res_chunked);
   float* res = lut + kG * kLutStride;                      // [kG][rf]
   uint32_t* cw_s = reinterpret_cast<uint32_t*>(res + kG * rf);  // [words][rs]
   __shared__ int pid[kG];
@@ -588,8 +576,9 @@ grouped_pq_kernel(const GroupArgs a) {
 template <int PL>
 cudaError_t launch_grouped_pq(const GroupArgs& a, long long n_pairs,
                               int warps, int words_ok, cudaStream_t s) {
-  const size_t smem =
-      grouped_smem_bytes(a.pq_dim, a.pq_len, warps, a.res_chunked);
+  const size_t smem = rtt_smem::pq_grouped_smem_bytes(a.pq_dim, a.pq_len,
+                                                      warps, a.res_chunked) -
+                      rtt_smem::kPqGroupedStatic;
   auto kernel =
       words_ok ? grouped_pq_kernel<PL, true> : grouped_pq_kernel<PL, false>;
   const cudaError_t err = cudaFuncSetAttribute(
@@ -678,7 +667,7 @@ extern "C" int fused_pq_topk(const void* probes, const void* q_rot,
         static_cast<int32_t*>(groups), static_cast<float*>(out_v),
         static_cast<int32_t*>(out_i), s));
   }
-  const size_t smem = pq_smem_bytes(pq_dim, pq_len, k);
+  const size_t smem = rtt_smem::pq_topk_smem_bytes(pq_dim, pq_len, k);
   cudaError_t err = cudaFuncSetAttribute(
       fused_pq_topk_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -26,6 +26,8 @@
 #include <cuda_fp16.h>
 #include <cuda_runtime.h>
 
+#include "smem_budget.h"
+
 namespace ivfg {
 
 constexpr int kGroupPairs = 32;  // pairs a work item
@@ -347,17 +349,17 @@ inline cudaError_t launch_group(const int32_t* probes, long long n_pairs,
   int32_t* list_count = list_start + nl;
   int32_t* group_end = list_count + nl;
   int32_t* counts = group_end + nl;
-  const size_t smem = static_cast<size_t>(nl) * 4;
+  const size_t smem = rtt_smem::ivf_group_smem_bytes(n_lists);
   const bool in_smem = smem <= kGroupSmemCursor;
   cudaError_t err;
   if (in_smem) {
     err = cudaFuncSetAttribute(count_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kGroupSmemCursor));
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     err = cudaFuncSetAttribute(place_kernel<true>,
                                cudaFuncAttributeMaxDynamicSharedMemorySize,
-                               static_cast<int>(kGroupSmemCursor));
+                               static_cast<int>(smem));
     if (err != cudaSuccess) return err;
     count_kernel<true><<<segments, kGroupThreads, smem, s>>>(
         probes, static_cast<int>(n_pairs), n_lists, counts);

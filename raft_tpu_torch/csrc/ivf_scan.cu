@@ -25,6 +25,7 @@
 // read once per group of the queries that probe its list, instead of once
 // per (query, probe), and two runs are bitwise equal.
 #include "ivf_group.cuh"
+#include "smem_budget.h"
 
 namespace {
 
@@ -35,11 +36,11 @@ using ivfg::kS;
 constexpr int kG = ivfg::kGroupPairs;
 constexpr int kThreads = 128;
 
-template <typename T>
-constexpr size_t scan_smem_bytes() {
-  return 2 * static_cast<size_t>(kS) * kRS * sizeof(T) +  // slab buffers
-         static_cast<size_t>(kG) * kRS * 4;                // query vectors
-}
+// the layout rtt_smem::ivf_scan_smem_bytes counts: two slab buffers of
+// [kS][kRS] rows and the group's query vectors
+static_assert(kG == rtt_smem::kGroupPairs && kS == rtt_smem::kScanSlots &&
+                  kRS == rtt_smem::kStageRow,
+              "smem_budget.h describes another layout");
 
 // V: elements of T a slab copy; VQ: floats a query load
 template <typename T, int V, int VQ>
@@ -146,7 +147,7 @@ cudaError_t launch(const float* qres, const void* list_data,
                    const int32_t* group_end, long long n_pairs, int n_lists,
                    int pad, int rot, int chunks_per_block, float* out,
                    cudaStream_t stream) {
-  constexpr size_t smem = scan_smem_bytes<T>();
+  constexpr size_t smem = rtt_smem::ivf_scan_smem_bytes(sizeof(T));
   cudaError_t err = cudaFuncSetAttribute(
       ivf_scan_kernel<T, V, VQ>, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

@@ -35,6 +35,8 @@
 #include <cstdint>
 #include <cuda_runtime.h>
 
+#include "smem_budget.h"
+
 namespace rtt {
 
 constexpr uint32_t kInfKey = 0xff800000u;  // float_key(+inf)
@@ -189,10 +191,11 @@ struct RowIds {
 constexpr int kSelectWarps = 8;   // rows per block, one warp each
 constexpr int kSelectChunk = 128; // values a warp streams per merge step
 
-__host__ __device__ inline size_t select_rows_smem_bytes(int k) {
-  return static_cast<size_t>(kSelectWarps) *
-         (static_cast<size_t>(kSelectChunk) * 8 + static_cast<size_t>(k) * 8 + 16);
-}
+// the layout rtt_smem::select_k_smem_bytes counts: each warp's chunk of
+// survivors, its carry and its count
+static_assert(kSelectWarps == rtt_smem::kSelectWarps &&
+                  kSelectChunk == rtt_smem::kSelectChunk,
+              "smem_budget.h describes another layout");
 
 // Streaming top-k of the rows of vals [b, n] (one warp per row): the row is
 // read once, in chunks, and each chunk's survivors are merged into the
@@ -544,7 +547,7 @@ inline cudaError_t launch_select_rows(const float* vals, const int32_t* in_ids,
       default: return cudaErrorInvalidValue;
     }
   }
-  const size_t smem = select_rows_smem_bytes(k);
+  const size_t smem = rtt_smem::select_k_smem_bytes(k);
   cudaError_t err = cudaFuncSetAttribute(
       select_rows_kernel, cudaFuncAttributeMaxDynamicSharedMemorySize,
       static_cast<int>(smem));

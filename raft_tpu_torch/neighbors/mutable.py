@@ -256,7 +256,7 @@ class WriteAheadLog:
         self._appended_bytes = 0  # guarded_by: _lock
         self._closed = False  # guarded_by: _lock
         #: last benign fsync race (the handle rotated or closed mid-sync)
-        self.last_sync_error: Optional[BaseException] = None
+        self.last_sync_error: Optional[BaseException] = None  # guarded_by: atomic
         self._flusher = threading.Thread(
             target=self._flush_loop, name=f"wal-flush:{self.path}",
             daemon=True)
@@ -1206,10 +1206,10 @@ class Compactor:
         self._pending: Optional[str] = None  # guarded_by: _wake
         self._running = False  # guarded_by: _wake
         self._runs = 0  # guarded_by: _wake
-        self._thread: Optional[threading.Thread] = None
+        self._thread: Optional[threading.Thread] = None  # guarded_by: atomic
         self._stall_timer: Optional[threading.Timer] = None  # guarded_by: _wake
-        self._last_run_t = clock()
-        self.last_error: Optional[BaseException] = None
+        self._last_run_t = clock()  # guarded_by: atomic (loop-only rebind)
+        self.last_error: Optional[BaseException] = None  # guarded_by: atomic
         #: fault hook (testing.faults.crash_compactor)
         self._crash_after_checkpoint = False
         writer.compactor = self

@@ -319,10 +319,15 @@ class SlabArena:
         self.stats = TierStats(registry, self.label)
         dev = self.device
         d3, d2 = (slots, list_pad, rot_dim), (slots, list_pad)
-        self._dec = torch.zeros(d3, dtype=self.cache_dtype, device=dev)
-        self._norms = torch.zeros(d2, dtype=torch.float32, device=dev)
-        self._ids = torch.full(d2, -1, dtype=torch.int32, device=dev)
-        self._sizes = torch.zeros((slots,), dtype=torch.int32, device=dev)
+        # the slots' contents, written by _fetch_locked under _lock
+        self._dec = torch.zeros(  # guarded_by: _lock
+            d3, dtype=self.cache_dtype, device=dev)
+        self._norms = torch.zeros(  # guarded_by: _lock
+            d2, dtype=torch.float32, device=dev)
+        self._ids = torch.full(  # guarded_by: _lock
+            d2, -1, dtype=torch.int32, device=dev)
+        self._sizes = torch.zeros(  # guarded_by: _lock
+            (slots,), dtype=torch.int32, device=dev)
         self._lock = threading.Lock()
         #: wakes a resolve waiting for scans to release their slots
         self._cond = threading.Condition(self._lock)
@@ -912,7 +917,7 @@ class TierPrefetcher:
     def start(self) -> "TierPrefetcher":
         if self._thread is not None:
             return self
-        self._thread = threading.Thread(
+        self._thread = threading.Thread(  # guarded_by: atomic
             target=self._loop, name=f"tier-prefetch-{self.tiered.namespace}",
             daemon=True)
         self._thread.start()
@@ -923,7 +928,7 @@ class TierPrefetcher:
         t = self._thread
         if t is not None:
             t.join(timeout)
-        self._thread = None
+        self._thread = None  # guarded_by: atomic
 
     def __enter__(self) -> "TierPrefetcher":
         return self.start()

@@ -24,10 +24,11 @@ both packages:
 - :mod:`~raft_tpu_torch.obs.slo` — declarative SLOs → error-budget
   burn-rate gauges and the ``/slo`` report;
 - :mod:`~raft_tpu_torch.obs.costs` — each kernel's bytes and operations
-  by formula, the roofline floor of a search and ``apply_roofline``. The
-  JAX package's compiled accounting (``compile_entry``, the calibration
-  audit, collective bytes read from the compiled program) has no
-  counterpart yet (ROADMAP Queue A item 15).
+  by formula, the roofline floor of a search and ``apply_roofline``; and
+  the measured accounting, the counterpart of the JAX package's compiled
+  one: ``measure_entry`` (an entry's workspace, by the caching allocator
+  on the card), ``merge_entries`` (the sharded merges' received bytes) and
+  the C001 calibration (``CostReport.calibration_findings``).
 
 Layering: obs sits beside ``core`` — serving/parallel/neighbors/ops
 import obs, never the reverse.

@@ -18,17 +18,38 @@ H100 SXM (``torch.cuda.get_device_name`` "NVIDIA H100 80GB HBM3"): 67
 TFLOP/s fp32 outside the tensor cores, 495 TFLOP/s dense TF32 on them (the
 3xTF32 products' figure), 3.35 TB/s HBM3.
 
-Not ported: the compiled accounting (``compile_entry``,
-``collective_bytes_from_hlo``) and the planner-workspace calibration audit
-that reads it; they need a CUDA analog of XLA's compiled cost and memory
-analysis (ROADMAP Queue A, item 15).
+The measured accounting, raft_tpu's compiled accounting's counterpart.
+raft_tpu compiles each canonical entry and reads XLA's ``memory_analysis``
+(the workspace a planner predicted) and the collectives of the compiled
+program. The port has no compiler to ask; it runs the entry instead
+(:func:`measure_entry`, the entries of
+``analysis.memory_audit.default_entries``):
+
+- on the card, the caching allocator's peak over the call
+  (``reset_peak_memory_stats``, then ``max_memory_allocated`` less the
+  bytes live before it), the kernels the call launched
+  (``gpu_kernels.LAUNCHES``) and each one's ptxas figures (registers,
+  spills, static shared memory: :func:`ptxas_figures`);
+- on the CPU, the memory audit's figure (the route under a dispatch mode,
+  on fake tensors).
+
+:meth:`CostReport.calibration_findings` then gives C001 where a planner's
+predicted workspace and the measured one drift beyond
+:data:`DEFAULT_DRIFT_TOLERANCE` either way, and where the bytes a rank
+receives in a sharded merge (counted by ``parallel.comms``:
+:func:`merge_entries`) drift from ``core.resources.solve_merge_bytes``.
 """
 
 from __future__ import annotations
 
 import dataclasses
 import json
-from typing import List, Optional, Tuple
+import re
+import time
+from pathlib import Path
+from typing import Callable, List, Optional, Tuple
+
+from raft_tpu_torch.analysis.findings import Finding
 
 __all__ = [
     "ChipPeaks", "CHIP_PEAKS", "H100_PEAKS", "peaks_for_device_kind",
@@ -36,8 +57,16 @@ __all__ = [
     "tf32_bound", "CostReport", "build_report", "default_cost_entries",
     "export_gauges", "l2_topk_work", "l2_argmin_work", "ivf_topk_work",
     "pq_topk_work", "select_k_work", "cagra_topk_work", "ivf_scan_work",
-    "ring_shift_work",
+    "ring_shift_work", "COST_RULE", "COST_FILE", "DEFAULT_DRIFT_TOLERANCE",
+    "measure_entry", "merge_entries", "ptxas_figures", "calibrate",
 ]
+
+COST_RULE = "C001"
+COST_FILE = "cost-calibration"
+
+#: planner-predicted vs measured workspace drift beyond this ratio (either
+#: direction) raises a C001 finding
+DEFAULT_DRIFT_TOLERANCE = 1.5
 
 
 @dataclasses.dataclass(frozen=True)
@@ -211,8 +240,12 @@ def tf32_bound(n_bytes: float, n_ops: float,
 
 @dataclasses.dataclass
 class EntryCost:
-    """One entry's cost record (the JAX package's fields; the compiled
-    ones, ``temp_bytes`` to ``output_bytes``, stay None)."""
+    """One entry's cost record, with the JAX package's fields.
+    ``temp_bytes`` is the measured workspace (:func:`measure_entry`: the
+    allocator's peak on the card, the memory audit's on the CPU) and
+    ``compile_s`` the seconds the measured call took; ``argument_bytes`` and
+    ``output_bytes`` stay None. ``launches`` and ``ptxas`` are the port's:
+    the kernels the call launched and their ptxas figures."""
 
     name: str
     family: str
@@ -225,15 +258,39 @@ class EntryCost:
     planner: Optional[str] = None
     predicted_bytes: Optional[int] = None
     tiles: dict = dataclasses.field(default_factory=dict)
+    # cross-rank accounting (sharded merge entries): the bytes each rank
+    # received, counted by parallel.comms, against solve_merge_bytes
     collective_bytes: Optional[int] = None
     predicted_collective_bytes: Optional[int] = None
     arithmetic_intensity: Optional[float] = None
     bound: Optional[str] = None  # "memory" | "compute"
     peak_utilization: Optional[float] = None
     min_time_us: Optional[float] = None
+    device: str = "cpu"
+    launches: dict = dataclasses.field(default_factory=dict)
+    ptxas: dict = dataclasses.field(default_factory=dict)
+
+    @property
+    def drift_ratio(self) -> Optional[float]:
+        """predicted / measured workspace; None when either side is missing
+        (no planner, or nothing measured)."""
+        if self.predicted_bytes is None or not self.temp_bytes:
+            return None
+        return self.predicted_bytes / self.temp_bytes
+
+    @property
+    def collective_drift_ratio(self) -> Optional[float]:
+        """predicted / counted per-rank receive bytes of a sharded merge."""
+        if self.predicted_collective_bytes is None or \
+                not self.collective_bytes:
+            return None
+        return self.predicted_collective_bytes / self.collective_bytes
 
     def to_dict(self) -> dict:
-        return dataclasses.asdict(self)
+        d = dataclasses.asdict(self)
+        d["drift_ratio"] = self.drift_ratio
+        d["collective_drift_ratio"] = self.collective_drift_ratio
+        return d
 
 
 def apply_roofline(entry: EntryCost, peaks: Optional[ChipPeaks]) -> None:
@@ -306,12 +363,46 @@ def default_cost_entries() -> List[EntryCost]:
 
 @dataclasses.dataclass
 class CostReport:
-    """The report: per-entry costs and the device they were placed for."""
+    """The report: per-entry costs and the device they were placed for;
+    for measured entries the budget they were planned against and the
+    drift tolerance of the calibration."""
 
     platform: str
     device_kind: str
     peaks: Optional[ChipPeaks]
     entries: list  # of EntryCost
+    budget_bytes: Optional[int] = None
+    drift_tolerance: float = DEFAULT_DRIFT_TOLERANCE
+
+    def calibration_findings(self) -> List[Finding]:
+        """One C001 :class:`Finding` per planner whose drift ratio leaves
+        ``[1/tol, tol]``, and per sharded merge whose counted receive bytes
+        leave it around ``solve_merge_bytes`` — keyed by entry name so the
+        baseline can carry a justification."""
+        out = []
+        tol = self.drift_tolerance
+        for e in self.entries:
+            r = e.drift_ratio
+            if r is not None and e.planner is not None and \
+                    not (1.0 / tol <= r <= tol):
+                side = "over" if r > 1 else "under"
+                out.append(Finding(
+                    COST_RULE, COST_FILE, e.name, 0,
+                    f"planner {e.planner} {side}-predicts workspace: "
+                    f"predicted {e.predicted_bytes / 2**20:.0f} MiB vs "
+                    f"measured {e.temp_bytes / 2**20:.0f} MiB on {e.device} "
+                    f"(ratio {r:.2f}, tolerance {tol:g}x)"))
+            c = e.collective_drift_ratio
+            if c is not None and not (1.0 / tol <= c <= tol):
+                side = "over" if c > 1 else "under"
+                out.append(Finding(
+                    COST_RULE, COST_FILE, f"{e.name}.collective", 0,
+                    f"merge planner {e.planner} {side}-predicts the bytes a "
+                    f"rank receives: predicted "
+                    f"{e.predicted_collective_bytes} B vs counted "
+                    f"{e.collective_bytes} B (ratio {c:.2f}, tolerance "
+                    f"{tol:g}x)"))
+        return out
 
     def to_dict(self) -> dict:
         return {
@@ -319,6 +410,8 @@ class CostReport:
             "platform": self.platform,
             "device_kind": self.device_kind,
             "peaks": dataclasses.asdict(self.peaks) if self.peaks else None,
+            "budget_bytes": self.budget_bytes,
+            "drift_tolerance": self.drift_tolerance,
             "entries": [e.to_dict() for e in self.entries],
         }
 
@@ -329,12 +422,23 @@ class CostReport:
         lines = [f"perf report — platform={self.platform} "
                  f"device_kind={self.device_kind!r}"]
         for e in self.entries:
-            line = (f"  {e.name}: {e.flops / 1e9:.2f} GFLOP, "
-                    f"{e.hbm_bytes / 2**20:.0f} MiB")
+            line = f"  {e.name}:"
+            if e.flops is not None and e.hbm_bytes is not None:
+                line += (f" {e.flops / 1e9:.2f} GFLOP, "
+                         f"{e.hbm_bytes / 2**20:.0f} MiB")
+            if e.temp_bytes is not None:
+                line += (f" workspace {e.temp_bytes / 2**20:.1f} MiB "
+                         f"({e.device})")
             if e.arithmetic_intensity is not None:
                 line += f", AI {e.arithmetic_intensity:.1f}"
             if e.bound:
                 line += f" [{e.bound}-bound, min {e.min_time_us:.0f} us]"
+            if e.drift_ratio is not None:
+                line += f", planner drift {e.drift_ratio:.2f}x"
+            if e.collective_bytes is not None:
+                line += f", received {e.collective_bytes} B"
+                if e.collective_drift_ratio is not None:
+                    line += f" (drift {e.collective_drift_ratio:.2f}x)"
             lines.append(line)
         return "\n".join(lines)
 
@@ -388,3 +492,191 @@ def export_gauges(report: CostReport, registry=None) -> None:
         if e.min_time_us is not None:
             floor.labels(e.name).set(e.min_time_us)
 
+
+
+# ------------------------------------------------- the measured accounting
+
+
+def ptxas_figures(lib) -> dict:
+    """Registers, spills and static shared memory of each kernel of a
+    library, from ptxas's report kept beside it (``gpu_kernels.build_all``
+    writes nvcc's output to ``library_path(name).with_suffix(".log")``):
+    kernel name → ``{"registers", "static_smem", "spill_stores",
+    "spill_loads"}``. A device function's spill line is not credited to
+    the kernel before it."""
+    out, name, entry, props = {}, None, None, None
+    for line in Path(lib).with_suffix(".log").read_text().splitlines():
+        m = re.search(r"entry function '(\w+)'", line)
+        if m:
+            entry = m.group(1)
+            name = base = kernel_name(entry)
+            suffix = 1
+            while name in out:
+                suffix += 1
+                name = f"{base}#{suffix}"
+            out[name] = {}
+        elif "Function properties for" in line:
+            props = line.split()[-1]  # a kernel's, or a device function's
+        elif name and "spill stores" in line and props == entry:
+            st, ld = re.findall(r"(\d+) bytes spill (?:stores|loads)", line)
+            out[name].update(spill_stores=int(st), spill_loads=int(ld))
+        elif name and "registers" in line:
+            out[name]["registers"] = int(re.search(r"Used (\d+) registers",
+                                                   line).group(1))
+            smem = re.search(r"(\d+) bytes smem", line)
+            out[name]["static_smem"] = int(smem.group(1)) if smem else 0
+    return out
+
+
+def kernel_name(mangled: str) -> str:
+    """The kernel's own identifier in a mangled name: the first
+    length-prefixed identifier that ends in "kernel"."""
+    for m in re.finditer(r"\d+(?=[A-Za-z_])", mangled):
+        digits = m.group()
+        for j in range(len(digits)):
+            ident = mangled[m.end():m.end() + int(digits[j:])]
+            if len(ident) == int(digits[j:]) and ident.endswith("kernel"):
+                return ident
+    return mangled
+
+
+def measure_entry(name: str, make: Callable, ctx: Optional[dict] = None,
+                  budget_bytes: Optional[int] = None,
+                  warm: bool = True) -> EntryCost:
+    """Run one memory-audit entry (``make(budget, ctx)`` → ``(fn, meta)``,
+    ``analysis.memory_audit``) and record what it takes — the counterpart
+    of raft_tpu's ``compile_entry``.
+
+    With ``ctx`` (the entry's inputs as real tensors on a card), the call
+    runs there once to warm (its kernel builds and lazily made caches are
+    not workspace) and once measured: the caching allocator's peak less the
+    bytes live before the call, the kernels it launched and their ptxas
+    figures. Without ``ctx`` (or on the CPU) the workspace is the memory
+    audit's figure under ``FakeTensorMode``."""
+    import torch
+
+    from raft_tpu_torch.analysis import memory_audit as ma
+    from raft_tpu_torch.ops import gpu_kernels as gk
+
+    budget = ma.DEFAULT_BUDGET_BYTES if budget_bytes is None else \
+        int(budget_bytes)
+    dev = None
+    if ctx is not None:
+        dev = ctx["queries"].device
+    if dev is None or dev.type != "cuda":
+        t0 = time.perf_counter()
+        if ctx is None:
+            res = ma.AuditEntry(name, budget, make).run()
+            temp, meta = res.peak_bytes, res.meta
+        else:
+            fn, meta = make(budget, ctx)
+            temp = ma.peak_live_bytes(fn, resident=[ctx])
+        return EntryCost(name=name, family=meta.get("family", "unknown"),
+                         flops=None, hbm_bytes=None, temp_bytes=int(temp),
+                         compile_s=time.perf_counter() - t0,
+                         planner=meta.get("planner"),
+                         predicted_bytes=meta.get("predicted_bytes"),
+                         tiles=dict(meta.get("tiles", {})))
+    fn, meta = make(budget, ctx)
+    if warm:
+        fn()
+    torch.cuda.synchronize(dev)
+    gk.reset_launch_counts()
+    before = torch.cuda.memory_allocated(dev)
+    torch.cuda.reset_peak_memory_stats(dev)
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize(dev)
+    seconds = time.perf_counter() - t0
+    peak = torch.cuda.max_memory_allocated(dev) - before
+    del out
+    launches = {k: v for k, v in gk.LAUNCHES.items() if v}
+    ptxas = {}
+    for kernel in launches:
+        path = gk.library_path(kernel)
+        if path.with_suffix(".log").exists():
+            ptxas[kernel] = ptxas_figures(path)
+    return EntryCost(name=name, family=meta.get("family", "unknown"),
+                     flops=None, hbm_bytes=None, temp_bytes=int(peak),
+                     compile_s=seconds, planner=meta.get("planner"),
+                     predicted_bytes=meta.get("predicted_bytes"),
+                     tiles=dict(meta.get("tiles", {})), device=str(dev),
+                     launches=launches, ptxas=ptxas)
+
+
+def merge_entries(comms, nq: int = 1024, kk: int = 100, k: int = 100,
+                  seed: int = 0) -> List[EntryCost]:
+    """The three sharded merges (allgather, tree, ring) of per-rank [nq,
+    kk] candidates over ``comms``, each rank's received bytes counted by
+    the communicator against ``core.resources.solve_merge_bytes``; the ring
+    hops through ``gpu_kernels.ring_shift`` on CUDA ranks. Returns one
+    entry a merge, ``collective_bytes`` the largest count of any rank."""
+    import torch
+
+    from raft_tpu_torch.core.resources import solve_merge_bytes
+    from raft_tpu_torch.ops import gpu_kernels as gk
+    from raft_tpu_torch.ops.select_k import select_k
+
+    size = comms.size
+    k_out = min(int(k), size * kk)
+    predicted = solve_merge_bytes(size, nq, kk, k_out)
+    gen = torch.Generator().manual_seed(seed)
+    vs = comms.shard(torch.rand((size * nq, kk), generator=gen), 0)
+    ids = comms.shard(torch.randint(0, 1 << 30, (size * nq, kk),
+                                    generator=gen, dtype=torch.int32), 0)
+    cuda = comms.devices[0].type == "cuda"
+
+    def allgather():
+        v_all = comms.allgather(vs, axis=1)
+        i_all = comms.allgather(ids, axis=1)
+        return [None if va is None else select_k(va, k_out)
+                for va in v_all], i_all
+
+    merges = {"allgather": allgather,
+              "tree": lambda: comms.tree_topk_merge(vs, ids, k_out),
+              "ring": lambda: comms.ring_topk_merge(
+                  vs, ids, k_out, shift=gk.ring_shift if cuda else None)}
+    out = []
+    for mode, merge in merges.items():
+        if mode == "tree" and size & (size - 1):
+            continue
+        launches0 = gk.LAUNCHES["ring_shift"]
+        comms.reset_received()
+        t0 = time.perf_counter()
+        merge()
+        if cuda:
+            torch.cuda.synchronize(comms.devices[0])
+        got = max(comms.received.values(), default=0)
+        out.append(EntryCost(
+            name=f"sharded_merge_{mode}@s{size}", family="sharded_merge",
+            flops=None, hbm_bytes=None, compile_s=time.perf_counter() - t0,
+            planner="solve_merge_bytes",
+            tiles={"size": size, "nq": nq, "kk": kk, "k_out": k_out},
+            collective_bytes=int(got),
+            predicted_collective_bytes=int(predicted[mode]),
+            device=str(comms.devices[0]),
+            launches={"ring_shift": gk.LAUNCHES["ring_shift"] - launches0}))
+    return out
+
+
+def calibrate(entries: Optional[list] = None, ctx: Optional[dict] = None,
+              budget_bytes: Optional[int] = None, comms=None,
+              drift_tolerance: float = DEFAULT_DRIFT_TOLERANCE
+              ) -> CostReport:
+    """Measure every memory-audit entry (default: all of
+    ``memory_audit.default_entries``'s makers, as ``(name, make)`` pairs)
+    and, given ``comms``, the three merges, into a :class:`CostReport`
+    whose :meth:`~CostReport.calibration_findings` are the C001 gate."""
+    from raft_tpu_torch.analysis import memory_audit as ma
+
+    budget = ma.DEFAULT_BUDGET_BYTES if budget_bytes is None else \
+        int(budget_bytes)
+    pairs = list(ma.ENTRY_MAKERS) if entries is None else list(entries)
+    out = [measure_entry(name, make, ctx, budget) for name, make in pairs]
+    if comms is not None:
+        out += merge_entries(comms)
+    device = ctx["queries"].device if ctx is not None else None
+    report = build_report(out, device=device)
+    report.budget_bytes = budget
+    report.drift_tolerance = drift_tolerance
+    return report

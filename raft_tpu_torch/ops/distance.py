@@ -119,7 +119,9 @@ def is_min_close(metric) -> bool:
     return resolve_metric(metric) != DistanceType.InnerProduct
 
 
-def _check_fp32_products(t: torch.Tensor) -> None:
+def check_fp32_products(t: torch.Tensor) -> None:
+    """Refuse a product on the card while TF32 is allowed for matmuls: it
+    keeps about three decimal digits and reorders exact neighbours."""
     if t.device.type == "cuda" and torch.backends.cuda.matmul.allow_tf32:
         raise RuntimeError(
             "torch.backends.cuda.matmul.allow_tf32 is True: exact search "
@@ -130,7 +132,7 @@ def dot_fp32(x: torch.Tensor, y: torch.Tensor) -> torch.Tensor:
     """x @ yᵀ in full fp32, the counterpart of ``Precision.HIGHEST``. On the
     card this refuses to run while TF32 is allowed for matmuls, which would
     keep only about three decimal digits and reorder exact neighbours."""
-    _check_fp32_products(x)
+    check_fp32_products(x)
     return torch.matmul(x.to(torch.float32), y.to(torch.float32).T)
 
 
@@ -138,7 +140,7 @@ def einsum_fp32(equation: str, *operands: torch.Tensor) -> torch.Tensor:
     """``torch.einsum`` over fp32 copies of the operands, refusing TF32 on
     the card as ``dot_fp32`` does (the counterpart of an einsum with
     ``preferred_element_type=float32``)."""
-    _check_fp32_products(operands[0])
+    check_fp32_products(operands[0])
     return torch.einsum(equation, *(o.to(torch.float32) for o in operands))
 
 

@@ -148,7 +148,7 @@ def library_path(name: str) -> Path:
     """Where the library of kernel ``name`` is built: the name plus a hash
     of every source and header it could include and of the flags."""
     h = hashlib.sha256(" ".join(NVCC_FLAGS).encode())
-    for src in sorted(CSRC.glob("*.cu*")):
+    for src in sorted([*CSRC.glob("*.cu*"), *CSRC.glob("*.h")]):
         h.update(src.name.encode())
         h.update(src.read_bytes())
     return BUILD_DIR / f"{name}-{h.hexdigest()[:16]}.so"
@@ -414,8 +414,8 @@ L2_TOPK_SCRATCH_BUDGET = 1 << 30
 
 def l2_topk_tc_smem_bytes(k: int, stages: int, wgs: int = 1) -> int:
     """Dynamic shared memory of one block of fused_l2_topk's tensor-core
-    route with ``wgs`` consumer warpgroups (``tc_smem_bytes`` in
-    fused_l2_topk.cu): alignment slack, the ring (each stage the hi/lo
+    route with ``wgs`` consumer warpgroups (the same function of
+    csrc/smem_budget.h): alignment slack, the ring (each stage the hi/lo
     planes of a 64·wgs × 32 query and a 128 × 32 database slice), its
     barriers, the carry, the survivor buffers and their counts."""
     bm = TC_BM * wgs
@@ -426,7 +426,7 @@ def l2_topk_tc_smem_bytes(k: int, stages: int, wgs: int = 1) -> int:
 
 def l2_topk_fma_smem_bytes(k: int) -> int:
     """Dynamic shared memory of one block of the large-k FMA route
-    (``fma_smem_bytes`` in fused_l2_topk.cu): 16 query rows."""
+    (the same function of csrc/smem_budget.h): 16 query rows."""
     return 32 * 17 * 4 + 32 * 129 * 4 + 8 + 16 * 128 * 8 + 16 * k * 8 + 16 * 4
 
 
@@ -661,8 +661,8 @@ IVF_TOPK_REG_MAX_K = 16
 
 def ivf_topk_smem_bytes(k: int, elem_bytes: int) -> int:
     """Shared memory of one block of ``fused_ivf_topk``'s grouped route over
-    list rows of ``elem_bytes`` (``grouped_smem_bytes`` in
-    fused_ivf_topk.cu, plus its static arrays): two slab buffers of 64
+    list rows of ``elem_bytes`` (the same function of csrc/smem_budget.h:
+    the dynamic bytes plus the kernel's static arrays): two slab buffers of 64
     staged rows, the group's 32 query vectors, and above
     ``IVF_TOPK_REG_MAX_K`` a chunk's 64 survivors of each pair, their counts
     and each pair's carry of k (value, slot)."""
@@ -675,8 +675,8 @@ def ivf_topk_smem_bytes(k: int, elem_bytes: int) -> int:
 
 
 def ivf_topk_per_query_smem_bytes(rot: int, k: int) -> int:
-    """Shared memory of one block of the per-query route (``ivf_smem_bytes``
-    in fused_ivf_topk.cu): a 256-row chunk's survivors, the carry, the
+    """Shared memory of one block of the per-query route (the same
+    function of csrc/smem_budget.h): a 256-row chunk's survivors, the carry, the
     survivor count, the probe's query vector."""
     return 256 * 8 + k * 8 + 16 + rot * 4
 
@@ -869,6 +869,17 @@ def plan_select_k(n: int, k: int) -> SelectKPlan:
     return SelectKPlan("shared", SELECT_SHARED_CHUNK // 32, 1, 1)
 
 
+#: rows a block of select_k's shared-memory route (one warp each)
+SELECT_SHARED_WARPS = 8
+
+
+def select_k_smem_bytes(k: int) -> int:
+    """Dynamic shared memory of one block of select_k's shared-memory route
+    (the same function of csrc/smem_budget.h): each warp's chunk of
+    survivors, its carry of k and its count."""
+    return SELECT_SHARED_WARPS * (SELECT_SHARED_CHUNK * 8 + k * 8 + 16)
+
+
 def streaming_select_k_plain(values, k: int, select_min: bool = True):
     """Plain version of ``streaming_select_k``."""
     v = values.to(torch.float32)
@@ -912,8 +923,8 @@ PQ_BOOK = 256  # codebook entries per subspace at pq_bits 8
 
 
 def pq_topk_smem_bytes(pq_dim: int, pq_len: int, k: int) -> int:
-    """Dynamic shared memory of one fused_pq_topk block (the formula of
-    ``pq_smem_bytes`` in fused_pq_topk.cu): survivors, the probe's LUT, the
+    """Dynamic shared memory of one fused_pq_topk block (the same
+    function of csrc/smem_budget.h): survivors, the probe's LUT, the
     carry, the residual and the partial sums of its norm."""
     return (256 * 8 + pq_dim * PQ_BOOK * 4 + k * 8 + 16 + pq_dim * pq_len * 4
             + (256 // 32 + 1) * 4)
@@ -940,7 +951,7 @@ PQ_GROUPED_MAX_K = 32
 def pq_grouped_smem_bytes(pq_dim: int, pq_len: int, warps: int,
                           res_chunked: bool = False) -> int:
     """Shared memory of one block of ``fused_pq_topk``'s grouped route with
-    ``warps`` warps (``grouped_smem_bytes`` in fused_pq_topk.cu, plus 512
+    ``warps`` warps (the same function of csrc/smem_budget.h, with 512
     bytes for its static arrays): the 32 pairs' LUT chunk (later the
     run's distance keys, [32, rows + 1]), the pairs' residuals ([32, rot],
     or [32, 4·pq_len] when staged a LUT chunk at a time) and the run's
@@ -1178,8 +1189,8 @@ def cagra_cand_cap(width: int, degree: int) -> int:
 
 def cagra_topk_smem_bytes(itopk: int, dim: int, width: int,
                           degree: int) -> int:
-    """Dynamic shared memory of one fused_cagra_topk block (the formula of
-    ``cagra_smem_bytes`` in fused_cagra_topk.cu): two beam buffers (keys,
+    """Dynamic shared memory of one fused_cagra_topk block (the same
+    function of csrc/smem_budget.h): two beam buffers (keys,
     ids, flags), the query row, the candidates' ids, keys and sort slots,
     the parents and two counters."""
     cap = cagra_cand_cap(width, degree)
@@ -1197,7 +1208,7 @@ CAGRA_WARP_MAX_ITOPK, CAGRA_WARP_MAX_CANDS, CAGRA_WARPS = 256, 64, 4
 def cagra_warp_smem_bytes(itopk: int, dim: int, width: int,
                           degree: int) -> int:
     """Shared memory of one warp of fused_cagra_topk's warp route (the
-    formula of ``warp_slice_bytes`` in fused_cagra_topk.cu): two beam
+    same function of csrc/smem_budget.h): two beam
     buffers (keys, ids, flags), the query row, the sorted candidates' keys
     (32 or 64) and the parents."""
     cands = 32 if width * degree <= 32 else 64
@@ -1518,7 +1529,8 @@ def fused_l2_argmin_plain(x, y, x_norms=None, y_norms=None,
 
 def l2_argmin_smem_bytes(route: str, d_pad: int, stages: int) -> int:
     """Dynamic shared memory of one block of ``fused_l2_argmin`` (the
-    formula of ``argmin_smem_bytes`` in fused_l2_argmin.cu): alignment
+    same function of csrc/smem_budget.h, with ``route`` as 1 for
+    "resident" there): alignment
     slack; the ring, each stage the hi/lo planes of a 128 × 32 slice of y
     (and of x in the "scratch" route); the block's 128 x rows as hi/lo
     planes of d_pad features in the "resident" route; the barriers."""
@@ -1643,6 +1655,22 @@ def ivf_scan_plain(probes, qres, list_data, row_norms):
 #: ivf_group.cuh)
 IVF_GROUP_SEGMENT = 4096
 IVF_SCAN_CHUNKS_PER_BLOCK = 8  # chunks a block scans with one group
+
+
+def ivf_scan_smem_bytes(elem_bytes: int) -> int:
+    """Dynamic shared memory of one ``ivf_scan`` block over list rows of
+    ``elem_bytes`` (the same function of csrc/smem_budget.h): two slab
+    buffers of 64 staged rows and the group's 32 query vectors."""
+    return (2 * IVF_SCAN_SLOTS * IVF_STAGE_ROW * elem_bytes
+            + IVF_SCAN_GROUP * IVF_STAGE_ROW * 4)
+
+
+def ivf_group_smem_bytes(n_lists: int) -> int:
+    """Dynamic shared memory of the IVF scans' grouping passes (the same
+    function of csrc/smem_budget.h): a counter or cursor for each list and
+    one for the invalid probes; they take it while it is at most 96 KiB
+    (24,575 lists), else they count in device memory."""
+    return 4 * (n_lists + 1)
 
 
 def ivf_group_scratch(n_pairs: int, n_lists: int) -> int:

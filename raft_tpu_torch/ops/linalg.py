@@ -33,12 +33,12 @@ from typing import Callable, Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.resources import as_tensors, resolve_device
-from raft_tpu_torch.ops.distance import _check_fp32_products
+from raft_tpu_torch.ops.distance import check_fp32_products
 
 
 def _fp32_product_check(a: torch.Tensor) -> None:
     if a.dtype == torch.float32:
-        _check_fp32_products(a)
+        check_fp32_products(a)
 
 
 # ------------------------------------------------------------- BLAS wrappers

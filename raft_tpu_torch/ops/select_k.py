@@ -253,8 +253,14 @@ def _order_keys(values: torch.Tensor, select_min: bool) -> torch.Tensor:
     below +0.0), negated first for ``select_min`` as the JAX package does."""
     if values.dtype.is_floating_point:
         v = values.to(torch.float32)
-        bits = (-v if select_min else v).view(torch.int32)
-        return (bits ^ ((bits >> 31) & 0x7FFFFFFF)).to(torch.int64)
+        # in place on a fresh copy: the keys of a [rows, n] tile take one
+        # int32 and one int64 tile beside the values, not five
+        bits = (-v if select_min else v.clone()).view(torch.int32)
+        sign = bits >> 31
+        sign &= 0x7FFFFFFF
+        bits ^= sign
+        del sign
+        return bits.to(torch.int64)
     v = values.to(torch.int64)
     return -v if select_min else v
 
@@ -279,7 +285,9 @@ def topk_lowest_first(values: torch.Tensor, k: int, select_min: bool = True
     if not values.dtype.is_floating_point:  # int keys can use the full 64 bits
         order = torch.sort(-key, dim=1, stable=True).indices[:, :k]
         return torch.gather(values, 1, order), order
-    composite = (key << 32) | (n - 1 - pos)[None, :]
+    composite = key  # a fresh int64 tile: shifted and merged in place
+    composite <<= 32
+    composite |= (n - 1 - pos)[None, :]
     top = torch.topk(composite, k, dim=1, largest=True, sorted=True).values
     sel = (n - 1) - (top & 0xFFFFFFFF)
     return torch.gather(values, 1, sel), sel

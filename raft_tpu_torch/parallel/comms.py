@@ -36,13 +36,20 @@ is a total order, so any merge schedule returns the same result. Like
 ``jax.lax.sort``, the key holds -0.0 and +0.0 equal (the position decides
 between them) and puts NaN last.
 
+Each communicator counts the bytes every rank receives from the others
+(``received``, cleared by ``reset_received``): the ``allgather`` blocks of
+the other ranks, ``ppermute``'s copies (the tree merge's rounds, ``shift``)
+and the ring merge's hops. ``core.resources.solve_merge_bytes`` predicts
+what each merge engine moves; ``obs.costs.merge_entries`` holds the two to
+each other, as raft_tpu holds the compiled program's collectives.
 """
 
 from __future__ import annotations
 
 import contextlib
 import dataclasses
-from typing import Callable, List, Optional, Sequence, Tuple
+import threading
+from typing import Callable, Dict, List, Optional, Sequence, Tuple
 
 import numpy as np
 import torch
@@ -106,6 +113,12 @@ class Comms:
     mesh_processes: Tuple[int, ...] = ()
     process_index: int = 0
     process_count: int = 1
+    #: rank → bytes it received from the other ranks since
+    #: ``reset_received`` (the module docstring)
+    received: Dict[int, int] = dataclasses.field(  # guarded_by: _recv_lock
+        default_factory=dict, compare=False, repr=False)
+    _recv_lock: threading.Lock = dataclasses.field(
+        default_factory=threading.Lock, compare=False, repr=False)
 
     def __post_init__(self):
         kinds = sorted({torch.device(d).type for d in self.mesh})
@@ -116,6 +129,18 @@ class Comms:
                              f"ring_shift kernel")
         if self.mesh_processes and len(self.mesh_processes) != len(self.mesh):
             raise ValueError("mesh_processes needs one entry a device")
+
+    # ---- received bytes ---------------------------------------------------
+    def reset_received(self) -> None:
+        with self._recv_lock:
+            self.received.clear()
+
+    def _count_received(self, rank: int, t: Optional[torch.Tensor]) -> None:
+        if t is None:
+            return
+        with self._recv_lock:
+            self.received[rank] = (self.received.get(rank, 0)
+                                   + t.numel() * t.element_size())
 
     # ---- topology ---------------------------------------------------------
     @property
@@ -292,6 +317,10 @@ class Comms:
         xs = self._check(xs)
         home = self._home
         parts = [x.to(home) for x in self._all_ranks(xs)]
+        for r in self.local_ranks:
+            for q, part in enumerate(parts):
+                if q != r:
+                    self._count_received(r, part)
         whole = torch.cat(parts, dim=axis) if tiled else torch.stack(parts,
                                                                      dim=axis)
         return self._replicate(whole)
@@ -360,6 +389,9 @@ class Comms:
             raise ValueError(f"perm {perm} sends or receives twice")
         out = [None if x is None else torch.zeros_like(x) for x in xs]
         self._pairs(xs, perm, out, lambda d: xs[d])
+        for s, d in perm:
+            if s != d and out[d] is not None:
+                self._count_received(d, out[d])
         return out
 
     def device_send_recv(self, xs,
@@ -463,6 +495,9 @@ class Comms:
         first = self._first(vs)
         nq, kk = first.shape
         k_out = min(int(k), size * kk)
+        # Comms.shift counts its own copies; a given shift's hops are
+        # counted here
+        count_hops = shift is not None
         if shift is None:
             def shift(blocks):
                 return self.shift(blocks, 1)
@@ -483,6 +518,9 @@ class Comms:
                  for v, p, i in zip(vs, pos, ids)]
         for s in range(size - 1):
             blocks = shift(blocks)
+            if count_hops:
+                for r, b in enumerate(blocks):
+                    self._count_received(r, b)
             width = min(k_out, (s + 2) * kk)
             carry = [None if c is None else
                      _lex_topk(torch.cat([c[0], b[0]], 1),

@@ -1019,7 +1019,8 @@ class ShardedCagra:
         self.metric = metric
         self.n_rows = int(n_rows)
         self.bounds = np.asarray(bounds, np.int64)
-        self._seeds: dict = {}  # (mask, nq, rank, n_seeds) -> tensor
+        #: (mask, nq, rank, n_seeds) -> tensor
+        self._seeds: dict = {}  # guarded_by: _seeds_lock
         self._seeds_lock = threading.Lock()
 
     @property

@@ -345,7 +345,8 @@ class Engine:
         self._searcher = searcher  # guarded_by: _swap_lock
         self.config = config or EngineConfig()
         self.planner = self.config.planner
-        self._planner_failed = False  # guarded_by: dispatch thread only
+        # written by the dispatch thread alone
+        self._planner_failed = False  # guarded_by: atomic
         self.clock = clock
         self.stats = ServingStats(window=self.config.stats_window,
                                   registry=self.config.registry)
@@ -535,7 +536,7 @@ class Engine:
         if self._dispatch_warm_error is not None:
             self.batcher.stop(drain=False)
             self._dispatch_thread.join()
-            raise RuntimeError("warming the dispatch thread failed") \
+            raise EngineStopped("warming the dispatch thread failed") \
                 from self._dispatch_warm_error
         self.warmup_info = {
             "warm_s": round(self.clock() - t0, 3),

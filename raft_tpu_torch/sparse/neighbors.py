@@ -20,7 +20,7 @@ from typing import Optional, Tuple
 import torch
 
 from raft_tpu_torch.core.resources import Resources, as_tensors
-from raft_tpu_torch.ops.distance import DistanceType, _check_fp32_products
+from raft_tpu_torch.ops.distance import DistanceType, check_fp32_products
 from raft_tpu_torch.sparse import distance as sparse_distance
 from raft_tpu_torch.sparse.types import CSR
 
@@ -45,7 +45,7 @@ def cross_component_nn(x, colors, tile: int = 1024, device=None
     x, colors = as_tensors(x, colors, device=device)
     x = x.to(torch.float32).contiguous()
     colors = colors.to(torch.int32)
-    _check_fp32_products(x)
+    check_fp32_products(x)
     n = x.shape[0]
     tile = max(int(min(tile, n)), 1)
     xn = torch.sum(x * x, -1)

@@ -23,7 +23,7 @@ import torch
 from raft_tpu_torch.core.resources import (Resources, as_tensors,
                                            ensure_resources)
 from raft_tpu_torch.ops import linalg as tlinalg
-from raft_tpu_torch.ops.distance import _check_fp32_products
+from raft_tpu_torch.ops.distance import check_fp32_products
 from raft_tpu_torch.sparse.convert import csr_to_dense
 from raft_tpu_torch.sparse.distance import placed
 from raft_tpu_torch.sparse.linalg import laplacian as make_laplacian
@@ -45,7 +45,7 @@ def fit_embedding(adj: CSR, n_components: int, normalized: bool = True,
     res = ensure_resources(res, device)
     generator = res.generator if generator is None else generator
     lap = make_laplacian(placed(adj, res.device), normalized=normalized)
-    _check_fp32_products(lap)
+    check_fp32_products(lap)
     n = lap.shape[0]
     # k+1 smallest: the first is the trivial (constant) eigenvector
     _, vecs = tlinalg.lanczos(lambda v: torch.matmul(lap, v), n,
@@ -108,7 +108,7 @@ def modularity_maximization(adj: CSR, n_clusters: int,
     generator = res.generator if generator is None else generator
     a = csr_to_dense(placed(adj, res.device))
     a = torch.maximum(a, a.T)
-    _check_fp32_products(a)
+    check_fp32_products(a)
     d = torch.sum(a, dim=1)
     two_m = torch.clamp_min(torch.sum(d), 1e-20)
     n = a.shape[0]

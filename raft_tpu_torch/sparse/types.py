@@ -76,7 +76,7 @@ class CSR:
                                   right=True).to(torch.int32)
 
 
-def _narrow(data):
+def narrow_data(data):
     """Host float64 and int64 data narrowed to 32 bits, as ``jnp.asarray``
     narrows them with x64 off; tensors as they are."""
     if isinstance(data, torch.Tensor):
@@ -93,7 +93,7 @@ def csr_from_scipy_like(indptr, indices, data, shape, device=None) -> CSR:
     """A CSR from (indptr, indices, data) arrays, on ``device`` (else that
     of the first tensor given, else CUDA unless the caller asks for the
     CPU)."""
-    indptr, indices, data = as_tensors(indptr, indices, _narrow(data),
+    indptr, indices, data = as_tensors(indptr, indices, narrow_data(data),
                                        device=device)
     return CSR(indptr.to(torch.int32), indices.to(torch.int32), data,
                tuple(int(s) for s in shape))
@@ -102,6 +102,6 @@ def csr_from_scipy_like(indptr, indices, data, shape, device=None) -> CSR:
 def coo_from_arrays(rows, cols, data, shape, device=None) -> COO:
     """A COO from (rows, cols, data) arrays, placed as
     :func:`csr_from_scipy_like` places them."""
-    rows, cols, data = as_tensors(rows, cols, _narrow(data), device=device)
+    rows, cols, data = as_tensors(rows, cols, narrow_data(data), device=device)
     return COO(rows.to(torch.int32), cols.to(torch.int32), data,
                tuple(int(s) for s in shape))

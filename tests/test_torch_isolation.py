@@ -99,6 +99,10 @@ from raft_tpu_torch.cluster import single_linkage
 from raft_tpu_torch.core import resources_manager
 from raft_tpu_torch.utils import compile_cache, debug
 from raft_tpu_torch.bench import graph
+from raft_tpu_torch.analysis import (artifacts, astutils, concurrency,
+                                     findings, flow, kernels, layering,
+                                     memory_audit, rules_ast)
+import raft_tpu_torch.analysis.__main__
 assert callable(select_k_fn) and raft_tpu_torch.ops.select_k is select_k_fn
 assert {"serving", "planner", "bench"} <= set(raft_tpu_torch.__all__)
 bad = sorted(m for m in sys.modules
