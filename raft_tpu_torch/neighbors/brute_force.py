@@ -274,6 +274,25 @@ def explained(result, cap, explain: bool):
     return (*result, cap.last) if explain else result
 
 
+def blocks_host(x, device: torch.device) -> bool:
+    """Whether putting ``x`` (a tensor, or a host array) on ``device`` waits
+    on a card: a copy between host memory and a CUDA device, which torch
+    makes synchronous (the host waits for the stream's queued work)."""
+    on_card = isinstance(x, torch.Tensor) and x.device.type == "cuda"
+    return on_card != (device.type == "cuda")
+
+
+def host_wait(family: str, site: str, x, device: torch.device):
+    """The scope of a ``family`` search's staging of ``x`` onto ``device``:
+    where that blocks the host (``blocks_host``), a ``<family>.search.wait``
+    span and one count of ``raft_tpu_host_sync_total{site}`` at site
+    ``<family>.<site>``; else a no-op scope."""
+    if not blocks_host(x, device):
+        return contextlib.nullcontext()
+    obs_explain.note_host_sync(f"{family}.{site}")
+    return tracing.span(f"{family}.search.wait")
+
+
 @tracing.range("brute_force.search")
 def search(index: Index, queries, k: int, filter=None,
            res: Optional[Resources] = None, scan_dtype=None,

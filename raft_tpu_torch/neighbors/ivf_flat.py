@@ -61,7 +61,7 @@ from raft_tpu_torch.core.resources import Resources, ensure_resources
 from raft_tpu_torch.neighbors import list_packing
 from raft_tpu_torch.neighbors.brute_force import (
     explained, fast_scan_requested, fused_route,
-    fused_ineligible_reason, kernel_plan)
+    fused_ineligible_reason, host_wait, kernel_plan)
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.ops import gpu_kernels as gk
 from raft_tpu_torch.ops import rng as rrng
@@ -404,98 +404,109 @@ def _search_core(queries, index: Index, filter_words, k: int, n_probes: int,
     for qs in range(0, queries.shape[0], q_tile):
         qt = queries[qs:qs + q_tile]
         t = qt.shape[0]
-        scores, coarse_min = _coarse_scores(qt, index.centers, metric)
-        _, probes = select_k_maybe_approx(scores, n_probes, coarse_min,
-                                          select_recall)
-        probes = probes.long()
-        g_idx = list_indices[probes]  # [t, P, pad]
-        g_valid = valid_slot[probes]
-        qf = qt.to(torch.float32)
-        qn2 = row_norms_sq(qf)[:, None, None]
-        is_l2 = metric in (DistanceType.L2Expanded,
-                           DistanceType.L2SqrtExpanded)
-        # each branch keeps its JAX counterpart's arithmetic: dots and the
-        # L2 form come from the partials ‖v‖² − 2·q·v with the kernel, from
-        # the product and ‖v‖² − 2·dots after the gather without it
-        if use_scan:
-            row_norms = index.ensure_row_norms()
-            qv = qf[:, None, :].expand(t, n_probes, qf.shape[1]).contiguous()
-            part = gk.ivf_scan(probes.to(torch.int32).contiguous(), qv,
-                               list_data, row_norms)  # ‖v‖² − 2·q·v
-            vn2 = row_norms[probes]
-            dots = None if is_l2 else 0.5 * (vn2 - part)
-            l2 = qn2 + part if is_l2 else None
-        elif fast_scan:
-            # the bf16 screen; the rows' norms stay exact fp32
-            g_data = list_data[probes]  # [t, P, pad, dim]
-            dots = gathered_dot_bf16(
-                qt, g_data.reshape(t, n_probes * list_pad, -1)).reshape(
-                    t, n_probes, list_pad)
-            vn2 = (None if metric == DistanceType.InnerProduct
-                   else index.ensure_row_norms()[probes])
-            l2 = (qn2 + vn2) - 2.0 * dots if is_l2 else None
-        else:
-            g_data = list_data[probes].to(torch.float32)  # [t, P, pad, dim]
-            dots = torch.einsum("td,tpld->tpl", qf, g_data)
-            vn2 = (None if metric == DistanceType.InnerProduct
-                   else (g_data * g_data).sum(-1))
-            l2 = (qn2 + vn2) - 2.0 * dots if is_l2 else None
-        if metric == DistanceType.InnerProduct:
-            d = dots
-        elif metric == DistanceType.CosineExpanded:
-            vn = torch.sqrt(torch.clamp_min(vn2, 1e-20))
-            qn = torch.sqrt(torch.clamp_min(qn2, 1e-20))
-            d = 1.0 - dots / (vn * qn)
-        else:
-            d = torch.clamp_min(l2, 0.0)
-            if metric == DistanceType.L2SqrtExpanded:
-                d = torch.sqrt(d)
-        ok = g_valid
-        if filter_words is not None:
-            ok = ok & bitset_filter_mask(g_idx, filter_words)
-        d = torch.where(ok, d, bad_fill)
-        n_main = n_probes * list_pad
-        flat_d = d.reshape(t, n_main)
-        flat_i = g_idx.reshape(t, n_main)
-        flat_ok = ok.reshape(t, n_main)
-        if has_overflow:
-            od, oi, o_ok = _overflow_scan(qf, o_f32, o_norms, o_ok_base,
-                                          index.overflow_indices,
-                                          filter_words, metric, bad_fill,
-                                          fast_scan)
-            flat_d = torch.cat([flat_d, od], dim=1)
-            flat_i = torch.cat([flat_i, oi], dim=1)
-            flat_ok = torch.cat([flat_ok, o_ok], dim=1)
-        kk = min(k, flat_d.shape[1])
-        if fast_scan:
-            # the exact fp32 re-rank of the screen's best, masked again by
-            # the slots' validity (pad and filter) rather than by the
-            # screen's value
-            k_ref = min(max(refine_mult * k, k + 8), flat_d.shape[1])
-            _, sel = select_k_maybe_approx(flat_d, k_ref, minimize,
-                                           select_recall)
-            sel = sel.long()
-            cand_i = torch.gather(flat_i, 1, sel)
-            cand_ok = torch.gather(flat_ok, 1, sel)
-            cand_list = torch.gather(
-                probes, 1, torch.clamp_max(sel // list_pad, n_probes - 1))
-            cand_vecs = list_data[cand_list, sel % list_pad].to(torch.float32)
+        with tracing.span("ivf_flat.search.coarse"):
+            scores, coarse_min = _coarse_scores(qt, index.centers, metric)
+            _, probes = select_k_maybe_approx(scores, n_probes, coarse_min,
+                                              select_recall)
+            probes = probes.long()
+        # the overflow rows join the tile's candidates before its one
+        # selection: .overflow runs inside .scan here
+        with tracing.span("ivf_flat.search.scan"):
+            g_idx = list_indices[probes]  # [t, P, pad]
+            g_valid = valid_slot[probes]
+            qf = qt.to(torch.float32)
+            qn2 = row_norms_sq(qf)[:, None, None]
+            is_l2 = metric in (DistanceType.L2Expanded,
+                               DistanceType.L2SqrtExpanded)
+            # each branch keeps its JAX counterpart's arithmetic: dots and
+            # the L2 form come from the partials ‖v‖² − 2·q·v with the
+            # kernel, from the product and ‖v‖² − 2·dots after the gather
+            # without it
+            if use_scan:
+                row_norms = index.ensure_row_norms()
+                qv = qf[:, None, :].expand(t, n_probes,
+                                           qf.shape[1]).contiguous()
+                part = gk.ivf_scan(probes.to(torch.int32).contiguous(), qv,
+                                   list_data, row_norms)  # ‖v‖² − 2·q·v
+                vn2 = row_norms[probes]
+                dots = None if is_l2 else 0.5 * (vn2 - part)
+                l2 = qn2 + part if is_l2 else None
+            elif fast_scan:
+                # the bf16 screen; the rows' norms stay exact fp32
+                g_data = list_data[probes]  # [t, P, pad, dim]
+                dots = gathered_dot_bf16(
+                    qt, g_data.reshape(t, n_probes * list_pad, -1)).reshape(
+                        t, n_probes, list_pad)
+                vn2 = (None if metric == DistanceType.InnerProduct
+                       else index.ensure_row_norms()[probes])
+                l2 = (qn2 + vn2) - 2.0 * dots if is_l2 else None
+            else:
+                # [t, P, pad, dim]
+                g_data = list_data[probes].to(torch.float32)
+                dots = torch.einsum("td,tpld->tpl", qf, g_data)
+                vn2 = (None if metric == DistanceType.InnerProduct
+                       else (g_data * g_data).sum(-1))
+                l2 = (qn2 + vn2) - 2.0 * dots if is_l2 else None
+            if metric == DistanceType.InnerProduct:
+                d = dots
+            elif metric == DistanceType.CosineExpanded:
+                vn = torch.sqrt(torch.clamp_min(vn2, 1e-20))
+                qn = torch.sqrt(torch.clamp_min(qn2, 1e-20))
+                d = 1.0 - dots / (vn * qn)
+            else:
+                d = torch.clamp_min(l2, 0.0)
+                if metric == DistanceType.L2SqrtExpanded:
+                    d = torch.sqrt(d)
+            ok = g_valid
+            if filter_words is not None:
+                ok = ok & bitset_filter_mask(g_idx, filter_words)
+            d = torch.where(ok, d, bad_fill)
+            n_main = n_probes * list_pad
+            flat_d = d.reshape(t, n_main)
+            flat_i = g_idx.reshape(t, n_main)
+            flat_ok = ok.reshape(t, n_main)
             if has_overflow:
-                o_idx = torch.clamp(sel - n_main, 0, o_f32.shape[0] - 1)
-                cand_vecs = torch.where((sel < n_main)[:, :, None],
-                                        cand_vecs, o_f32[o_idx])
-            exact = torch.where(cand_ok,
-                                gathered_distances(qf, cand_vecs, metric),
-                                bad_fill)
-            v, sel2 = select_k(exact, kk, select_min=minimize)
-            i_out = torch.gather(cand_i, 1, sel2.long())
-        else:
-            v, sel = select_k_maybe_approx(flat_d, kk, minimize,
-                                           select_recall)
-            i_out = torch.gather(flat_i, 1, sel.long())
-        if kk < k:
-            v = torch.cat([v, v.new_full((t, k - kk), bad_fill)], dim=1)
-            i_out = torch.cat([i_out, i_out.new_full((t, k - kk), -1)], dim=1)
+                with tracing.span("ivf_flat.search.overflow"):
+                    obs_explain.note_overflow_scan(
+                        "ivf_flat", t, index.overflow_indices.shape[0])
+                    od, oi, o_ok = _overflow_scan(
+                        qf, o_f32, o_norms, o_ok_base, index.overflow_indices,
+                        filter_words, metric, bad_fill, fast_scan)
+                    flat_d = torch.cat([flat_d, od], dim=1)
+                    flat_i = torch.cat([flat_i, oi], dim=1)
+                    flat_ok = torch.cat([flat_ok, o_ok], dim=1)
+            kk = min(k, flat_d.shape[1])
+            if fast_scan:
+                # the exact fp32 re-rank of the screen's best, masked again
+                # by the slots' validity (pad and filter) rather than by the
+                # screen's value
+                k_ref = min(max(refine_mult * k, k + 8), flat_d.shape[1])
+                _, sel = select_k_maybe_approx(flat_d, k_ref, minimize,
+                                               select_recall)
+                sel = sel.long()
+                cand_i = torch.gather(flat_i, 1, sel)
+                cand_ok = torch.gather(flat_ok, 1, sel)
+                cand_list = torch.gather(
+                    probes, 1, torch.clamp_max(sel // list_pad, n_probes - 1))
+                cand_vecs = list_data[cand_list,
+                                      sel % list_pad].to(torch.float32)
+                if has_overflow:
+                    o_idx = torch.clamp(sel - n_main, 0, o_f32.shape[0] - 1)
+                    cand_vecs = torch.where((sel < n_main)[:, :, None],
+                                            cand_vecs, o_f32[o_idx])
+                exact = torch.where(cand_ok,
+                                    gathered_distances(qf, cand_vecs, metric),
+                                    bad_fill)
+                v, sel2 = select_k(exact, kk, select_min=minimize)
+                i_out = torch.gather(cand_i, 1, sel2.long())
+            else:
+                v, sel = select_k_maybe_approx(flat_d, kk, minimize,
+                                               select_recall)
+                i_out = torch.gather(flat_i, 1, sel.long())
+            if kk < k:
+                v = torch.cat([v, v.new_full((t, k - kk), bad_fill)], dim=1)
+                i_out = torch.cat([i_out, i_out.new_full((t, k - kk), -1)],
+                                  dim=1)
         out_v.append(v)
         out_i.append(i_out.to(torch.int32))
     return torch.cat(out_v), torch.cat(out_i)
@@ -507,25 +518,31 @@ def _search_fused_core(queries, index: Index, k: int, n_probes: int):
     rows are scanned in squared space and merged with the kernel's
     survivors by one ``select_k``."""
     nq, dim = queries.shape
-    qf = queries.to(torch.float32)
-    scores, coarse_min = _coarse_scores(qf, index.centers, index.metric)
-    # the streaming select kernel picks the probes: at the coarse-probe
-    # shape it beats torch.topk on the card (PERF.md)
-    algo = SelectAlgo.PALLAS if n_probes <= gk.MAX_K else SelectAlgo.AUTO
-    _, probes = select_k(scores, n_probes, select_min=coarse_min, algo=algo)
-    qv = qf[:, None, :].expand(nq, n_probes, dim).contiguous()
-    qn = row_norms_sq(qf)[:, None].expand(nq, n_probes).contiguous()
-    v, i = gk.fused_ivf_topk(probes.contiguous(), qv, qn, index.list_data,
-                             index.ensure_row_norms(), index.safe_ids(), k,
-                             clamp=True)
-    if index.overflow_data.shape[0] > 0:
-        o_f32 = index.overflow_data.to(torch.float32)
-        od, oi, _ = _overflow_scan(qf, o_f32, row_norms_sq(o_f32),
-                                   index.overflow_indices >= 0,
-                                   index.overflow_indices, None,
-                                   DistanceType.L2Expanded, torch.inf)
-        v, i = select_k(torch.cat([v, od], dim=1), k, select_min=True,
-                        indices=torch.cat([i, oi], dim=1))
+    with tracing.span("ivf_flat.search.coarse"):
+        qf = queries.to(torch.float32)
+        scores, coarse_min = _coarse_scores(qf, index.centers, index.metric)
+        # the streaming select kernel picks the probes: at the coarse-probe
+        # shape it beats torch.topk on the card (PERF.md)
+        algo = SelectAlgo.PALLAS if n_probes <= gk.MAX_K else SelectAlgo.AUTO
+        _, probes = select_k(scores, n_probes, select_min=coarse_min,
+                             algo=algo)
+    with tracing.span("ivf_flat.search.scan"):
+        qv = qf[:, None, :].expand(nq, n_probes, dim).contiguous()
+        qn = row_norms_sq(qf)[:, None].expand(nq, n_probes).contiguous()
+        v, i = gk.fused_ivf_topk(probes.contiguous(), qv, qn,
+                                 index.list_data, index.ensure_row_norms(),
+                                 index.safe_ids(), k, clamp=True)
+    n_over = index.overflow_data.shape[0]
+    if n_over > 0:
+        with tracing.span("ivf_flat.search.overflow"):
+            obs_explain.note_overflow_scan("ivf_flat", nq, n_over)
+            o_f32 = index.overflow_data.to(torch.float32)
+            od, oi, _ = _overflow_scan(qf, o_f32, row_norms_sq(o_f32),
+                                       index.overflow_indices >= 0,
+                                       index.overflow_indices, None,
+                                       DistanceType.L2Expanded, torch.inf)
+            v, i = select_k(torch.cat([v, od], dim=1), k, select_min=True,
+                            indices=torch.cat([i, oi], dim=1))
     if index.metric == DistanceType.L2SqrtExpanded:
         v = torch.sqrt(torch.clamp_min(v, 0.0))
     return v, i
@@ -567,56 +584,70 @@ def search(index: Index, queries, k: int,
     keep their type (the products are fp32 whatever the lists' row type),
     as in the JAX package, whose IVF-Flat does not cast them to the lists'
     type. Runs on the index's device. ``explain=True`` returns a third element, the
-    search's ``ExplainRecord``."""
-    params = params or SearchParams()
-    if index.list_data is None:
-        raise ValueError("index has no data; call extend() first")
-    fast_scan = fast_scan_requested(params.scan_dtype)
-    if fast_scan and index.list_data.dtype != torch.float32:
-        raise ValueError("scan_dtype requires fp32 list data")
-    if params.scan_mode not in ("auto", "xla", "pallas"):
-        raise ValueError(f"scan_mode={params.scan_mode!r}: expected 'auto', "
-                         "'xla' or 'pallas'")
-    res = ensure_resources(res, index.device)
-    queries = as_query_array(queries, index.device)
-    if queries.shape[1] != index.dim:
-        raise ValueError(
-            f"query dim {queries.shape[1]} != index dim {index.dim}")
-    n_probes = int(min(params.n_probes, index.n_lists))
-    nq, list_pad = queries.shape[0], index.list_data.shape[1]
-    scan_mode = params.scan_mode
-    ineligible = fused_ineligible_reason(
-        index.metric, index.list_data.dtype, int(k), filter is not None,
-        fast_scan, require_float=False)
-    ex_params = {"k": int(k), "nq": nq, "bucket": query_bucket(nq),
-                 "n_probes": n_probes, "n_lists": index.n_lists,
-                 "list_pad": list_pad, "dim": index.dim,
-                 "metric": index.metric.name}
-    use_fused, reason = fused_route("ivf_flat", scan_mode, ineligible,
-                                    index.device)
+    search's ``ExplainRecord``.
+
+    Spans inside ``ivf_flat.search``: ``.plan`` (checks, routing, the
+    explain record), ``.wait`` (inside ``.plan``, where staging host
+    queries or a host filter onto the card blocks the host), ``.coarse``,
+    ``.scan`` and ``.overflow`` (``_search_fused_core``, ``_search_core``).
+    """
     with contextlib.ExitStack() as stack:
         cap = stack.enter_context(obs_explain.capture()) if explain else None
+        with tracing.span("ivf_flat.search.plan"):
+            params = params or SearchParams()
+            if index.list_data is None:
+                raise ValueError("index has no data; call extend() first")
+            fast_scan = fast_scan_requested(params.scan_dtype)
+            if fast_scan and index.list_data.dtype != torch.float32:
+                raise ValueError("scan_dtype requires fp32 list data")
+            if params.scan_mode not in ("auto", "xla", "pallas"):
+                raise ValueError(f"scan_mode={params.scan_mode!r}: expected "
+                                 "'auto', 'xla' or 'pallas'")
+            res = ensure_resources(res, index.device)
+            with host_wait("ivf_flat", "queries", queries, index.device):
+                queries = as_query_array(queries, index.device)
+            if queries.shape[1] != index.dim:
+                raise ValueError(
+                    f"query dim {queries.shape[1]} != index dim {index.dim}")
+            words = None
+            if filter is not None:
+                with host_wait("ivf_flat", "filter", filter.words,
+                               index.device):
+                    words = filter.words.to(index.device)
+            n_probes = int(min(params.n_probes, index.n_lists))
+            nq, list_pad = queries.shape[0], index.list_data.shape[1]
+            scan_mode = params.scan_mode
+            ineligible = fused_ineligible_reason(
+                index.metric, index.list_data.dtype, int(k),
+                filter is not None, fast_scan, require_float=False)
+            ex_params = {"k": int(k), "nq": nq, "bucket": query_bucket(nq),
+                         "n_probes": n_probes, "n_lists": index.n_lists,
+                         "list_pad": list_pad, "dim": index.dim,
+                         "metric": index.metric.name}
+            use_fused, reason = fused_route("ivf_flat", scan_mode, ineligible,
+                                            index.device)
+            if use_fused:
+                obs_explain.record_dispatch(
+                    "ivf_flat", scan_mode, "pallas", reason, params=ex_params,
+                    plan=kernel_plan(index.device, "fused_ivf_topk"))
+            else:
+                # the fast scan keeps off the scan kernel, as in the JAX
+                # package
+                use_scan = not fast_scan and ivf_scan_routed(scan_mode,
+                                                             index.device)
+                q_tile = plan_scan_tiles(n_probes, list_pad, index.dim,
+                                         res.workspace_limit_bytes)
+                plan = {"q_tile": q_tile, "unfused_ivf_scan": use_scan,
+                        "predicted_workspace_bytes": q_tile *
+                        scan_bytes_per_query(n_probes, list_pad, index.dim)}
+                if use_scan:
+                    plan.update(kernel_plan(index.device, "ivf_scan"))
+                obs_explain.record_dispatch(
+                    "ivf_flat", scan_mode, "xla", reason,
+                    params=ex_params, plan=plan)
         if use_fused:
-            obs_explain.record_dispatch(
-                "ivf_flat", scan_mode, "pallas", reason, params=ex_params,
-                plan=kernel_plan(index.device, "fused_ivf_topk"))
             out = _search_fused_core(queries, index, int(k), n_probes)
         else:
-            # the fast scan keeps off the scan kernel, as in the JAX package
-            use_scan = not fast_scan and ivf_scan_routed(scan_mode,
-                                                         index.device)
-            q_tile = plan_scan_tiles(n_probes, list_pad, index.dim,
-                                     res.workspace_limit_bytes)
-            plan = {"q_tile": q_tile, "unfused_ivf_scan": use_scan,
-                    "predicted_workspace_bytes": q_tile *
-                    scan_bytes_per_query(n_probes, list_pad, index.dim)}
-            if use_scan:
-                plan.update(kernel_plan(index.device, "ivf_scan"))
-            obs_explain.record_dispatch(
-                "ivf_flat", scan_mode, "xla", reason,
-                params=ex_params, plan=plan)
-            words = filter.words.to(index.device) if filter is not None \
-                else None
             out = _search_core(queries, index, words, int(k), n_probes,
                                q_tile, float(params.select_recall),
                                use_scan=use_scan, fast_scan=fast_scan,

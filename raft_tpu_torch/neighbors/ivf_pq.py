@@ -70,7 +70,7 @@ from raft_tpu_torch.core.resources import (Resources, ensure_resources,
 from raft_tpu_torch.neighbors import list_packing
 from raft_tpu_torch.neighbors.brute_force import (explained,
                                                   fused_ineligible_reason,
-                                                  kernel_plan)
+                                                  host_wait, kernel_plan)
 from raft_tpu_torch.obs import explain as obs_explain
 from raft_tpu_torch.neighbors.ivf_flat import _as_tensor, ivf_scan_routed
 from raft_tpu_torch.ops import gpu_kernels as gk
@@ -331,13 +331,14 @@ def _pack_codes(codes: torch.Tensor, pq_dim: int, pq_bits: int) -> torch.Tensor:
     return (up.sum(-1) & 0xFF).to(torch.uint8)
 
 
-def _unpack_positions(pq_dim: int, pq_bits: int):
-    """Per-subspace (lo_byte, hi_byte, shift) of the two-byte unpack."""
-    pos = np.arange(pq_dim) * pq_bits
+def _unpack_positions(pq_dim: int, pq_bits: int, device: torch.device):
+    """Per-subspace (lo_byte, hi_byte, shift) of the two-byte unpack, made
+    on ``device``: a copy from host memory would block the host inside a
+    search."""
+    pos = torch.arange(pq_dim, device=device) * pq_bits
     lo = pos // 8
-    sh = pos % 8
-    n_bytes = pq_dim * pq_bits // 8
-    hi = np.minimum(lo + 1, n_bytes - 1)
+    sh = (pos % 8).to(torch.int32)
+    hi = torch.clamp_max(lo + 1, pq_dim * pq_bits // 8 - 1)
     return lo, hi, sh
 
 
@@ -345,11 +346,10 @@ def _unpack_codes(code_bytes: torch.Tensor, pq_dim: int,
                   pq_bits: int) -> torch.Tensor:
     """[..., n_bytes] uint8 → [..., pq_dim] int32 codes; each field spans at
     most two bytes."""
-    lo, hi, sh = (torch.from_numpy(a).to(code_bytes.device)
-                  for a in _unpack_positions(pq_dim, pq_bits))
+    lo, hi, sh = _unpack_positions(pq_dim, pq_bits, code_bytes.device)
     b = code_bytes.to(torch.int32)
     word = b[..., lo] | (b[..., hi] << 8)
-    return (word >> sh.to(torch.int32)) & ((1 << pq_bits) - 1)
+    return (word >> sh) & ((1 << pq_bits) - 1)
 
 
 # --------------------------------------------------------- codebook training
@@ -820,6 +820,21 @@ def _pq_overflow_scan(q_rot, overflow_decoded, overflow_norms,
     return od, overflow_indices[None, :].expand(q_rot.shape[0], -1)
 
 
+def _overflow_join(flat_d, flat_i, q_rot, index: Index, filter_words,
+                   metric: DistanceType, bad_fill):
+    """The unfused engines' overflow step of a query tile: the overflow
+    rows' distances and ids appended to the tile's candidates
+    (``ivf_pq.search.overflow``)."""
+    with tracing.span("ivf_pq.search.overflow"):
+        obs_explain.note_overflow_scan("ivf_pq", q_rot.shape[0],
+                                       index.overflow_indices.shape[0])
+        od, oi = _pq_overflow_scan(q_rot, index.overflow_decoded,
+                                   index.overflow_norms,
+                                   index.overflow_indices, filter_words,
+                                   metric, bad_fill)
+        return torch.cat([flat_d, od], dim=1), torch.cat([flat_i, oi], dim=1)
+
+
 def _coarse(q_rot, centers_rot, n_probes: int, metric: DistanceType,
             select_recall: float):
     """(probes [t, P] int64, dots_c [t, L]): the probed lists of the unfused
@@ -890,39 +905,42 @@ def _search_cache_core(queries, index: Index, filter_words, k: int,
     has_overflow = index.overflow_codes.shape[0] > 0
     out_v, out_i = [], []
     for qs in range(0, queries.shape[0], q_tile):
-        q_rot = dot_fp32(queries[qs:qs + q_tile], index.rotation)
-        t = q_rot.shape[0]
-        probes, dots_c = _coarse(q_rot, centers_rot, n_probes, metric,
-                                 select_recall)
-        g_idx = index.list_indices[probes]
-        if use_scan:
-            d = _scan_distances(q_rot, probes, probes, dots_c, centers_rot,
-                                index.list_decoded, index.decoded_norms,
-                                metric)
-        else:
-            g_dec = index.list_decoded[probes]  # [t, P, pad, rot]
-            if metric == DistanceType.InnerProduct:
-                dots = einsum_fp32("td,tpld->tpl", q_rot, g_dec)
-                d = torch.gather(dots_c, 1, probes)[:, :, None] + dots
+        with tracing.span("ivf_pq.search.coarse"):
+            q_rot = dot_fp32(queries[qs:qs + q_tile], index.rotation)
+            t = q_rot.shape[0]
+            probes, dots_c = _coarse(q_rot, centers_rot, n_probes, metric,
+                                     select_recall)
+        # the overflow rows join the tile's candidates before its one
+        # selection: .overflow runs inside .scan here
+        with tracing.span("ivf_pq.search.scan"):
+            g_idx = index.list_indices[probes]
+            if use_scan:
+                d = _scan_distances(q_rot, probes, probes, dots_c,
+                                    centers_rot, index.list_decoded,
+                                    index.decoded_norms, metric)
             else:
-                qr_res = q_rot[:, None, :] - centers_rot[probes]  # [t, P, rot]
-                dots = einsum_fp32("tpd,tpld->tpl", qr_res, g_dec)
-                qn = (qr_res * qr_res).sum(-1)
-                d = (qn[:, :, None] - 2.0 * dots) \
-                    + index.decoded_norms[probes]
-        ok = valid_slot[probes]
-        if filter_words is not None:
-            ok = ok & bitset_filter_mask(g_idx, filter_words)
-        flat_d = torch.where(ok, d, bad_fill).reshape(t, n_probes * list_pad)
-        flat_i = g_idx.reshape(t, n_probes * list_pad)
-        if has_overflow:
-            od, oi = _pq_overflow_scan(q_rot, index.overflow_decoded,
-                                       index.overflow_norms,
-                                       index.overflow_indices, filter_words,
-                                       metric, bad_fill)
-            flat_d = torch.cat([flat_d, od], dim=1)
-            flat_i = torch.cat([flat_i, oi], dim=1)
-        v, i = _finish(flat_d, flat_i, k, metric, select_recall)
+                g_dec = index.list_decoded[probes]  # [t, P, pad, rot]
+                if metric == DistanceType.InnerProduct:
+                    dots = einsum_fp32("td,tpld->tpl", q_rot, g_dec)
+                    d = torch.gather(dots_c, 1, probes)[:, :, None] + dots
+                else:
+                    # [t, P, rot]
+                    qr_res = q_rot[:, None, :] - centers_rot[probes]
+                    dots = einsum_fp32("tpd,tpld->tpl", qr_res, g_dec)
+                    qn = (qr_res * qr_res).sum(-1)
+                    d = (qn[:, :, None] - 2.0 * dots) \
+                        + index.decoded_norms[probes]
+            ok = valid_slot[probes]
+            if filter_words is not None:
+                ok = ok & bitset_filter_mask(g_idx, filter_words)
+            flat_d = torch.where(ok, d, bad_fill).reshape(
+                t, n_probes * list_pad)
+            flat_i = g_idx.reshape(t, n_probes * list_pad)
+            if has_overflow:
+                flat_d, flat_i = _overflow_join(flat_d, flat_i, q_rot, index,
+                                                filter_words, metric,
+                                                bad_fill)
+            v, i = _finish(flat_d, flat_i, k, metric, select_recall)
         out_v.append(v)
         out_i.append(i)
     return torch.cat(out_v), torch.cat(out_i)
@@ -1010,40 +1028,38 @@ def _search_lut_core(queries, index: Index, filter_words, k: int,
     has_overflow = index.overflow_codes.shape[0] > 0
     out_v, out_i = [], []
     for qs in range(0, queries.shape[0], q_tile):
-        q_rot = dot_fp32(queries[qs:qs + q_tile], index.rotation)
-        t = q_rot.shape[0]
-        probes, dots_c = _coarse(q_rot, centers_rot, n_probes, metric,
-                                 select_recall)
-        block = functools.partial(
-            _lut_probe_block, q_rot, dots_c, index=index,
-            filter_words=filter_words, cb_norms=cb_norms,
-            centers_rot=centers_rot, valid_slot=valid_slot,
-            lut_dtype=lut_dtype, dist_dtype=dist_dtype)
-        if p_tile == n_probes:
-            d, g_idx = block(probes)
-            flat_d = d.reshape(t, n_probes * list_pad)
-            flat_i = g_idx.reshape(t, n_probes * list_pad)
-        else:
-            # running top-kk carry: the peak stays [t, p_tile, pad, ...]
-            kk = min(k, n_probes * list_pad)
-            flat_d = q_rot.new_full((t, kk), bad_fill)
-            flat_i = torch.full((t, kk), -1, dtype=torch.int32,
-                                device=q_rot.device)
-            for p0 in range(0, n_probes, p_tile):
-                d, gi = block(probes[:, p0:p0 + p_tile])
-                cand_v = torch.cat([flat_d, d.reshape(t, -1)], dim=1)
-                cand_i = torch.cat([flat_i, gi.reshape(t, -1)], dim=1)
-                flat_d, sel = select_k_maybe_approx(cand_v, kk, minimize,
-                                                    select_recall)
-                flat_i = torch.gather(cand_i, 1, sel.long())
-        if has_overflow:
-            od, oi = _pq_overflow_scan(q_rot, index.overflow_decoded,
-                                       index.overflow_norms,
-                                       index.overflow_indices, filter_words,
-                                       metric, bad_fill)
-            flat_d = torch.cat([flat_d, od], dim=1)
-            flat_i = torch.cat([flat_i, oi], dim=1)
-        v, i = _finish(flat_d, flat_i, k, metric, select_recall)
+        with tracing.span("ivf_pq.search.coarse"):
+            q_rot = dot_fp32(queries[qs:qs + q_tile], index.rotation)
+            t = q_rot.shape[0]
+            probes, dots_c = _coarse(q_rot, centers_rot, n_probes, metric,
+                                     select_recall)
+        with tracing.span("ivf_pq.search.scan"):
+            block = functools.partial(
+                _lut_probe_block, q_rot, dots_c, index=index,
+                filter_words=filter_words, cb_norms=cb_norms,
+                centers_rot=centers_rot, valid_slot=valid_slot,
+                lut_dtype=lut_dtype, dist_dtype=dist_dtype)
+            if p_tile == n_probes:
+                d, g_idx = block(probes)
+                flat_d = d.reshape(t, n_probes * list_pad)
+                flat_i = g_idx.reshape(t, n_probes * list_pad)
+            else:
+                # running top-kk carry: the peak stays [t, p_tile, pad, ...]
+                kk = min(k, n_probes * list_pad)
+                flat_d = q_rot.new_full((t, kk), bad_fill)
+                flat_i = torch.full((t, kk), -1, dtype=torch.int32,
+                                    device=q_rot.device)
+                for p0 in range(0, n_probes, p_tile):
+                    d, gi = block(probes[:, p0:p0 + p_tile])
+                    cand_v = torch.cat([flat_d, d.reshape(t, -1)], dim=1)
+                    cand_i = torch.cat([flat_i, gi.reshape(t, -1)], dim=1)
+                    flat_d, sel = select_k_maybe_approx(
+                        cand_v, kk, minimize, select_recall)
+                    flat_i = torch.gather(cand_i, 1, sel.long())
+            if has_overflow:
+                flat_d, flat_i = _overflow_join(flat_d, flat_i, q_rot, index,
+                                                filter_words, metric, bad_fill)
+            v, i = _finish(flat_d, flat_i, k, metric, select_recall)
         out_v.append(v)
         out_i.append(i)
     return torch.cat(out_v), torch.cat(out_i)
@@ -1053,13 +1069,14 @@ def _coarse_probes_rot(queries, index: Index, n_probes: int):
     """The coarse step of the fused engines: rotate the queries and pick the
     top-n_probes lists in rotated space by the streaming select kernel →
     (q_rot [nq, rot], centers_rot [L, rot], probes [nq, P] int32)."""
-    q_rot = dot_fp32(queries, index.rotation).contiguous()
-    centers_rot = index.centers_rot.contiguous()
-    scores = (row_norms_sq(centers_rot)[None, :]
-              - 2.0 * dot_fp32(q_rot, centers_rot))
-    algo = SelectAlgo.PALLAS if n_probes <= gk.MAX_K else SelectAlgo.AUTO
-    _, probes = select_k(scores, n_probes, select_min=True, algo=algo)
-    return q_rot, centers_rot, probes.to(torch.int32).contiguous()
+    with tracing.span("ivf_pq.search.coarse"):
+        q_rot = dot_fp32(queries, index.rotation).contiguous()
+        centers_rot = index.centers_rot.contiguous()
+        scores = (row_norms_sq(centers_rot)[None, :]
+                  - 2.0 * dot_fp32(q_rot, centers_rot))
+        algo = SelectAlgo.PALLAS if n_probes <= gk.MAX_K else SelectAlgo.AUTO
+        _, probes = select_k(scores, n_probes, select_min=True, algo=algo)
+        return q_rot, centers_rot, probes.to(torch.int32).contiguous()
 
 
 def _fused_merge_overflow(v, i, q_rot, index: Index, k: int):
@@ -1075,8 +1092,11 @@ def _fused_merge_overflow(v, i, q_rot, index: Index, k: int):
 def _fused_finish(v, i, q_rot, index: Index, k: int):
     """The overflow rows merged by one select_k, sqrt for L2Sqrt (``index``:
     an Index or a ``tiered.TieredIvfPq``)."""
-    if index.overflow_indices.shape[0] > 0:
-        v, i = _fused_merge_overflow(v, i, q_rot, index, k)
+    n_over = index.overflow_indices.shape[0]
+    if n_over > 0:
+        with tracing.span("ivf_pq.search.overflow"):
+            obs_explain.note_overflow_scan("ivf_pq", q_rot.shape[0], n_over)
+            v, i = _fused_merge_overflow(v, i, q_rot, index, k)
     if index.metric == DistanceType.L2SqrtExpanded:
         v = torch.sqrt(torch.clamp_min(v, 0.0))
     return v, i
@@ -1101,17 +1121,19 @@ def _search_fused_cache_core(q_rot, centers_rot, probes, list_probes,
     /``ids`` (the same, but for a tiered index's arena slots); ``index``
     (an Index or a ``tiered.TieredIvfPq``) gives the overflow rows."""
     out_v, out_i = [], []
-    for s in range(0, q_rot.shape[0], q_chunk):
-        pr = probes[s:s + q_chunk]
-        qr_res = (q_rot[s:s + q_chunk, None, :]
-                  - centers_rot[pr.long()]).contiguous()  # [t, P, rot]
-        qn = (qr_res * qr_res).sum(-1).contiguous()
-        v, i = gk.fused_ivf_topk(list_probes[s:s + q_chunk].contiguous(),
-                                 qr_res, qn, list_decoded, decoded_norms, ids,
-                                 k, clamp=False)
-        out_v.append(v)
-        out_i.append(i)
-    return _fused_finish(torch.cat(out_v), torch.cat(out_i), q_rot, index, k)
+    with tracing.span("ivf_pq.search.scan"):
+        for s in range(0, q_rot.shape[0], q_chunk):
+            pr = probes[s:s + q_chunk]
+            qr_res = (q_rot[s:s + q_chunk, None, :]
+                      - centers_rot[pr.long()]).contiguous()  # [t, P, rot]
+            qn = (qr_res * qr_res).sum(-1).contiguous()
+            v, i = gk.fused_ivf_topk(list_probes[s:s + q_chunk].contiguous(),
+                                     qr_res, qn, list_decoded, decoded_norms,
+                                     ids, k, clamp=False)
+            out_v.append(v)
+            out_i.append(i)
+        v, i = torch.cat(out_v), torch.cat(out_i)
+    return _fused_finish(v, i, q_rot, index, k)
 
 
 def _search_fused_lut_core(queries, index: Index, k: int, n_probes: int):
@@ -1120,11 +1142,12 @@ def _search_fused_lut_core(queries, index: Index, k: int, n_probes: int):
     codes are scanned into its top-k carry; neither the LUTs nor the
     candidate slab exist in device memory."""
     q_rot, centers_rot, probes = _coarse_probes_rot(queries, index, n_probes)
-    codebooks = index.codebooks.to(torch.float32).contiguous()
-    cb_norms = (codebooks * codebooks).sum(-1).contiguous()
-    v, i = gk.fused_pq_topk(probes, q_rot, centers_rot, codebooks, cb_norms,
-                            index.list_codes.contiguous(), index.safe_ids(),
-                            k)
+    with tracing.span("ivf_pq.search.scan"):
+        codebooks = index.codebooks.to(torch.float32).contiguous()
+        cb_norms = (codebooks * codebooks).sum(-1).contiguous()
+        v, i = gk.fused_pq_topk(probes, q_rot, centers_rot, codebooks,
+                                cb_norms, index.list_codes.contiguous(),
+                                index.safe_ids(), k)
     return _fused_finish(v, i, q_rot, index, k)
 
 
@@ -1345,45 +1368,61 @@ def search(index: Index, queries, k: int,
     it takes. ``memory_mode`` (``"cache"`` or ``"lut"``) states the memory
     regime, as a sharded index built for one regime does. ``explain=True``
     returns a third element, the search's ``ExplainRecord`` (the engine
-    and reason of ``plan_search``)."""
-    params = params or SearchParams()
-    if index.list_codes is None:
-        raise ValueError("index has no data; call extend() first")
-    res = ensure_resources(res, index.device)
-    queries = as_query_array(queries, index.device, torch.float32)
-    if queries.shape[1] != index.dim:
-        raise ValueError(
-            f"query dim {queries.shape[1]} != index dim {index.dim}")
-    k = int(k)
-    plan = plan_search(index, k, params, filter is not None, res,
-                       memory_mode=memory_mode)
-    n_probes = int(min(params.n_probes, index.n_lists))
-    nq = queries.shape[0]
-    ex_params = {"k": k, "nq": nq, "bucket": query_bucket(nq),
-                 "n_probes": n_probes, "n_lists": index.n_lists,
-                 "list_pad": index.list_codes.shape[1],
-                 "pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
-                 "metric": index.metric.name}
-    ex_plan = dict(plan.plan)
-    kernel = {"pallas_cache": "fused_ivf_topk", "pallas_lut": "fused_pq_topk",
-              "cache": "ivf_scan" if plan.plan["unfused_ivf_scan"] else None,
-              "lut": None}[plan.engine]
-    if kernel is not None:
-        ex_plan.update(kernel_plan(index.device, kernel))
+    and reason of ``plan_search``).
+
+    Spans inside ``ivf_pq.search``: ``.plan`` (checks, ``plan_search``, the
+    explain record), ``.wait`` (inside ``.plan``, where staging host
+    queries or a host filter onto the card blocks the host), ``.coarse``
+    (the rotation, the coarse product and the probes' selection),
+    ``.scan`` and ``.overflow``."""
     with contextlib.ExitStack() as stack:
         cap = stack.enter_context(obs_explain.capture()) if explain else None
-        obs_explain.record_dispatch("ivf_pq", params.scan_mode, plan.engine,
-                                    plan.reason, params=ex_params,
-                                    plan=ex_plan)
-        out = _search_engine(queries, index, filter, k, n_probes, params,
+        with tracing.span("ivf_pq.search.plan"):
+            params = params or SearchParams()
+            if index.list_codes is None:
+                raise ValueError("index has no data; call extend() first")
+            res = ensure_resources(res, index.device)
+            with host_wait("ivf_pq", "queries", queries, index.device):
+                queries = as_query_array(queries, index.device, torch.float32)
+            if queries.shape[1] != index.dim:
+                raise ValueError(
+                    f"query dim {queries.shape[1]} != index dim {index.dim}")
+            words = None
+            if filter is not None:
+                with host_wait("ivf_pq", "filter", filter.words,
+                               index.device):
+                    words = filter.words.to(index.device)
+            k = int(k)
+            plan = plan_search(index, k, params, filter is not None, res,
+                               memory_mode=memory_mode)
+            n_probes = int(min(params.n_probes, index.n_lists))
+            nq = queries.shape[0]
+            ex_params = {"k": k, "nq": nq, "bucket": query_bucket(nq),
+                         "n_probes": n_probes, "n_lists": index.n_lists,
+                         "list_pad": index.list_codes.shape[1],
+                         "pq_dim": index.pq_dim, "pq_bits": index.pq_bits,
+                         "metric": index.metric.name}
+            ex_plan = dict(plan.plan)
+            kernel = {"pallas_cache": "fused_ivf_topk",
+                      "pallas_lut": "fused_pq_topk",
+                      "cache": ("ivf_scan" if plan.plan["unfused_ivf_scan"]
+                                else None),
+                      "lut": None}[plan.engine]
+            if kernel is not None:
+                ex_plan.update(kernel_plan(index.device, kernel))
+            obs_explain.record_dispatch("ivf_pq", params.scan_mode,
+                                        plan.engine, plan.reason,
+                                        params=ex_params, plan=ex_plan)
+        out = _search_engine(queries, index, words, k, n_probes, params,
                              plan, res)
     return explained(out, cap, explain)
 
 
-def _search_engine(queries, index: Index, filter: Optional[Bitset], k: int,
-                   n_probes: int, params: SearchParams, plan: SearchPlan,
-                   res: Resources):
-    """Run the engine ``plan`` resolved."""
+def _search_engine(queries, index: Index, words: Optional[torch.Tensor],
+                   k: int, n_probes: int, params: SearchParams,
+                   plan: SearchPlan, res: Resources):
+    """Run the engine ``plan`` resolved (``words``: the filter's bitset
+    words on the index's device, or None)."""
     if index.overflow_codes.shape[0] > 0:
         ensure_overflow_decoded(index, params.scan_cache_dtype)
     if plan.engine == "pallas_cache":
@@ -1397,7 +1436,6 @@ def _search_engine(queries, index: Index, filter: Optional[Bitset], k: int,
                                 res.workspace_limit_bytes))
     if plan.engine == "pallas_lut":
         return _search_fused_lut_core(queries, index, k, n_probes)
-    words = filter.words.to(index.device) if filter is not None else None
     if plan.engine == "cache":
         ensure_scan_cache(index, params.scan_cache_dtype)
         return _search_cache_core(queries, index, words, k, n_probes,

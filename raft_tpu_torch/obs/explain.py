@@ -42,9 +42,16 @@ notes of that body attach to it.
 
 Counter semantics: ``raft_tpu_dispatch_total`` counts one decision per
 public ``search()`` call, so it reconciles 1:1 with the batch-level span
-breadcrumbs. ``select_k``'s AUTO resolution records into the active
-capture only; counting it would count a family's inner selections, not
-the traffic.
+breadcrumbs. A family's inner selections are counted apart, so that they
+never read as traffic: ``raft_tpu_select_k_total{algo}`` counts every
+``select_k`` by the algorithm it resolved to (``note_select_k``, the same
+call that notes it into the active capture). Two more counters of the
+IVF searches sit beside them, host integers with no device read:
+``raft_tpu_host_sync_total{site}`` counts each place a search staged the
+caller's host arrays onto the card, a wait on the device
+(``note_host_sync``; a read-back elsewhere is not counted), and
+``raft_tpu_overflow_rows_scanned_total{family}`` the queries × overflow
+rows every search scans (``note_overflow_scan``).
 """
 
 from __future__ import annotations
@@ -62,6 +69,8 @@ __all__ = [
     "capture",
     "record_dispatch",
     "note_select_k",
+    "note_host_sync",
+    "note_overflow_scan",
     "dispatch_counts",
 ]
 
@@ -114,6 +123,19 @@ _DISPATCH = _metrics.REGISTRY.counter(
     "Search dispatch decisions by family, resolved engine, and "
     "reason code.",
     ("family", "engine", "reason"))
+_SELECT_K = _metrics.REGISTRY.counter(
+    "raft_tpu_select_k_total",
+    "select_k calls by the algorithm they resolved to.", ("algo",))
+_select_k_children: Dict[str, _metrics.CounterChild] = {}  # algo → child
+_HOST_SYNC = _metrics.REGISTRY.counter(
+    "raft_tpu_host_sync_total",
+    "Host arrays a search staged onto the card, each a wait on the "
+    "device, by site.", ("site",))
+_OVERFLOW_ROWS = _metrics.REGISTRY.counter(
+    "raft_tpu_overflow_rows_scanned_total",
+    "Queries x overflow-block rows scanned by the IVF searches.",
+    ("family",))
+_overflow_children: Dict[str, _metrics.CounterChild] = {}  # family → child
 
 
 @dataclasses.dataclass
@@ -224,7 +246,12 @@ def note_select_k(n: int, k: int, algo: str, k_pad: int = 0) -> None:
     Runs inside the family search bodies, once per selection, so it
     deliberately does NOT touch the dispatch counter (see the module
     docstring); it exists so ``search(..., explain=True)`` shows the full
-    plan of a query."""
+    plan of a query. The selection is counted on
+    ``raft_tpu_select_k_total{algo}`` whether or not a capture is open."""
+    child = _select_k_children.get(algo)
+    if child is None:
+        child = _select_k_children.setdefault(algo, _SELECT_K.labels(algo))
+    child.inc()
     stack = _stack()
     if not stack:
         return
@@ -240,6 +267,23 @@ def note_select_k(n: int, k: int, algo: str, k_pad: int = 0) -> None:
                 family="select_k", requested="auto", engine=str(algo),
                 reason="forced", params={"n": int(n), "k": int(k)},
                 plan={"k_pad": int(k_pad)}))
+
+
+def note_host_sync(site: str) -> None:
+    """Count one host wait on the device at ``site``, where a search
+    stages the caller's host arrays onto the card, on
+    ``raft_tpu_host_sync_total``."""
+    _HOST_SYNC.labels(site).inc()
+
+
+def note_overflow_scan(family: str, n_queries: int, n_rows: int) -> None:
+    """Count ``n_queries`` × ``n_rows`` overflow-block rows scanned by a
+    search of ``family`` on ``raft_tpu_overflow_rows_scanned_total``."""
+    child = _overflow_children.get(family)
+    if child is None:
+        child = _overflow_children.setdefault(family,
+                                              _OVERFLOW_ROWS.labels(family))
+    child.inc(int(n_queries) * int(n_rows))
 
 
 def dispatch_counts(
